@@ -1,0 +1,81 @@
+"""The port stands alone: neither ``openviic_tpu_torch`` nor ``chip_smoke.py``
+imports JAX, Flax, Optax, the JAX package or PyYAML at import time (the
+machine with the card has none of them).
+
+``chip_smoke.py --cpu`` runs in a subprocess whose imports of those
+packages raise; a static scan checks every import statement of the port."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml")
+# PyYAML is imported inside the one function that parses a config file
+LAZY_ALLOWED = {("openviic_tpu_torch/config/loader.py", "yaml")}
+
+_RUNNER = """
+import runpy, sys
+
+BLOCKED = {blocked!r}
+
+
+class BlockImports:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"import of {{name}} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, BlockImports())
+sys.argv = ["chip_smoke.py", "--cpu"]
+try:
+    runpy.run_path("chip_smoke.py", run_name="__main__")
+finally:
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print("blocked modules loaded:", loaded)
+"""
+
+
+def _port_sources():
+    yield ROOT / "chip_smoke.py"
+    yield from sorted((ROOT / "openviic_tpu_torch").rglob("*.py"))
+
+
+def test_chip_smoke_cpu_rehearsal_runs_without_jax_or_yaml():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUNNER.format(blocked=BLOCKED)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=60,
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "cpu rehearsal ok" in proc.stdout
+    assert "blocked modules loaded: []" in proc.stdout
+
+
+def test_port_modules_never_import_the_jax_stack():
+    offenders, scanned = [], set()
+    for path in _port_sources():
+        rel = path.relative_to(ROOT).as_posix()
+        scanned.add(rel)
+        tree = ast.parse(path.read_text(), filename=rel)
+        module_level = set(map(id, tree.body))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top not in BLOCKED:
+                    continue
+                if (rel, top) in LAZY_ALLOWED and id(node) not in module_level:
+                    continue
+                offenders.append(f"{rel}:{node.lineno} imports {name}")
+    assert {"chip_smoke.py", "openviic_tpu_torch/config/loader.py"} <= scanned
+    assert not offenders, offenders
