@@ -4,12 +4,12 @@
     python3 chip_smoke.py          # on a machine with one NVIDIA H100
     python3 chip_smoke.py --cpu    # rehearsal at tiny widths on the CPU
 
-On the card it runs five phases, each printing its seconds:
+On the card it runs these phases, each printing its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when CUDA is unavailable;
 2. build: nvcc over ``openviic_tpu_torch/csrc/*.cu`` (one process per
-   source) and the ptxas register/spill report;
+   source, all started together) and the ptxas register/spill report;
 3. kernel vs plain: the ``head_topk`` CUDA kernel against its plain PyTorch
    version on the card, at the flagship decode shape (N = 320 x 5 beams =
    1600 rows, D = 512, V = 10 000, k = 5), at a ragged shape (N = 37,
@@ -23,13 +23,29 @@ On the card it runs five phases, each printing its seconds:
    7 images).  The kernel's launch count must equal the decode steps, every
    id must lie in the vocab, and the captions must agree with the
    fast-select path (head kernel off) on >= 95% of the images;
-5. the last line: ``{"ok": true, "device": {...}}``.
+5. step kernels vs plain: ``beam_select_attention`` (both mask axes),
+   ``resident_layer_step`` and ``fused_layer_step`` (rows other than t
+   bit-unchanged) against their plain versions at the main shape at a
+   mid-decode step and at a ragged shape (7 images, 35 rows), with the
+   flagship's layer-0 weights; then each one's time beside its bound, its
+   plain version's time, and the gather + SDPA composite (kernel 2) or the
+   eager ``DecoderLayer.step`` it replaces (kernels 3 and 4);
+6. decode paths at the serve shape over the same requests: (a)
+   ``TRAINING.DECODE_ATTN_KERNEL`` in the pipeline, (b) ``resident_kernel``,
+   (c) ``beam_resident=False`` with ``OPENVIIC_FUSED_STEP=1`` and without;
+   each asserts its kernels' launches per step, valid ids and a mean
+   best-beam log-prob within 0.5% of its reference path's, and prints its
+   captions/s and caption agreement;
+7. forced decode: the served captions fed back through each kernel path
+   and the eager step, per-step log-probs compared;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
-The line before the last is a JSON object with one entry per kernel of the
-path (launches on the serve phase, error, times and bound).  Any failure
-raises, and the script exits non-zero without that line.  ``--cpu`` runs
-phases 3-4 at tiny widths with the plain versions on the CPU and ends with
-``cpu rehearsal ok`` instead.  The script writes nothing outside
+The line before the last is a JSON object with one entry per kernel (its
+launches on its decode path, error, times and bound); the line before that
+is the card's name and power limit.  Any failure raises, and the script
+exits non-zero without those lines.  ``--cpu`` runs phases 3-7 at tiny
+widths with the plain versions on the CPU and ends with ``cpu rehearsal
+ok`` instead.  The script writes nothing outside
 ``openviic_tpu_torch/_build/``.
 """
 
@@ -49,6 +65,7 @@ import torch  # noqa: E402
 
 # Published H100 SXM peaks (dense, no sparsity) for the bound column.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 FLAGSHIP = dict(d_model=512, heads=8, layers=3, d_ff=2048, d_feature=1024,
@@ -57,6 +74,20 @@ TINY = dict(d_model=32, heads=2, layers=2, d_ff=64, d_feature=24,
             n_regions=7, vocab=300, max_len=12, beam=5, batch=8)
 AGREEMENT_MIN = 0.95
 LSE_ATOL = 1e-3
+ULP_FLOOR = 1 / 16  # bf16 ulps are counted at magnitudes of at least this
+# resident_layer_step's y against its plain version: both round the same
+# intermediates through bf16 (products' operands, q.k products, softmax
+# weights); an f32 sum taken in another order can flip one such rounding,
+# which moves y by a few ulps at most
+RESIDENT_Y_ULPS = 4
+RESIDENT_Y_SHARE = 0.01
+# a decode path's mean best-beam log-prob against its reference path's
+SCORE_RTOL = 0.005
+# a forced token's per-step log-prob through a kernel path against the
+# eager step's: two bf16 ulps of a logit in [16, 32), as the head's bf16
+# logits round at 0.125 there
+FORCED_ATOL = 0.25
+FORCED_SHARE = 0.99
 
 
 def log(msg: str) -> None:
@@ -70,7 +101,7 @@ def timed(name: str, fn):
     return out
 
 
-def model_config(s):
+def model_config(s, attn_kernel: bool = False):
     from openviic_tpu_torch.config import ConfigNode
 
     def attn():
@@ -98,7 +129,8 @@ def model_config(s):
                                "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1},
         },
     }
-    training = {"EVALUATING_BEAM_SIZE": s["beam"], "DECODE_HEAD_KERNEL": True}
+    training = {"EVALUATING_BEAM_SIZE": s["beam"], "DECODE_HEAD_KERNEL": True,
+                "DECODE_ATTN_KERNEL": attn_kernel}
     return ConfigNode({"MODEL": model, "TRAINING": training})
 
 
@@ -240,6 +272,53 @@ def kernel_phase(device, s):
 
 
 # ---------------------------------------------------------------- phase 4
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_requests(device, requests, decode):
+    """decode(request) -> (captions, ids[, totals]) over each request,
+    host-timed around work that ends in a synchronize.  Returns (results,
+    seconds)."""
+    results, seconds = [], []
+    for request in requests:
+        t0 = time.perf_counter()
+        out = decode(request)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+        results.append(out)
+    return results, seconds
+
+
+def check_outputs(name, s, vocab, requests, results) -> None:
+    """Every request gets one caption of vocab words per image and ids of
+    the right shape, all inside the vocab."""
+    for request, (captions, ids, *_) in zip(requests, results):
+        if len(captions) != len(request) or ids.shape != (len(request), s["max_len"]):
+            raise AssertionError(f"{name}: {len(captions)} captions, ids {ids.shape} for "
+                                 f"{len(request)} images")
+        if ids.min() < 0 or ids.max() >= len(vocab):
+            raise AssertionError(f"{name}: token id outside [0, {len(vocab)}): "
+                                 f"{ids.min()}..{ids.max()}")
+        for caption in captions:
+            if not isinstance(caption, str) or any(
+                tok not in vocab.stoi or tok in vocab.specials for tok in caption.split()
+            ):
+                raise AssertionError(f"{name}: caption not made of vocab words: {caption!r}")
+
+
+def agreement(results, other) -> float:
+    """The share of images whose captions are identical in two runs."""
+    pairs = [(a, b) for ra, rb in zip(results, other) for a, b in zip(ra[0], rb[0])]
+    return float(np.mean([a == b for a, b in pairs]))
+
+
+def throughput(s, seconds) -> float:
+    """Captions per second over the two full-batch requests."""
+    return 2 * s["batch"] / (seconds[0] + seconds[1])
+
+
 def serve_phase(device, s, card: str):
     from openviic_tpu_torch.ops.head_topk import head_topk
     from openviic_tpu_torch.serving import CaptioningPipeline
@@ -253,40 +332,22 @@ def serve_phase(device, s, card: str):
     requests = [images[: s["batch"]], images[s["batch"] : 2 * s["batch"]], images[2 * s["batch"] :]]
     pipe.caption_features(requests[2])  # warm-up: cuBLAS handles, allocator
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    sync()
+    sync(device)
     head_topk.launches = 0
     steps0 = pipe.searcher.steps
-    results, seconds = [], []
-    for request in requests:
-        t0 = time.perf_counter()
-        captions, ids = pipe.caption_features(request, return_ids=True)
-        sync()
-        seconds.append(time.perf_counter() - t0)
-        results.append((captions, ids))
+    results, seconds = run_requests(
+        device, requests, lambda request: pipe.caption_features(request, return_ids=True))
     launches = head_topk.launches
     steps = pipe.searcher.steps - steps0
     expected = steps if device.type == "cuda" else 0
     if steps <= 0 or launches != expected:
         raise AssertionError(f"head_topk launched {launches} times over {steps} decode steps")
-    for request, (captions, ids) in zip(requests, results):
-        if len(captions) != len(request) or ids.shape != (len(request), s["max_len"]):
-            raise AssertionError(f"{len(captions)} captions, ids {ids.shape} for {len(request)} images")
-        if ids.min() < 0 or ids.max() >= len(vocab):
-            raise AssertionError(f"token id outside [0, {len(vocab)}): {ids.min()}..{ids.max()}")
-        for caption in captions:
-            if not isinstance(caption, str) or any(
-                tok not in vocab.stoi or tok in vocab.specials for tok in caption.split()
-            ):
-                raise AssertionError(f"caption not made of vocab words: {caption!r}")
-    rate = 2 * s["batch"] / (seconds[0] + seconds[1])
+    check_outputs("serve", s, vocab, requests, results)
     log(f"  served {sum(len(r) for r in requests)} images in requests of "
         f"{[len(r) for r in requests]}: {[round(t, 4) for t in seconds]} s; "
         f"{steps} decode steps, {launches} head_topk launches")
-    log(f"  decode throughput at batch {s['batch']}, beam {s['beam']}: {rate:.1f} captions/s on {card}")
+    log(f"  decode throughput at batch {s['batch']}, beam {s['beam']}: "
+        f"{throughput(s, seconds):.1f} captions/s on {card}")
     log(f"  sample caption: {results[0][0][0]!r}")
 
     fast = CaptioningPipeline(config, vocab, batch_size=s["batch"], head_kernel=False,
@@ -296,7 +357,442 @@ def serve_phase(device, s, card: str):
     log(f"  captions identical to the fast-select path: {same:.4f} of {len(fast_captions)}")
     if same < AGREEMENT_MIN:
         raise AssertionError(f"agreement {same:.4f} < {AGREEMENT_MIN}")
-    return launches
+    return dict(launches=launches, pipe=pipe, vocab=vocab, requests=requests,
+                results=results, steps=steps)
+
+
+# ---------------------------------------------------------------- phase 5
+def ulp_errors(got: torch.Tensor, want: torch.Tensor, floor: float = ULP_FLOOR):
+    """(max |error|, max error in bf16 ulps, share of elements beyond one
+    ulp); ulps are counted at max(|want|, floor): below the floor, f32 sums
+    of unit-size terms in another order differ by more than a bf16 ulp of
+    the small result."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulps = err / bf16_ulp(w.abs().clamp_min(floor))
+    return err.max().item(), ulps.max().item(), (ulps > 1).float().mean().item()
+
+
+def step_case(gen, img, s, t, device):
+    """Inputs of one mid-decode step (bf16 activations and caches): an
+    ancestry whose own slot holds position t, <pad> input tokens on ~5% of
+    the rows, raw per-slot <pad> flags at ~10% of the earlier positions after
+    0 (at t, the slot's own input token's), positions past t masked, images
+    with 25-50 live regions."""
+    beam, L, M, D, h = s["beam"], s["max_len"], s["n_regions"], s["d_model"], s["heads"]
+    N, d = img * beam, D // h
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+
+    anc = torch.randint(0, beam, (img, beam, L), generator=gen)
+    anc[:, :, t] = torch.arange(beam)
+    is_pad = torch.rand((N, 1), generator=gen) < 0.05
+    pads = torch.rand((N, L), generator=gen) < 0.1
+    pads[:, 0] = False
+    pads[:, t] = is_pad[:, 0]  # each slot's flag at t is its current input token's
+    live_regions = torch.randint(M // 2, M + 1, (img,), generator=gen)
+    case = dict(
+        x=randn(N, D), k=randn(N, L, h, d), v=randn(N, L, h, d),
+        ck=randn(img, M, h, d), cv=randn(img, M, h, d), anc=anc,
+        smask=pads | (torch.arange(L) > t)[None],
+        cmask=torch.arange(M)[None] >= live_regions[:, None], is_pad=is_pad,
+    )
+    return {k: v.to(device) for k, v in case.items()}
+
+
+def distinct_rows(rows: torch.Tensor, live: torch.Tensor) -> int:
+    """How many distinct cache rows the live (row, position) pairs read."""
+    return int(torch.unique(rows[live]).numel())
+
+
+def bound(flops: float, peak_flops: float, nbytes: float):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, **extra)
+
+
+def beam_select_phase(device, s):
+    """ops.beam_select_attention against its plain version: the main shape
+    at a mid-decode step with both mask axes, and a ragged shape (7 images,
+    35 rows) at the last step; then times and the bound."""
+    from openviic_tpu_torch.ops.beam_select_attention import (
+        ancestor_rows, beam_select_attention, beam_select_attention_reference)
+
+    gen = torch.Generator().manual_seed(1)
+    beam, L, D, h = s["beam"], s["max_len"], s["d_model"], s["heads"]
+    worst, timed_case = 0.0, None
+    for img, t, axes in ((s["batch"], L // 2, ("p", "q")), (7, L - 1, ("p",))):
+        c = step_case(gen, img, s, t, device)
+        N = img * beam
+        src = ancestor_rows(c["anc"])
+        pos = torch.arange(L, device=device)
+        q = c["x"].reshape(N, 1, h, D // h)
+        for axis in axes:
+            mask = c["smask"] if axis == "p" else c["smask"][src, pos]
+            args = (q, c["k"], c["v"], c["anc"], mask.reshape(N, 1, 1, L).contiguous())
+            got = beam_select_attention(*args, mask_axis=axis)
+            want = beam_select_attention_reference(*args, mask_axis=axis)
+            sync(device)
+            err, ulps, _ = ulp_errors(got, want)
+            if not torch.isfinite(got).all() or ulps > 1:
+                raise AssertionError(f"beam_select_attention N={N} t={t} mask_axis={axis}: "
+                                     f"{ulps:.2f} bf16 ulps (max |err| {err:.3g}) > 1")
+            worst = max(worst, err)
+            log(f"  beam_select_attention N={N} L={L} h={h} t={t} mask_axis={axis}: "
+                f"max |err| {err:.3g} = {ulps:.2f} bf16 ulps")
+            if timed_case is None:
+                timed_case = (args, src, pos, c["smask"][src, pos])
+    if device.type != "cuda":
+        return None
+    args, src, pos, dead = timed_case
+    q, k, v, anc, mask = args
+    N, _, h, d = q.shape
+
+    def library():  # torch.gather of the ancestor K/V, then SDPA; timed here only
+        idx = anc[..., None].expand(-1, -1, -1, h * d)
+        b_s = anc.shape[0]
+        ks = torch.gather(k.reshape(b_s, beam, L, h * d), 1, idx).reshape(N, L, h, d)
+        vs = torch.gather(v.reshape(b_s, beam, L, h * d), 1, idx).reshape(N, L, h, d)
+        live = ~mask.reshape(N, L)[src, pos]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+            attn_mask=live[:, None, None, :])
+
+    ms = time_cuda(lambda: beam_select_attention(*args, mask_axis="p"), 50)
+    plain_ms = time_cuda(lambda: beam_select_attention_reference(*args, mask_axis="p"), 10)
+    library_ms = time_cuda(library, 50)
+    live = ~dead
+    n_live = int(live.sum())
+    rows = distinct_rows(src * L + pos, live)
+    nbytes = rows * h * d * 2 * 2 + 2 * N * h * d * 2 + N * L * (8 + 1)
+    flops = 4.0 * n_live * h * d
+    bound_ms, bound_by = bound(flops, PEAK_F32_FLOPS, nbytes)
+    log(f"  beam_select_attention at N={N} L={L} t={L // 2}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.2f} MB over {rows} distinct live cache rows, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return entry("beam_select_attention", "openviic_tpu_torch/csrc/beam_select_attention.cu",
+                 "openviic_tpu/ops/beam_select_attention.py:173", worst, ms, plain_ms,
+                 bound_ms, bound_by, library_ms)
+
+
+def layer_step_phase(device, s, layer, resident: bool):
+    """ops.resident_layer_step (resident) or ops.fused_layer_step against its
+    plain version, with the flagship's layer-0 weights: the main shape at a
+    mid-decode step and a ragged shape (7 images, 35 rows) at the last
+    step; then times, the unfused eager ``DecoderLayer.step`` it replaces,
+    and the bound."""
+    from openviic_tpu_torch.ops.beam_select_attention import ancestor_rows
+    from openviic_tpu_torch.ops.fused_decoder_step import (
+        fused_layer_step, fused_layer_step_reference)
+    from openviic_tpu_torch.ops.resident_layer_step import (
+        resident_layer_step, resident_layer_step_reference)
+
+    name = "resident_layer_step" if resident else "fused_layer_step"
+    gen = torch.Generator().manual_seed(2 if resident else 3)
+    weights = layer.fused_weights(torch.bfloat16)
+    beam, L, M, D, h = s["beam"], s["max_len"], s["n_regions"], s["d_model"], s["heads"]
+    F = weights["w1"].shape[1]
+    worst, timed_case = 0.0, None
+    for img, t in ((s["batch"], L // 2), (7, L - 1)):
+        c = step_case(gen, img, s, t, device)
+        N = img * beam
+        if resident:
+            args = (c["x"][:, None], c["k"], c["v"], c["ck"], c["cv"], c["anc"],
+                    c["smask"].reshape(N, 1, 1, L), c["cmask"].reshape(img, 1, 1, M), c["is_pad"])
+            got = resident_layer_step(*args, t, weights, h)
+            want = resident_layer_step_reference(*args, t, weights, h)
+            sync(device)
+            y_err, y_ulps, y_share = ulp_errors(got[0], want[0], floor=1.0)
+            kv = [ulp_errors(g, w) for g, w in zip(got[1:], want[1:])]
+            ok = (torch.isfinite(got[0]).all() and y_ulps <= RESIDENT_Y_ULPS
+                  and y_share <= RESIDENT_Y_SHARE and all(u <= 1 for _, u, _ in kv))
+            detail = (f"y {y_ulps:.2f} ulps of max(|y|, 1) (max |err| {y_err:.3g}, "
+                      f"{y_share:.2e} beyond 1 ulp); k_new/v_new "
+                      f"{max(u for _, u, _ in kv):.2f} ulps")
+            err = max(y_err, *(e for e, _, _ in kv))
+        else:
+            rows = lambda a: a.reshape(img, M, D).repeat_interleave(beam, dim=0)  # noqa: E731
+            k0, v0 = c["k"].reshape(N, L, D), c["v"].reshape(N, L, D)
+            ins = (c["x"], rows(c["ck"]), rows(c["cv"]), c["smask"],
+                   c["cmask"].repeat_interleave(beam, dim=0))
+            kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+            y = fused_layer_step(ins[0], kk, vk, *ins[1:], t, weights, h)[0]
+            y_ref = fused_layer_step_reference(ins[0], kp, vp, *ins[1:], t, weights, h)[0]
+            sync(device)
+            others = torch.arange(L, device=device) != t
+            untouched = bool(torch.equal(kk[:, others], k0[:, others])
+                             and torch.equal(vk[:, others], v0[:, others]))
+            errs = [ulp_errors(y, y_ref), ulp_errors(kk[:, t], kp[:, t]),
+                    ulp_errors(vk[:, t], vp[:, t])]
+            ok = torch.isfinite(y).all() and untouched and all(u <= 1 for _, u, _ in errs)
+            detail = (f"y {errs[0][1]:.2f} ulps (max |err| {errs[0][0]:.3g}), cache row t "
+                      f"{max(errs[1][1], errs[2][1]):.2f} ulps, other rows "
+                      f"{'bit-unchanged' if untouched else 'CHANGED'}")
+            err = max(e for e, _, _ in errs)
+            args = (ins, k0, v0)
+        if not ok:
+            raise AssertionError(f"{name} N={N} t={t}: {detail}")
+        worst = max(worst, err)
+        log(f"  {name} N={N} L={L} M={M} D={D} F={F} t={t}: {detail}")
+        if timed_case is None:
+            timed_case = (c, args, img, t)
+    if device.type != "cuda":
+        return None
+
+    c, args, img, t = timed_case
+    N = img * beam
+    if resident:
+        kernel = lambda: resident_layer_step(*args, t, weights, h)  # noqa: E731
+        plain = lambda: resident_layer_step_reference(*args, t, weights, h)  # noqa: E731
+        cache = {"self": {"k": c["k"].clone(), "v": c["v"].clone()},
+                 "cross": {"k": c["ck"], "v": c["cv"]}}
+        eager = lambda: layer.step(  # noqa: E731
+            c["x"][:, None], cache, t, args[6], args[7], ancestry=c["anc"],
+            beam_select=beam, mask_axis="p")
+    else:
+        ins, k0, v0 = args
+        kk, vk = k0.clone(), v0.clone()
+        kernel = lambda: fused_layer_step(ins[0], kk, vk, *ins[1:], t, weights, h)  # noqa: E731
+        plain = lambda: fused_layer_step_reference(  # noqa: E731
+            ins[0], kk, vk, *ins[1:], t, weights, h)
+        cache = {"self": {"k": k0.clone().reshape(N, L, h, D // h),
+                          "v": v0.clone().reshape(N, L, h, D // h)},
+                 "cross": {"k": ins[1].reshape(N, M, h, D // h),
+                           "v": ins[2].reshape(N, M, h, D // h)}}
+        eager = lambda: layer.step(  # noqa: E731
+            c["x"][:, None], cache, t, ins[3].reshape(N, 1, 1, L), ins[4].reshape(N, 1, 1, M))
+    ms = time_cuda(kernel, 20)
+    plain_ms = time_cuda(plain, 5)
+    eager_ms = time_cuda(eager, 20)
+    # how far the kernel's numerics sit from the eager bf16 step it replaces
+    # (informational: the eager step rounds every intermediate to bf16)
+    y_kernel, y_eager = kernel()[0].reshape(N, D), eager().reshape(N, D)
+    keep = ~c["is_pad"][:, 0] if resident else torch.ones(N, dtype=torch.bool, device=device)
+    e_err, e_ulps, e_share = ulp_errors(y_kernel[keep], y_eager[keep], floor=1.0)
+    log(f"  {name} against the eager DecoderLayer.step: max |dy| {e_err:.3g} = {e_ulps:.1f} "
+        f"ulps of max(|y|, 1), {e_share:.3f} of the elements beyond 1 ulp")
+
+    # the bound: what this step's inputs need
+    pos = torch.arange(L, device=device)
+    weight_bytes = sum(w.numel() for w in weights.values()) * 2
+    gemm_flops = 2.0 * N * D * (6 * D + 2 * F)
+    if resident:
+        src = ancestor_rows(c["anc"])
+        live = ~(c["smask"][src, pos] | (pos == t))
+        self_rows = distinct_rows(src * L + pos, live)
+        cross_rows = int((~c["cmask"]).sum())  # image granularity
+        live_cross = int((~c["cmask"]).sum(dim=1).repeat_interleave(beam).sum())
+        nbytes = ((self_rows + cross_rows) * D * 2 * 2 + weight_bytes + 4 * N * D * 2
+                  + N * L * (8 + 1) + img * M + N)
+        flops = gemm_flops + 4.0 * (int(live.sum()) + N + live_cross) * D
+    else:
+        live = ~c["smask"] & (pos != t)
+        live_cross = int((~ins[4]).sum())  # one copy per row
+        nbytes = ((int(live.sum()) + live_cross) * D * 2 * 2 + weight_bytes + 2 * N * D * 2
+                  + 2 * N * D * 2 + N * (L + M))
+        # f32 products go to the tensor cores as three bf16 terms each
+        flops = 3 * gemm_flops + 4.0 * (int(live.sum()) + N + live_cross) * D
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    log(f"  {name} at N={N} t={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, eager "
+        f"DecoderLayer.step {eager_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    replaces = ("openviic_tpu/ops/resident_layer_step.py:201" if resident
+                else "openviic_tpu/ops/fused_decoder_step.py:190")
+    return entry(name, "openviic_tpu_torch/csrc/layer_step.cu", replaces, worst, ms, plain_ms,
+                 bound_ms, bound_by, None, eager_ms=eager_ms)
+
+
+# ---------------------------------------------------------------- phase 6
+def decode_paths_phase(device, s, served, card: str):
+    """Three more decode paths of the flagship at the serve shape, over the
+    same three requests: (a) CaptioningPipeline with DECODE_ATTN_KERNEL and
+    the head kernel; (b) resident_kernel with the head kernel; (c) the
+    non-resident path with OPENVIIC_FUSED_STEP=1, and without it.  Each
+    path's launches per decode step are asserted, its ids must lie in the
+    vocab, and the mean best-beam log-prob of its captions must be within
+    SCORE_RTOL of its reference path's; caption agreement is printed beside
+    that of two eager paths (non-resident against beam-resident), since
+    with random weights at bf16 near-equal beams make captions flip under
+    any change of rounding.  Returns each step kernel's launches on its
+    path."""
+    import os
+
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
+    from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step
+    from openviic_tpu_torch.ops.head_topk import head_topk
+    from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    counted = (head_topk, beam_select_attention, resident_layer_step, fused_layer_step)
+    cuda = device.type == "cuda"
+    vocab, requests, pipe = (served[k] for k in ("vocab", "requests", "pipe"))
+    n_layers = len(pipe.model.decoder.layers)
+
+    def searcher_decode(searcher):
+        def decode(request):
+            outputs, log_probs = searcher(pipe._batch(request), s["beam"])
+            ids = outputs[: len(request)].cpu().numpy()
+            totals = log_probs[: len(request)].sum(-1).cpu().numpy()
+            return vocab.decode_caption(ids), ids, totals
+        return decode
+
+    def drive(name, searcher, decode, expect):
+        """Warm up (on the card), zero every count, run the three requests,
+        read the counts; ``expect`` maps each kernel to its launches per
+        step."""
+        if cuda:
+            decode(requests[2])
+            sync(device)
+        for fn in counted:
+            fn.launches = 0
+        steps0 = searcher.steps
+        results, seconds = run_requests(device, requests, decode)
+        steps = searcher.steps - steps0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = {fn.__name__: (expect.get(fn.__name__, 0) * steps if cuda else 0) for fn in counted}
+        if steps <= 0 or launches != want:
+            raise AssertionError(f"{name}: launches {launches} over {steps} decode steps, "
+                                 f"expected {want}")
+        check_outputs(name, s, vocab, requests, results)
+        log(f"  {name}: {[round(t, 4) for t in seconds]} s per request, "
+            f"{throughput(s, seconds):.1f} captions/s on {card}; {steps} steps, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return results, launches
+
+    def scores(searcher, results, name):
+        """Best-beam total log-probs of a run whose decode returned none:
+        decoded again (uncounted), and the ids must come out the same."""
+        rescored = run_requests(device, requests, searcher_decode(searcher))[0]
+        for (_, ids, _), (_, again, _) in zip(results, rescored):
+            if not np.array_equal(ids, again):
+                raise AssertionError(f"{name}: a second decode of the same batch differs")
+        return rescored
+
+    def compare(name, results, ref, ref_name, gate=True):
+        same = agreement(results, ref)
+        got = np.concatenate([r[2] for r in results])
+        want = np.concatenate([r[2] for r in ref])
+        gap = np.abs(got - want)
+        rel = abs(got.mean() - want.mean()) / abs(want.mean())
+        log(f"  {name} against {ref_name}: captions identical {same:.4f}; mean best-beam "
+            f"log-prob {got.mean():.4f} against {want.mean():.4f} (relative {rel:.2e}); "
+            f"|difference| <= 0.5 on {np.mean(gap <= 0.5):.4f} of the images")
+        if gate and rel > SCORE_RTOL:
+            raise AssertionError(f"{name}: mean best-beam log-prob differs by {rel:.2e} > "
+                                 f"{SCORE_RTOL} from {ref_name}")
+        return same
+
+    out = {}
+    base = scores(pipe.searcher, [(c, i, None) for c, i in served["results"]], "serve")
+
+    attn_pipe = CaptioningPipeline(model_config(s, attn_kernel=True), vocab,
+                                   batch_size=s["batch"], device=device, seed=0)
+    res_a, launches = drive(
+        "(a) DECODE_ATTN_KERNEL + head kernel", attn_pipe.searcher,
+        lambda request: attn_pipe.caption_features(request, return_ids=True),
+        {"beam_select_attention": n_layers, "head_topk": 1})
+    out["beam_select_attention"] = launches["beam_select_attention"]
+    res_a = scores(attn_pipe.searcher, [(c, i, None) for c, i in res_a], "(a)")
+    compare("(a)", res_a, base, "the head-kernel path")
+
+    resident = BeamSearcher(pipe.model, torch.bfloat16, head_kernel=True, resident_kernel=True)
+    res_b, launches = drive("(b) resident_kernel + head kernel", resident,
+                            searcher_decode(resident),
+                            {"resident_layer_step": n_layers, "head_topk": 1})
+    out["resident_layer_step"] = launches["resident_layer_step"]
+    compare("(b)", res_b, base, "the head-kernel path")
+
+    before = os.environ.get("OPENVIIC_FUSED_STEP")
+    os.environ["OPENVIIC_FUSED_STEP"] = "1"
+    try:
+        fused = BeamSearcher(pipe.model, torch.bfloat16, beam_resident=False)
+        res_c, launches = drive("(c) non-resident, OPENVIIC_FUSED_STEP=1", fused,
+                                searcher_decode(fused), {"fused_layer_step": n_layers})
+    finally:
+        if before is None:
+            del os.environ["OPENVIIC_FUSED_STEP"]
+        else:
+            os.environ["OPENVIIC_FUSED_STEP"] = before
+    out["fused_layer_step"] = launches["fused_layer_step"]
+    plain = BeamSearcher(pipe.model, torch.bfloat16, beam_resident=False)
+    res_nr, _ = drive("(c) non-resident, no step kernel", plain, searcher_decode(plain), {})
+    compare("(c)", res_c, res_nr, "the non-resident path without the flag")
+    compare("non-resident (eager)", res_nr, base, "the beam-resident head-kernel path")
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+def forced_phase(device, s, served):
+    """The step kernels inside a whole decode with the tokens forced: the
+    serve phase's captions of the first request are fed back one step at a
+    time (beam 1) through the eager step and through each kernel path, and
+    each step's log-prob of the forced token must agree with the eager
+    path's within FORCED_ATOL on at least FORCED_SHARE of the scored
+    (image, step) pairs (steps up to the first <eos>).  Unlike caption
+    agreement, a rounding difference cannot turn into another caption."""
+    import os
+
+    from openviic_tpu_torch.models.base import make_decode_cache
+
+    pipe, vocab, model = served["pipe"], served["vocab"], served["pipe"].model
+    L = s["max_len"]
+    ids = torch.from_numpy(served["results"][0][1]).to(device)
+    batch = pipe._batch(served["requests"][0])
+    tokens = torch.cat([torch.full_like(ids[:, :1], vocab.bos_idx), ids[:, :-1]], dim=1)
+    is_eos = (ids == vocab.eos_idx).long()
+    scored = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+
+    @torch.no_grad()
+    def score(resident: bool, **flags):
+        memory, mask = model.encoder_forward(batch)
+        b_s = memory.shape[0]
+        cache = make_decode_cache(model.config.DECODER, vocab, b_s, dtype=torch.bfloat16,
+                                  device=device)
+        cache = model.prepare_cache(cache, memory)
+        ancestry = torch.zeros((b_s, 1, L), dtype=torch.long, device=device) if resident else None
+        per_step = []
+        for t in range(L):
+            log_probs, cache = model.decode_step(
+                t, tokens[:, t : t + 1], cache, mask, ancestry=ancestry,
+                beam_select=1 if resident else None, **flags)
+            per_step.append(torch.gather(log_probs[: len(ids)], 1, ids[:, t : t + 1])[:, 0])
+        return torch.stack(per_step, dim=1)
+
+    def check(name, got, want, gate=True):
+        diff = (got - want).abs()[scored]
+        share = (diff <= FORCED_ATOL).float().mean().item()
+        totals = ((got - want) * scored).sum(dim=1).abs()
+        log(f"  {name}: per-step |d log-prob| max {diff.max().item():.4g}, mean "
+            f"{diff.mean().item():.3g}, within {FORCED_ATOL} on {share:.4f} of "
+            f"{diff.numel()} steps; per-caption |d total| mean {totals.mean().item():.3g}, "
+            f"max {totals.max().item():.3g}")
+        if gate and share < FORCED_SHARE:
+            raise AssertionError(f"{name}: {share:.4f} of the forced steps within "
+                                 f"{FORCED_ATOL} < {FORCED_SHARE}")
+
+    eager = score(True)
+    check("(a) attention kernel against the eager step", score(True, attn_kernel=True), eager)
+    check("(b) resident kernel against the eager step", score(True, resident_kernel=True), eager)
+    eager_nr = score(False)
+    before = os.environ.get("OPENVIIC_FUSED_STEP")
+    os.environ["OPENVIIC_FUSED_STEP"] = "1"
+    try:
+        fused = score(False)
+    finally:
+        if before is None:
+            del os.environ["OPENVIIC_FUSED_STEP"]
+        else:
+            os.environ["OPENVIIC_FUSED_STEP"] = before
+    check("(c) fused step against the eager non-resident step", fused, eager_nr)
+    check("eager non-resident against eager beam-resident", eager_nr, eager)
 
 
 def nvidia_smi_line() -> str:
@@ -328,8 +824,12 @@ def main() -> int:
         import openviic_tpu_torch  # noqa: F401  (fails outside a checkout)
 
         device = torch.device("cpu")
+        # tiny widths: one thread is fastest, and keeps the rehearsal's cost
+        # steady when other processes share the cores
+        torch.set_num_threads(1)
         timed("kernel vs plain (cpu, plain versions)", lambda: kernel_phase(device, TINY))
-        timed("serve (cpu)", lambda: serve_phase(device, TINY, "the CPU"))
+        served = timed("serve (cpu)", lambda: serve_phase(device, TINY, "the CPU"))
+        step_phases(device, TINY, served, "the CPU")
         log(f"total: {time.perf_counter() - t_start:.3f} s")
         log("cpu rehearsal ok")
         return 0
@@ -353,13 +853,35 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     logs = timed("build", lambda: cuda_build.build(force=True))
     log(f"  ptxas: {ptxas_summary(logs)}")
-    entry = timed("kernel vs plain", lambda: kernel_phase(device, FLAGSHIP))
-    entry["launches"] = timed("serve", lambda: serve_phase(device, FLAGSHIP, smi))
+    head = timed("kernel vs plain", lambda: kernel_phase(device, FLAGSHIP))
+    served = timed("serve", lambda: serve_phase(device, FLAGSHIP, smi))
+    head["launches"] = served["launches"]
+    entries = [head] + step_phases(device, FLAGSHIP, served, smi)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+def step_phases(device, s, served, card: str):
+    """Phases 5-7: the three decode-step kernels against their plain
+    versions, the decode paths that launch them, and those paths with the
+    tokens forced.  Returns the kernels'
+    entries of the per-kernel line (none on the CPU)."""
+    layer = served["pipe"].model.decoder.layers[0]
+    found = [
+        timed("beam_select_attention vs plain", lambda: beam_select_phase(device, s)),
+        timed("resident_layer_step vs plain", lambda: layer_step_phase(device, s, layer, True)),
+        timed("fused_layer_step vs plain", lambda: layer_step_phase(device, s, layer, False)),
+    ]
+    launches = timed("decode paths", lambda: decode_paths_phase(device, s, served, card))
+    timed("forced decode", lambda: forced_phase(device, s, served))
+    if device.type != "cuda":
+        return []
+    for e in found:
+        e["launches"] = launches[e["name"]]
+    return found
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Batched beam search, beam-resident (counterpart of
-``openviic_tpu/decoding/beam_search.py::beam_search`` with
-``beam_resident=True``).
+"""Batched beam search (counterpart of
+``openviic_tpu/decoding/beam_search.py::beam_search``), beam-resident or
+not.
 
 The decode is a Python loop over steps.  Beam-resident mode never reorders
 the KV caches: each beam writes its own slot, and an ancestry table
@@ -22,12 +22,14 @@ Selection follows the JAX package exactly:
  - ``early_exit``: stop once every beam of every image has emitted <eos>
    (at t >= 2), which changes no observable output.
 
-Two selection branches: fast select (the decoder returns raw logits and
-their logsumexp; ``_select_topk_hier``) and the head kernel (the decoder
+Three selection branches: fast select (the decoder returns raw logits and
+their logsumexp; ``_select_topk_hier``), the head kernel (the decoder
 returns its pre-head hidden state and ``ops.head_topk`` computes head, lse
-and per-row top-k in one kernel).  Selection math is float32 whatever the
-compute dtype.  The default non-resident path and ``return_probs`` are not
-ported."""
+and per-row top-k in one kernel), and, on the non-resident path (the JAX
+default), full log-softmax distributions through ``_select_topk`` with the
+caches reordered physically every step.  Selection math is float32
+whatever the compute dtype.  ``return_probs``, ``beam_search_multi`` and
+dropout-active sampling are not ported."""
 
 from __future__ import annotations
 
@@ -125,6 +127,51 @@ def _finish_select(s1_logit, s1_words, offset, finished, seq_logprob, beam_size:
     return sel_v, selected_beam, selected_words, selected_logit
 
 
+def _select_topk(candidate_logprob, beam_size: int):
+    """Top beam_size over the flattened (beam, vocab) candidates of the
+    non-resident path (JAX ``_select_topk``): per-beam iterative argmax
+    (first index on ties), then an exact top-k over the beam*k survivors
+    with the flattened argsort's tie order.  Returns (selected_logprob,
+    selected_beam, selected_words), each (bs, beam)."""
+    b_s, n_beams, vocab_size = candidate_logprob.shape
+    vals = candidate_logprob
+    col = torch.arange(vocab_size, device=vals.device)
+    s1_vals, s1_idx = [], []
+    for _ in range(beam_size):
+        j = vals.argmax(dim=-1)  # first index on ties
+        s1_vals.append(torch.gather(vals, -1, j[..., None])[..., 0])
+        s1_idx.append(j)
+        vals = torch.where(col == j[..., None], float("-inf"), vals)
+    s1_vals = torch.stack(s1_vals, dim=-1).reshape(b_s, n_beams * beam_size)
+    s1_idx = torch.stack(s1_idx, dim=-1).reshape(b_s, n_beams * beam_size)
+    sel_v, sel_i = _topk_lowest_index(s1_vals, beam_size)
+    selected_beam = torch.div(sel_i, beam_size, rounding_mode="floor")
+    return sel_v, selected_beam, torch.gather(s1_idx, 1, sel_i)
+
+
+def _expand_to_beams(x: torch.Tensor, beam_size: int) -> torch.Tensor:
+    """(bs, ...) -> (bs*beam, ...) by repeating each row beam_size times."""
+    return x.repeat_interleave(beam_size, dim=0)
+
+
+def _reorder_rows(x: torch.Tensor, selected_beam: torch.Tensor) -> torch.Tensor:
+    """Physical beam reorder of a (bs*beam, ...) decode-state tensor:
+    row (b, j) takes row (b, selected_beam[b, j]) (an index gather)."""
+    b_s, n_beams = selected_beam.shape
+    rows = torch.arange(b_s, device=x.device)[:, None] * n_beams + selected_beam
+    return x.index_select(0, rows.reshape(-1))
+
+
+def _reorder_cache(cache, selected_beam):
+    """Reorder every self-attention K/V and the pad mask (JAX
+    ``_gather_beams`` over the dynamic cache); the cross K/V are the same
+    for every beam of an image and stay put."""
+    for layer in cache["layers"]:
+        layer["self"] = {k: _reorder_rows(v, selected_beam) for k, v in layer["self"].items()}
+    cache["pad"] = _reorder_rows(cache["pad"], selected_beam)
+    return cache
+
+
 def _supports_beam_resident(model) -> bool:
     """Beam-resident decode needs plain SDPA attention in the decoder."""
     dec = model.config.DECODER
@@ -138,12 +185,13 @@ def _supports_beam_resident(model) -> bool:
 
 @torch.no_grad()
 def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
-                 out_size: int, early_exit: bool, compute_dtype, head_kernel: bool):
+                 out_size: int, early_exit: bool, compute_dtype, beam_resident: bool,
+                 head_kernel: bool, attn_kernel: bool, resident_kernel: bool):
     """``beam_search`` that also returns the number of decode steps run."""
-    if not _supports_beam_resident(model):
-        raise NotImplementedError(
-            "only the beam-resident decode of SDPA decoders is ported"
-        )
+    if resident_kernel or head_kernel or attn_kernel:
+        beam_resident = True  # the kernels implement the beam-resident math
+    if beam_resident and not _supports_beam_resident(model):
+        beam_resident = resident_kernel = head_kernel = attn_kernel = False
     if not 1 <= out_size <= beam_size:
         raise ValueError(f"out_size {out_size} must lie in [1, beam_size={beam_size}]")
     param = next(model.parameters())
@@ -162,9 +210,13 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     eos_idx, bos_idx = vocab.eos_idx, vocab.bos_idx
     vocab_size = len(vocab)
 
-    # 1) encode once at batch size; cross K/V stay at image granularity
+    # 1) encode once at batch size; beam-resident decode keeps the cross
+    # K/V at image granularity, the default path expands them to beams
     memory, memory_mask = model.encoder_forward(batch)
     b_s = memory.shape[0]
+    if not beam_resident:
+        memory = _expand_to_beams(memory, beam_size)
+        memory_mask = _expand_to_beams(memory_mask, beam_size)
     n_rows = b_s * beam_size
     cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype, device=device)
     cache = model.prepare_cache(cache, memory)
@@ -176,19 +228,26 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     selected_words = torch.full((n_rows, 1), bos_idx, dtype=torch.long, device=device)
     outputs = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
     log_probs = torch.zeros((b_s, beam_size, max_len), **f32)
-    ancestry = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
+    ancestry = None
+    if beam_resident:
+        ancestry = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
     own_slot = torch.arange(beam_size, device=device)[None, :]
+    not_first = torch.arange(vocab_size, device=device) >= 1
     head_weight = model.decoder.fc.weight
 
     steps = 0
     for t in range(max_len):
         if early_exit and t >= 2 and not bool((seq_mask > 0).any()):
             break
-        # position t of every current beam lives at its own slot
-        ancestry[:, :, t] = own_slot
+        if beam_resident:
+            # position t of every current beam lives at its own slot
+            ancestry[:, :, t] = own_slot
         head, cache = model.decode_step(
             t, selected_words, cache, memory_mask, ancestry=ancestry,
-            beam_select=beam_size, raw_head="hidden" if head_kernel else True,
+            beam_select=beam_size if beam_resident else None,
+            # beam-resident decode selects through raw logits + logsumexp
+            raw_head="hidden" if head_kernel else beam_resident,
+            resident_kernel=resident_kernel, attn_kernel=attn_kernel,
         )
         prev_words = selected_words.reshape(b_s, beam_size)
         if t > 0:
@@ -196,34 +255,53 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
             finished = seq_mask == 0.0
         else:
             finished = torch.zeros((b_s, beam_size), dtype=torch.bool, device=device)
-        if head_kernel:
-            vals, idxs, lse_rows = head_topk(
-                head.to(torch.bfloat16).contiguous(),
-                head_weight.to(torch.bfloat16).contiguous(),
-                beam_size,
-            )
-            lse = lse_rows.reshape(b_s, beam_size)
-            selected = _finish_select(
-                vals.reshape(b_s, beam_size, beam_size),
-                idxs.long().reshape(b_s, beam_size, beam_size),
-                seq_logprob - lse, finished, seq_logprob, beam_size,
+        if beam_resident:
+            if head_kernel:
+                vals, idxs, lse_rows = head_topk(
+                    head.to(torch.bfloat16).contiguous(),
+                    head_weight.to(torch.bfloat16).contiguous(),
+                    beam_size,
+                )
+                lse = lse_rows.reshape(b_s, beam_size)
+                selected = _finish_select(
+                    vals.reshape(b_s, beam_size, beam_size),
+                    idxs.long().reshape(b_s, beam_size, beam_size),
+                    seq_logprob - lse, finished, seq_logprob, beam_size,
+                )
+            else:
+                logits, lse = head
+                lse = lse.reshape(b_s, beam_size)
+                selected = _select_topk_hier(
+                    logits.reshape(b_s, beam_size, vocab_size), seq_logprob - lse,
+                    finished, seq_logprob, beam_size,
+                )
+            selected_logprob, selected_beam, words, selected_logit = selected
+            lse_sel = _gather_beams(lse, selected_beam)
+            fin_sel = _gather_beams(finished, selected_beam)
+            this_word_logprob = torch.where(
+                fin_sel, torch.zeros_like(lse_sel), selected_logit - lse_sel
             )
         else:
-            logits, lse = head
-            lse = lse.reshape(b_s, beam_size)
-            selected = _select_topk_hier(
-                logits.reshape(b_s, beam_size, vocab_size), seq_logprob - lse,
-                finished, seq_logprob, beam_size,
-            )
-        selected_logprob, selected_beam, words, selected_logit = selected
-        lse_sel = _gather_beams(lse, selected_beam)
-        fin_sel = _gather_beams(finished, selected_beam)
-        this_word_logprob = torch.where(
-            fin_sel, torch.zeros_like(lse_sel), selected_logit - lse_sel
-        )
+            # full distributions with the reference's -999 continuation:
+            # a finished beam keeps word 0 at its frozen log-prob, every
+            # other word at -999, and adds a zero word log-prob
+            word_logprob = head.float().reshape(b_s, beam_size, vocab_size)
+            candidate = seq_logprob[..., None] + word_logprob
+            if t > 0:
+                live = seq_mask[..., None]
+                word_logprob = word_logprob * live
+                old = torch.where(not_first, -999.0, seq_logprob[..., None])
+                candidate = live * candidate + old * (1.0 - live)
+            selected_logprob, selected_beam, words = _select_topk(candidate, beam_size)
+            this_word_logprob = torch.gather(
+                _gather_beams(word_logprob, selected_beam), 2, words[..., None]
+            )[..., 0]
 
-        # reorder the small per-beam state; the caches stay put
-        ancestry = _gather_beams(ancestry, selected_beam)
+        if beam_resident:
+            # reorder the small per-beam state; the caches stay put
+            ancestry = _gather_beams(ancestry, selected_beam)
+        else:
+            cache = _reorder_cache(cache, selected_beam)
         seq_mask = _gather_beams(seq_mask, selected_beam)
         outputs = _gather_beams(outputs, selected_beam)
         outputs[:, :, t] = words
@@ -245,38 +323,57 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
 def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                 out_size: int = 1, early_exit: bool = True,
                 compute_dtype: Optional[torch.dtype] = None,
-                head_kernel: bool = False):
-    """Run batched beam-resident beam search; returns (outputs, log_probs).
+                beam_resident: bool = True, head_kernel: bool = False,
+                attn_kernel: bool = False, resident_kernel: bool = False):
+    """Run batched beam search; returns (outputs, log_probs).
 
     outputs: (bs, out_size, max_len) int64 token ids, log_probs: the
     per-step word log-probs (f32) likewise, both squeezed to (bs, max_len)
     when ``out_size == 1``.  ``batch`` holds the model's input features;
     they move to the model's device.  ``compute_dtype`` (e.g.
     ``torch.bfloat16``) runs the network in that dtype (a converted copy if
-    the model holds another); selection stays f32.  ``head_kernel`` selects
-    through the fused head + lse + top-k kernel (ops/head_topk.py), which
-    runs its plain version on the CPU and the CUDA kernel on a card."""
+    the model holds another); selection stays f32.
+
+    The flags keep the JAX package's names and precedence.
+    ``beam_resident=False`` is the JAX default path (caches reordered every
+    step, full distributions); the port defaults to beam-resident, the path
+    its serving uses, and selects through raw logits and their logsumexp
+    (the JAX ``fast_select``, on with beam-resident).  Any kernel flag
+    forces beam-resident: ``head_kernel`` selects through the
+    fused head + lse + top-k (ops/head_topk.py), ``attn_kernel`` runs each
+    self-attention through ops/beam_select_attention.py and
+    ``resident_kernel`` each layer through ops/resident_layer_step.py
+    (with both, ``attn_kernel`` wins, as in the JAX package).
+    ``OPENVIIC_FUSED_STEP=1`` runs each layer of the non-resident path
+    through ops/fused_decoder_step.py.  Each kernel runs its plain version
+    on the CPU and the CUDA kernel on a card."""
     outputs, log_probs, _ = _beam_search(
-        model, batch, beam_size, out_size, early_exit, compute_dtype, head_kernel
+        model, batch, beam_size, out_size, early_exit, compute_dtype, beam_resident,
+        head_kernel, attn_kernel, resident_kernel,
     )
     return outputs, log_probs
 
 
 class BeamSearcher:
-    """Decode callable for one model and decode configuration; keeps the
-    count of decode steps it has run (``steps``), one head-kernel launch
-    each when ``head_kernel`` is on a CUDA model."""
+    """Decode callable for one model and decode configuration (the JAX
+    ``BeamSearcher`` flags, and ``resident_kernel`` besides); keeps the
+    count of decode steps it has run (``steps``)."""
 
-    def __init__(self, model, compute_dtype=None, head_kernel: bool = False):
+    def __init__(self, model, compute_dtype=None, beam_resident: bool = True,
+                 head_kernel: bool = False, attn_kernel: bool = False,
+                 resident_kernel: bool = False):
         self.model = model
         self.compute_dtype = compute_dtype
+        self.beam_resident = bool(beam_resident)
         self.head_kernel = bool(head_kernel)
+        self.attn_kernel = bool(attn_kernel)
+        self.resident_kernel = bool(resident_kernel)
         self.steps = 0
 
     def __call__(self, batch, beam_size: int, out_size: int = 1):
         outputs, log_probs, steps = _beam_search(
-            self.model, batch, beam_size, out_size, True,
-            self.compute_dtype, self.head_kernel,
+            self.model, batch, beam_size, out_size, True, self.compute_dtype,
+            self.beam_resident, self.head_kernel, self.attn_kernel, self.resident_kernel,
         )
         self.steps += steps
         return outputs, log_probs

@@ -21,6 +21,7 @@ from torch import nn
 
 from openviic_tpu_torch.builders import META_ATTENTION, build_attention
 from openviic_tpu_torch.models.initializers import XavierLinear
+from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
 
 Cache = Dict[str, torch.Tensor]
 
@@ -104,9 +105,10 @@ class ScaledDotProductAttention(nn.Module):
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
 
     def attend_projected_beam_select(self, q_t, k, v, ancestry, position_mask,
-                                     mask_axis: str = "q"):
+                                     mask_axis: str = "q", use_kernel: bool = False):
         """Beam-resident self-attention step over *all* beams' unreordered
-        caches of the same image (einsum form).
+        caches of the same image (einsum form; ``use_kernel`` runs
+        ``ops.beam_select_attention`` instead, the CUDA kernel on a card).
 
         q_t: (bs*beam, 1, h, d_k); k/v: (bs*beam, L, h, d) append-only
         caches; ancestry: (bs, beam, L); position_mask: (bs*beam, 1, 1, L)
@@ -116,6 +118,11 @@ class ScaledDotProductAttention(nn.Module):
         with ``'p'`` it is the raw per-slot mask, applied on the slot axis
         (equivalent, since position (q, t') survives only at slot
         p = ancestry[q, t'])."""
+        if use_kernel:
+            out = beam_select_attention(
+                q_t.contiguous(), k, v, ancestry, position_mask, mask_axis=mask_axis
+            )
+            return self.output(out)
         b_s, n_beams, L = ancestry.shape
         h = q_t.shape[2]
         qb = q_t.reshape(b_s, n_beams, h, self.d_k).float()
@@ -176,18 +183,22 @@ class MultiHeadAttention(nn.Module):
 
     def decode_self(self, queries, cache: Cache, decode_index: int,
                     attention_mask, ancestry=None, beam_select=None,
-                    mask_axis: str = "q"):
+                    mask_axis: str = "q", attn_kernel: bool = False):
         """Self-attention step: write this step's projected K/V at
         ``decode_index`` (in place), then attend.  With ``beam_select`` and
-        ``ancestry`` the cache is never reordered (beam-resident); with
-        ``ancestry`` alone each read resolves its slots by gather."""
+        ``ancestry`` the cache is never reordered (beam-resident), and
+        ``attn_kernel`` runs that attention through
+        ``ops.beam_select_attention`` (SDPA only); with ``ancestry`` alone
+        each read resolves its slots by gather."""
         q_t, k_t, v_t = self.attention.project_qkv_fused(queries)
         cache["k"][:, decode_index] = k_t[:, 0]
         cache["v"][:, decode_index] = v_t[:, 0]
         k, v = cache["k"], cache["v"]
         if beam_select is not None and ancestry is not None:
             out = self.attention.attend_projected_beam_select(
-                q_t, k, v, ancestry, attention_mask, mask_axis=mask_axis
+                q_t, k, v, ancestry, attention_mask, mask_axis=mask_axis,
+                use_kernel=attn_kernel
+                and type(self.attention).__name__ == "ScaledDotProductAttention",
             )
         else:
             if ancestry is not None:

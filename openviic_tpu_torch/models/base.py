@@ -58,10 +58,21 @@ class BaseTransformer(nn.Module):
 
     def decode_step(self, t: int, tokens_t, cache: DecodeCache,
                     encoder_attention_mask, ancestry=None, beam_select=None,
-                    raw_head=False):
+                    raw_head=False, resident_kernel: bool = False,
+                    attn_kernel: bool = False):
         """One decoder step; ``beam_select`` (the beam size) switches the
-        attention layers to beam-resident mode, grouping rows by image."""
+        attention layers to beam-resident mode, grouping rows by image, and
+        only then are the step kernels threaded: ``resident_kernel`` (one
+        ``ops.resident_layer_step`` per layer) and ``attn_kernel`` (the
+        self-attention through ``ops.beam_select_attention``)."""
+        kwargs = {}
+        if beam_select is not None:
+            kwargs["beam_select"] = beam_select
+            if resident_kernel:
+                kwargs["resident_kernel"] = True
+            if attn_kernel:
+                kwargs["attn_kernel"] = True
         return self.decoder.step(
             t, tokens_t, cache, encoder_attention_mask, ancestry=ancestry,
-            raw_head=raw_head, beam_select=beam_select,
+            raw_head=raw_head, **kwargs,
         )

@@ -11,6 +11,12 @@ follow the JAX package:
    whose token was <pad>;
  - the positional index at step t is t+1 whatever the pad status;
  - each layer's output is zeroed where the *input* token is <pad>.
+
+A layer's decode step can also run as one kernel, as in the JAX package:
+``resident_kernel`` on the beam-resident path (``ops.resident_layer_step``)
+and ``OPENVIIC_FUSED_STEP=1`` on the non-resident path
+(``ops.fused_layer_step``); both read the layer's weight pack
+(``DecoderLayer.fused_weights``), built once per dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from openviic_tpu_torch.models.masks import (
     generate_sequential_mask,
 )
 from openviic_tpu_torch.models.positional import sinusoid_encoding_table
+from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step, fused_step_enabled
+from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
 
 DecodeCache = Dict[str, Any]
 
@@ -53,17 +61,123 @@ class DecoderLayer(nn.Module):
         return {"cross": self.enc_attn.precompute_cache(memory)}
 
     def step(self, queries, layer_cache, decode_index, self_attention_mask,
-             enc_attention_mask, ancestry=None, beam_select=None,
-             mask_axis: str = "q"):
+             enc_attention_mask, ancestry=None, resident_kernel=False,
+             is_pad_t=None, **kwargs):
+        """One decode step of the layer.  ``kwargs`` are the attention
+        options the decoder threads (``beam_select``, ``mask_axis``,
+        ``attn_kernel``), as in the JAX package: with ``resident_kernel``
+        and no option but ``beam_select``/``mask_axis`` the whole step runs
+        as ``ops.resident_layer_step``; with ``OPENVIIC_FUSED_STEP=1``, no
+        option and no ancestry, as ``ops.fused_layer_step``.  The self K/V
+        cache is updated in place either way."""
+        if resident_kernel and self._can_resident_step(kwargs, ancestry, is_pad_t):
+            return self._resident_step(
+                queries, layer_cache, decode_index, self_attention_mask,
+                enc_attention_mask, ancestry, is_pad_t,
+            )
+        if self._can_fuse_step(kwargs, ancestry):
+            return self._fused_step(
+                queries, layer_cache, decode_index, self_attention_mask, enc_attention_mask,
+            )
+        beam_select = kwargs.get("beam_select")
         self_att = self.self_attn.decode_self(
             queries, layer_cache["self"], decode_index, self_attention_mask,
-            ancestry=ancestry, beam_select=beam_select, mask_axis=mask_axis,
+            ancestry=ancestry, beam_select=beam_select,
+            mask_axis=kwargs.get("mask_axis", "q"),
+            attn_kernel=kwargs.get("attn_kernel", False),
         )
         enc_att = self.enc_attn.decode_cross(
             self_att, layer_cache["cross"], enc_attention_mask,
             beam_select=beam_select,
         )
         return self.pwff(enc_att)
+
+    def _sdpa(self) -> bool:
+        return (
+            type(self.self_attn.attention).__name__ == "ScaledDotProductAttention"
+            and type(self.enc_attn.attention).__name__ == "ScaledDotProductAttention"
+        )
+
+    # -- beam-resident whole-layer step (ops/resident_layer_step.py) -----
+    def _can_resident_step(self, kwargs, ancestry, is_pad_t) -> bool:
+        # an ``attn_kernel`` option keeps the unfused step, whose
+        # self-attention then runs through the beam-select kernel (the JAX
+        # package's precedence, decoders.py:118-128)
+        return (
+            ancestry is not None
+            and is_pad_t is not None
+            and kwargs.get("beam_select") is not None
+            and set(kwargs) <= {"beam_select", "mask_axis"}
+            and self._sdpa()
+        )
+
+    def _resident_step(self, queries, layer_cache, decode_index, self_attention_mask,
+                       enc_attention_mask, ancestry, is_pad_t):
+        sc, cc = layer_cache["self"], layer_cache["cross"]
+        y, k_new, v_new = resident_layer_step(
+            queries, sc["k"], sc["v"], cc["k"], cc["v"], ancestry,
+            self_attention_mask, enc_attention_mask, is_pad_t, decode_index,
+            self.fused_weights(queries.dtype), n_heads=sc["k"].shape[2],
+        )
+        sc["k"][:, decode_index] = k_new
+        sc["v"][:, decode_index] = v_new
+        return y
+
+    # -- non-resident whole-layer step (OPENVIIC_FUSED_STEP=1) -----------
+    def _can_fuse_step(self, kwargs, ancestry) -> bool:
+        return fused_step_enabled() and not kwargs and ancestry is None and self._sdpa()
+
+    def _fused_step(self, queries, layer_cache, decode_index, self_attention_mask,
+                    enc_attention_mask):
+        sc, cc = layer_cache["self"], layer_cache["cross"]
+        n, L, h = sc["k"].shape[:3]
+        M = cc["k"].shape[1]
+
+        def flat(c):  # (rows, S, h, d) -> (rows, S, D), a view
+            return c.reshape(c.shape[0], c.shape[1], -1)
+
+        self_mask = self_attention_mask[:, 0, 0, :].expand(n, L).contiguous()
+        cross_mask = enc_attention_mask[:, 0, 0, :].expand(n, M).contiguous()
+        y, _, _ = fused_layer_step(
+            queries[:, 0, :], flat(sc["k"]), flat(sc["v"]), flat(cc["k"]), flat(cc["v"]),
+            self_mask, cross_mask, decode_index, self.fused_weights(queries.dtype),
+            n_heads=h,
+        )
+        return y[:, None, :]
+
+    def fused_weights(self, dtype) -> Dict[str, torch.Tensor]:
+        """The whole-layer kernels' weight dict (the JAX ``_fused_weights``:
+        (in, out) kernels, q | k | v concatenated), in ``dtype``, contiguous.
+        Built once and kept until a parameter is replaced or changed in
+        place (checked by data pointer and version counter)."""
+        params = tuple(self.parameters())
+        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        cached = getattr(self, "_fused_pack", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        sa, ca, ff = self.self_attn, self.enc_attn, self.pwff
+
+        def kernel(linear):
+            return linear.weight.detach().t()
+
+        with torch.no_grad():
+            pack = {
+                "wqkv": torch.cat([kernel(sa.attention.fc_q), kernel(sa.attention.fc_k),
+                                   kernel(sa.attention.fc_v)], dim=1),
+                "bqkv": torch.cat([sa.attention.fc_q.bias, sa.attention.fc_k.bias,
+                                   sa.attention.fc_v.bias]),
+                "wo": kernel(sa.attention.fc_o), "bo": sa.attention.fc_o.bias,
+                "wqc": kernel(ca.attention.fc_q), "bqc": ca.attention.fc_q.bias,
+                "woc": kernel(ca.attention.fc_o), "boc": ca.attention.fc_o.bias,
+                "w1": kernel(ff.fc1), "b1": ff.fc1.bias,
+                "w2": kernel(ff.fc2), "b2": ff.fc2.bias,
+                "ln1s": sa.layer_norm.weight, "ln1b": sa.layer_norm.bias,
+                "ln2s": ca.layer_norm.weight, "ln2b": ca.layer_norm.bias,
+                "ln3s": ff.layer_norm.weight, "ln3b": ff.layer_norm.bias,
+            }
+            pack = {k: v.detach().to(dtype).contiguous() for k, v in pack.items()}
+        self._fused_pack = (key, pack)
+        return pack
 
 
 class _DecoderBase(nn.Module):
@@ -138,8 +252,11 @@ class _DecoderBase(nn.Module):
         return (pad_read | future)[:, None, None, :]
 
     def step(self, t: int, tokens_t, cache: DecodeCache, encoder_attention_mask,
-             ancestry=None, raw_head=False, beam_select=None):
+             ancestry=None, raw_head=False, resident_kernel: bool = False, **kwargs):
         """One decode step.  ``tokens_t``: (rows, 1) current input token.
+        ``kwargs`` (``beam_select``, ``attn_kernel``) go to every layer;
+        ``resident_kernel`` lets each layer run as one
+        ``ops.resident_layer_step`` (beam-resident decode only).
 
         Returns (head, cache).  ``head`` is the (rows, vocab) log-probs; with
         ``raw_head=True`` it is ``(logits f32, logsumexp (rows,))`` so the
@@ -148,7 +265,7 @@ class _DecoderBase(nn.Module):
         state, for the fused head + lse + top-k kernel (ops/head_topk.py)."""
         # beam-resident decode keeps the pad mask raw (each slot's own
         # rows) and applies it on the slot axis inside the attention
-        raw_mask = beam_select is not None and ancestry is not None
+        raw_mask = kwargs.get("beam_select") is not None and ancestry is not None
         self_mask = self._step_masks(
             tokens_t, t, cache, ancestry=None if raw_mask else ancestry
         )
@@ -156,11 +273,16 @@ class _DecoderBase(nn.Module):
 
         embedded, _ = self.word_emb(tokens_t)
         out = embedded + self.pos_table[t + 1][None, None, :].to(embedded.dtype)
+        layer_kwargs = dict(kwargs)
+        if raw_mask:
+            layer_kwargs["mask_axis"] = "p"
+        if resident_kernel:
+            # the whole-layer kernel zeroes <pad> rows itself as well
+            layer_kwargs.update(resident_kernel=True, is_pad_t=is_pad[:, :, 0])
         for layer, layer_cache in zip(self.layers, cache["layers"]):
             out = layer.step(
                 out, layer_cache, t, self_mask, encoder_attention_mask,
-                ancestry=ancestry, beam_select=beam_select,
-                mask_axis="p" if raw_mask else "q",
+                ancestry=ancestry, **layer_kwargs,
             )
             out = out.masked_fill(is_pad, 0.0)
 

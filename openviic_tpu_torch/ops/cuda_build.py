@@ -98,3 +98,17 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def current_stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, as an int."""
+    import torch
+
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a kernel's C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

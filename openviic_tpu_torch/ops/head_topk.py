@@ -111,16 +111,13 @@ def head_topk(x: torch.Tensor, w: torch.Tensor, k: int):
     vals = torch.empty((N, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((N, k), dtype=torch.int32, device=dev)
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.openviic_head_topk(
-            x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-            part_max.data_ptr(), part_sum.data_ptr(), vals.data_ptr(),
-            idxs.data_ptr(), lse.data_ptr(), N, D, V, k, tiles_per_split, splits,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"head_topk kernel launch failed: CUDA error {err}")
+    err = lib.openviic_head_topk(
+        x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+        part_max.data_ptr(), part_sum.data_ptr(), vals.data_ptr(),
+        idxs.data_ptr(), lse.data_ptr(), N, D, V, k, tiles_per_split, splits,
+        cuda_build.current_stream(dev),
+    )
+    cuda_build.check_launch("head_topk", err)
     head_topk.launches += 1
     return vals, idxs, lse
 

@@ -28,7 +28,10 @@ class CaptioningPipeline:
         """``config`` holds ``MODEL`` and ``TRAINING`` nodes, as the JAX
         pipeline's does.  ``head_kernel`` defaults to
         ``TRAINING.DECODE_HEAD_KERNEL``; on a CUDA device every decode step
-        then launches the fused head + lse + top-k kernel."""
+        then launches the fused head + lse + top-k kernel.
+        ``TRAINING.DECODE_ATTN_KERNEL`` runs every decoder self-attention
+        step through the beam-select attention kernel, as in the JAX
+        pipeline."""
         self.vocab = vocab
         self.device = torch.device(device)
         self.model = build_model(config.MODEL, vocab, device=self.device, seed=seed)
@@ -40,7 +43,10 @@ class CaptioningPipeline:
         self.batch_size = batch_size
         if head_kernel is None:
             head_kernel = config.TRAINING.get("DECODE_HEAD_KERNEL", False)
-        self.searcher = BeamSearcher(self.model, self.compute_dtype, bool(head_kernel))
+        attn_kernel = config.TRAINING.get("DECODE_ATTN_KERNEL", False) or False
+        self.searcher = BeamSearcher(self.model, self.compute_dtype, beam_resident=True,
+                                     head_kernel=bool(head_kernel),
+                                     attn_kernel=bool(attn_kernel))
 
     def _batch(self, chunk: List[Dict]) -> Dict[str, torch.Tensor]:
         # pad the tail chunk to the fixed batch size with copies of its last
