@@ -10,26 +10,35 @@ On the card it runs these phases, each printing its seconds:
    when CUDA is unavailable;
 2. build: nvcc over ``openviic_tpu_torch/csrc/*.cu`` (one process per
    source, all started together) and the ptxas register/spill report;
-3. kernel vs plain: the ``head_topk`` CUDA kernel against its plain PyTorch
-   version on the card, at the flagship decode shape (N = 320 x 5 beams =
-   1600 rows, D = 512, V = 10 000, k = 5), at a ragged shape (N = 37,
-   V = 7 094) and in a constructed tie case; then its time beside its
-   bound, the plain version's time and a PyTorch composite's;
+3. head kernel: the ``head_topk`` CUDA kernel against its plain PyTorch
+   version at the flagship decode shape (N = 320 x 5 beams = 1600 rows,
+   D = 512, V = 10 000, k = 5), at a ragged shape (N = 37, V = 7 094) and in
+   a constructed tie case, then its time beside its bound, the plain
+   version's and a PyTorch composite's; k = 32 and k = 128 (the
+   shared-memory lists) against the plain version; the head-kernel gate
+   sweep: one beam-resident selection step through the kernel and through
+   fast select from one image to 3200 rows at beams 1, 3, 5, 8 and 16,
+   with the crossover (``_head_kernel_wins`` holds what it gave);
 4. serve: the flagship captioner (StandardTransformerUsingRegion, d_model
    512, 8 heads, 3+3 layers, d_ff 2048, 50 x 1024-d region features, vocab
    10 000, max_len 25, random weights from a seed) built through the port's
    ``build_model`` and served through ``CaptioningPipeline.caption_features``
-   at beam 5, batch 320, bf16, head kernel on: three requests (320, 320 and
-   7 images).  The kernel's launch count must equal the decode steps, every
-   id must lie in the vocab, and the captions must agree with the
-   fast-select path (head kernel off) on >= 95% of the images;
-5. step kernels vs plain: ``beam_select_attention`` (both mask axes),
+   at beam 5, batch 320, bf16, head kernel forced (``head_kernel=1``):
+   three requests (320, 320 and 7 images).  The kernel's launch count must
+   equal the decode steps, every id must lie in the vocab, and the captions
+   must agree with the fast-select path on >= 95% of the images; it prints
+   what the auto gate (``head_kernel=True``) resolves to there;
+5. kernels vs plain: ``beam_select_attention`` (both mask axes),
    ``resident_layer_step`` and ``fused_layer_step`` (rows other than t
-   bit-unchanged) against their plain versions at the main shape at a
-   mid-decode step and at a ragged shape (7 images, 35 rows), with the
-   flagship's layer-0 weights; then each one's time beside its bound, its
-   plain version's time, and the gather + SDPA composite (kernel 2) or the
-   eager ``DecoderLayer.step`` it replaces (kernels 3 and 4);
+   bit-unchanged) at a mid-decode step and a ragged shape, with the
+   flagship's layer-0 weights; ``fused_attention`` at the encoder, the
+   non-resident step's self- and cross-attention, the ORT's full-bias and a
+   ragged f32 shape with a fully masked row (within 2e-5; that row finite
+   and uniform); ``geo_fused_attention`` at the ORT encoder shape and a
+   ragged one (2 bf16 ulps on 99% of the elements, 0.05 everywhere); then
+   each one's time beside its bound, its plain version's and a PyTorch
+   yardstick's (the gather + SDPA composite, the eager
+   ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA);
 6. decode paths at the serve shape over the same requests: (a)
    ``TRAINING.DECODE_ATTN_KERNEL`` in the pipeline, (b) ``resident_kernel``,
    (c) ``beam_resident=False`` with ``OPENVIIC_FUSED_STEP=1`` and without;
@@ -38,14 +47,23 @@ On the card it runs these phases, each printing its seconds:
    captions/s and caption agreement;
 7. forced decode: the served captions fed back through each kernel path
    and the eager step, per-step log-probs compared;
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. attention paths: (d) ``OPENVIIC_PALLAS=1`` on the served path (the
+   encoder), (e) the same with ``beam_resident=False`` (the decoder's
+   attention too), (f) the Object Relation Transformer
+   (``configs/object_relation_transformer.yaml`` at full width, beam 3) with
+   the trig embedding off, with and without ``OPENVIIC_PALLAS=1``, (g) with
+   it on, with and without ``OPENVIIC_GEO_FUSED=1``; launches per request
+   and step, valid ids and score parity with each flag-off twin, then the
+   forced decode of (d), (e) and (g) against their twins ((g) with the
+   pipeline's f32 boxes and with the bf16 boxes the beam search casts);
+9. the last line: ``{"ok": true, "device": {...}}``.
 
-The line before the last is a JSON object with one entry per kernel (its
-launches on its decode path, error, times and bound); the line before that
-is the card's name and power limit.  Any failure raises, and the script
-exits non-zero without those lines.  ``--cpu`` runs phases 3-7 at tiny
-widths with the plain versions on the CPU and ends with ``cpu rehearsal
-ok`` instead.  The script writes nothing outside
+The line before the last is a JSON object with one entry per kernel (six:
+its launches on its decode path, error, times and bound); the line before
+that is the card's name and power limit.  Any failure raises, and the
+script exits non-zero without those lines.  ``--cpu`` runs phases 3-8 at
+tiny widths with the plain versions on the CPU and ends with ``cpu
+rehearsal ok`` instead.  The script writes nothing outside
 ``openviic_tpu_torch/_build/``.
 """
 
@@ -56,7 +74,9 @@ import sys
 sys.dont_write_bytecode = True  # write nothing into the checkout but _build/
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -67,11 +87,14 @@ import torch  # noqa: E402
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# transcendentals (sin, cos, exp, log) at the special-function rate: 16
+# MUFU results per SM per clock, 132 SMs, the 1.98 GHz boost clock
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
 
 FLAGSHIP = dict(d_model=512, heads=8, layers=3, d_ff=2048, d_feature=1024,
-                n_regions=50, vocab=10_000, max_len=25, beam=5, batch=320)
+                n_regions=50, vocab=10_000, max_len=25, beam=5, batch=320, ort_beam=3)
 TINY = dict(d_model=32, heads=2, layers=2, d_ff=64, d_feature=24,
-            n_regions=7, vocab=300, max_len=12, beam=5, batch=8)
+            n_regions=7, vocab=300, max_len=12, beam=5, batch=8, ort_beam=3)
 AGREEMENT_MIN = 0.95
 LSE_ATOL = 1e-3
 ULP_FLOOR = 1 / 16  # bf16 ulps are counted at magnitudes of at least this
@@ -129,7 +152,9 @@ def model_config(s, attn_kernel: bool = False):
                                "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1},
         },
     }
-    training = {"EVALUATING_BEAM_SIZE": s["beam"], "DECODE_HEAD_KERNEL": True,
+    # an int forces the head kernel (True is the measured auto gate): the
+    # paths below hold it to one launch per decode step
+    training = {"EVALUATING_BEAM_SIZE": s["beam"], "DECODE_HEAD_KERNEL": 1,
                 "DECODE_ATTN_KERNEL": attn_kernel}
     return ConfigNode({"MODEL": model, "TRAINING": training})
 
@@ -320,6 +345,7 @@ def throughput(s, seconds) -> float:
 
 
 def serve_phase(device, s, card: str):
+    from openviic_tpu_torch.decoding import BeamSearcher
     from openviic_tpu_torch.ops.head_topk import head_topk
     from openviic_tpu_torch.serving import CaptioningPipeline
 
@@ -348,6 +374,10 @@ def serve_phase(device, s, card: str):
         f"{steps} decode steps, {launches} head_topk launches")
     log(f"  decode throughput at batch {s['batch']}, beam {s['beam']}: "
         f"{throughput(s, seconds):.1f} captions/s on {card}")
+    auto = BeamSearcher(pipe.model, head_kernel=True).effective_head_kernel(
+        pipe._batch(requests[0]), s["beam"])
+    log(f"  head_kernel=True (the auto gate) resolves to {auto} at {s['batch']} images x "
+        f"beam {s['beam']}; the serve phase forces the kernel with head_kernel=1")
     log(f"  sample caption: {results[0][0][0]!r}")
 
     fast = CaptioningPipeline(config, vocab, batch_size=s["batch"], head_kernel=False,
@@ -409,6 +439,25 @@ def distinct_rows(rows: torch.Tensor, live: torch.Tensor) -> int:
 def bound(flops: float, peak_flops: float, nbytes: float):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def unit_bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
+               sfu_ops: float = 0.0):
+    """The bound of a call whose operations run on several units at once:
+    products of bf16 operands (f32 accumulation) at the tensor-core peak,
+    products with an f32 operand at the f32 peak, transcendentals at the
+    special-function rate; the largest of those times and the bytes' time.
+    Returns (bound_ms, bound_by, {term: ms})."""
+    times = {"bytes": nbytes / PEAK_HBM_BYTES * 1e3,
+             "bf16 products": bf16_flops / PEAK_BF16_FLOPS * 1e3,
+             "f32 products": f32_flops / PEAK_F32_FLOPS * 1e3,
+             "transcendentals": sfu_ops / PEAK_SFU_OPS * 1e3}
+    worst = max(times, key=times.get)
+    return times[worst], "bytes" if worst == "bytes" else "operations", times
+
+
+def bound_detail(times) -> str:
+    return ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
 
 
 def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra):
@@ -610,6 +659,101 @@ def layer_step_phase(device, s, layer, resident: bool):
 
 
 # ---------------------------------------------------------------- phase 6
+def counted_wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
+    from openviic_tpu_torch.ops.fused_attention import fused_attention
+    from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step
+    from openviic_tpu_torch.ops.geo_attention import geo_fused_attention
+    from openviic_tpu_torch.ops.head_topk import head_topk
+    from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
+
+    return (head_topk, beam_select_attention, resident_layer_step, fused_layer_step,
+            fused_attention, geo_fused_attention)
+
+
+@contextlib.contextmanager
+def env_flag(name: str, value: str = "1"):
+    """Set one of the port's environment flags for the block."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = before
+
+
+def searcher_decode(pipe, searcher, vocab, beam):
+    """decode(request) -> (captions, ids, best-beam total log-probs)."""
+    def decode(request):
+        outputs, log_probs = searcher(pipe._batch(request), beam)
+        ids = outputs[: len(request)].cpu().numpy()
+        totals = log_probs[: len(request)].sum(-1).cpu().numpy()
+        return vocab.decode_caption(ids), ids, totals
+    return decode
+
+
+def drive(name, device, s, vocab, requests, searcher, decode, card, per_step=None,
+          per_request=None):
+    """Warm up (on the card), zero every count, run the requests, read the
+    counts.  ``per_step`` and ``per_request`` map kernel names to their
+    launches per decode step and per request; every other kernel must not
+    launch.  Returns (results, launches by name)."""
+    cuda = device.type == "cuda"
+    counted = counted_wrappers()
+    if cuda:
+        decode(requests[2])
+        sync(device)
+    for fn in counted:
+        fn.launches = 0
+    steps0 = searcher.steps
+    results, seconds = run_requests(device, requests, decode)
+    steps = searcher.steps - steps0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    per_step, per_request = per_step or {}, per_request or {}
+    want = {fn.__name__: (per_step.get(fn.__name__, 0) * steps
+                          + per_request.get(fn.__name__, 0) * len(requests) if cuda else 0)
+            for fn in counted}
+    if steps <= 0 or launches != want:
+        raise AssertionError(f"{name}: launches {launches} over {steps} decode steps and "
+                             f"{len(requests)} requests, expected {want}")
+    check_outputs(name, s, vocab, requests, results)
+    log(f"  {name}: {[round(t, 4) for t in seconds]} s per request, "
+        f"{throughput(s, seconds):.1f} captions/s on {card}; {steps} steps, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return results, launches
+
+
+def rescore(device, requests, decode, results, name):
+    """Best-beam total log-probs of a run whose decode returned none:
+    decoded again (uncounted), and the ids must come out the same."""
+    rescored = run_requests(device, requests, decode)[0]
+    for (_, ids, *_), (_, again, _) in zip(results, rescored):
+        if not np.array_equal(ids, again):
+            raise AssertionError(f"{name}: a second decode of the same batch differs")
+    return rescored
+
+
+def score_parity(name, results, ref, ref_name):
+    """Print caption agreement and gate the mean best-beam log-prob within
+    SCORE_RTOL of the reference path's."""
+    same = agreement(results, ref)
+    got = np.concatenate([r[2] for r in results])
+    want = np.concatenate([r[2] for r in ref])
+    gap = np.abs(got - want)
+    rel = abs(got.mean() - want.mean()) / abs(want.mean())
+    log(f"  {name} against {ref_name}: captions identical {same:.4f}; mean best-beam "
+        f"log-prob {got.mean():.4f} against {want.mean():.4f} (relative {rel:.2e}); "
+        f"|difference| <= 0.5 on {np.mean(gap <= 0.5):.4f} of the images")
+    if rel > SCORE_RTOL:
+        raise AssertionError(f"{name}: mean best-beam log-prob differs by {rel:.2e} > "
+                             f"{SCORE_RTOL} from {ref_name}")
+    return same
+
+
 def decode_paths_phase(device, s, served, card: str):
     """Three more decode paths of the flagship at the serve shape, over the
     same three requests: (a) CaptioningPipeline with DECODE_ATTN_KERNEL and
@@ -621,115 +765,96 @@ def decode_paths_phase(device, s, served, card: str):
     that of two eager paths (non-resident against beam-resident), since
     with random weights at bf16 near-equal beams make captions flip under
     any change of rounding.  Returns each step kernel's launches on its
-    path."""
-    import os
-
+    path, and the reference paths' results."""
     from openviic_tpu_torch.decoding import BeamSearcher
-    from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
-    from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step
-    from openviic_tpu_torch.ops.head_topk import head_topk
-    from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
     from openviic_tpu_torch.serving import CaptioningPipeline
 
-    counted = (head_topk, beam_select_attention, resident_layer_step, fused_layer_step)
-    cuda = device.type == "cuda"
     vocab, requests, pipe = (served[k] for k in ("vocab", "requests", "pipe"))
     n_layers = len(pipe.model.decoder.layers)
+    beam = s["beam"]
 
-    def searcher_decode(searcher):
-        def decode(request):
-            outputs, log_probs = searcher(pipe._batch(request), s["beam"])
-            ids = outputs[: len(request)].cpu().numpy()
-            totals = log_probs[: len(request)].sum(-1).cpu().numpy()
-            return vocab.decode_caption(ids), ids, totals
-        return decode
-
-    def drive(name, searcher, decode, expect):
-        """Warm up (on the card), zero every count, run the three requests,
-        read the counts; ``expect`` maps each kernel to its launches per
-        step."""
-        if cuda:
-            decode(requests[2])
-            sync(device)
-        for fn in counted:
-            fn.launches = 0
-        steps0 = searcher.steps
-        results, seconds = run_requests(device, requests, decode)
-        steps = searcher.steps - steps0
-        launches = {fn.__name__: fn.launches for fn in counted}
-        want = {fn.__name__: (expect.get(fn.__name__, 0) * steps if cuda else 0) for fn in counted}
-        if steps <= 0 or launches != want:
-            raise AssertionError(f"{name}: launches {launches} over {steps} decode steps, "
-                                 f"expected {want}")
-        check_outputs(name, s, vocab, requests, results)
-        log(f"  {name}: {[round(t, 4) for t in seconds]} s per request, "
-            f"{throughput(s, seconds):.1f} captions/s on {card}; {steps} steps, launches "
-            f"{ {k: v for k, v in launches.items() if v} }")
-        return results, launches
-
-    def scores(searcher, results, name):
-        """Best-beam total log-probs of a run whose decode returned none:
-        decoded again (uncounted), and the ids must come out the same."""
-        rescored = run_requests(device, requests, searcher_decode(searcher))[0]
-        for (_, ids, _), (_, again, _) in zip(results, rescored):
-            if not np.array_equal(ids, again):
-                raise AssertionError(f"{name}: a second decode of the same batch differs")
-        return rescored
-
-    def compare(name, results, ref, ref_name, gate=True):
-        same = agreement(results, ref)
-        got = np.concatenate([r[2] for r in results])
-        want = np.concatenate([r[2] for r in ref])
-        gap = np.abs(got - want)
-        rel = abs(got.mean() - want.mean()) / abs(want.mean())
-        log(f"  {name} against {ref_name}: captions identical {same:.4f}; mean best-beam "
-            f"log-prob {got.mean():.4f} against {want.mean():.4f} (relative {rel:.2e}); "
-            f"|difference| <= 0.5 on {np.mean(gap <= 0.5):.4f} of the images")
-        if gate and rel > SCORE_RTOL:
-            raise AssertionError(f"{name}: mean best-beam log-prob differs by {rel:.2e} > "
-                                 f"{SCORE_RTOL} from {ref_name}")
-        return same
+    def run(name, searcher, decode, **expect):
+        return drive(name, device, s, vocab, requests, searcher, decode, card, **expect)
 
     out = {}
-    base = scores(pipe.searcher, [(c, i, None) for c, i in served["results"]], "serve")
+    base = rescore(device, requests, searcher_decode(pipe, pipe.searcher, vocab, beam),
+                   served["results"], "serve")
 
     attn_pipe = CaptioningPipeline(model_config(s, attn_kernel=True), vocab,
                                    batch_size=s["batch"], device=device, seed=0)
-    res_a, launches = drive(
+    res_a, launches = run(
         "(a) DECODE_ATTN_KERNEL + head kernel", attn_pipe.searcher,
         lambda request: attn_pipe.caption_features(request, return_ids=True),
-        {"beam_select_attention": n_layers, "head_topk": 1})
+        per_step={"beam_select_attention": n_layers, "head_topk": 1})
     out["beam_select_attention"] = launches["beam_select_attention"]
-    res_a = scores(attn_pipe.searcher, [(c, i, None) for c, i in res_a], "(a)")
-    compare("(a)", res_a, base, "the head-kernel path")
+    res_a = rescore(device, requests, searcher_decode(attn_pipe, attn_pipe.searcher, vocab, beam),
+                    res_a, "(a)")
+    score_parity("(a)", res_a, base, "the head-kernel path")
 
-    resident = BeamSearcher(pipe.model, torch.bfloat16, head_kernel=True, resident_kernel=True)
-    res_b, launches = drive("(b) resident_kernel + head kernel", resident,
-                            searcher_decode(resident),
-                            {"resident_layer_step": n_layers, "head_topk": 1})
+    resident = BeamSearcher(pipe.model, torch.bfloat16, head_kernel=1, resident_kernel=True)
+    res_b, launches = run("(b) resident_kernel + head kernel", resident,
+                          searcher_decode(pipe, resident, vocab, beam),
+                          per_step={"resident_layer_step": n_layers, "head_topk": 1})
     out["resident_layer_step"] = launches["resident_layer_step"]
-    compare("(b)", res_b, base, "the head-kernel path")
+    score_parity("(b)", res_b, base, "the head-kernel path")
 
-    before = os.environ.get("OPENVIIC_FUSED_STEP")
-    os.environ["OPENVIIC_FUSED_STEP"] = "1"
-    try:
+    with env_flag("OPENVIIC_FUSED_STEP"):
         fused = BeamSearcher(pipe.model, torch.bfloat16, beam_resident=False)
-        res_c, launches = drive("(c) non-resident, OPENVIIC_FUSED_STEP=1", fused,
-                                searcher_decode(fused), {"fused_layer_step": n_layers})
-    finally:
-        if before is None:
-            del os.environ["OPENVIIC_FUSED_STEP"]
-        else:
-            os.environ["OPENVIIC_FUSED_STEP"] = before
+        res_c, launches = run("(c) non-resident, OPENVIIC_FUSED_STEP=1", fused,
+                              searcher_decode(pipe, fused, vocab, beam),
+                              per_step={"fused_layer_step": n_layers})
     out["fused_layer_step"] = launches["fused_layer_step"]
     plain = BeamSearcher(pipe.model, torch.bfloat16, beam_resident=False)
-    res_nr, _ = drive("(c) non-resident, no step kernel", plain, searcher_decode(plain), {})
-    compare("(c)", res_c, res_nr, "the non-resident path without the flag")
-    compare("non-resident (eager)", res_nr, base, "the beam-resident head-kernel path")
+    res_nr, _ = run("(c) non-resident, no step kernel", plain,
+                    searcher_decode(pipe, plain, vocab, beam))
+    score_parity("(c)", res_c, res_nr, "the non-resident path without the flag")
+    score_parity("non-resident (eager)", res_nr, base, "the beam-resident head-kernel path")
+    out["refs"] = {"base": base, "non_resident": res_nr}
     return out
 
 
 # ---------------------------------------------------------------- phase 7
+@torch.no_grad()
+def forced_scores(model, batch, ids, vocab, resident: bool, **flags):
+    """Per-step log-probs of the tokens ``ids`` (one full batch of images,
+    max_len) fed back one step at a time, beam 1, through
+    ``model.decode_step``, beam-resident or not."""
+    from openviic_tpu_torch.models.base import make_decode_cache
+
+    L = vocab.max_caption_length
+    tokens = torch.cat([torch.full_like(ids[:, :1], vocab.bos_idx), ids[:, :-1]], dim=1)
+    memory, mask = model.encoder_forward(batch)
+    b_s = memory.shape[0]
+    cache = make_decode_cache(model.config.DECODER, vocab, b_s, dtype=torch.bfloat16,
+                              device=ids.device)
+    cache = model.prepare_cache(cache, memory)
+    ancestry = torch.zeros((b_s, 1, L), dtype=torch.long, device=ids.device) if resident else None
+    per_step = []
+    for t in range(L):
+        log_probs, cache = model.decode_step(
+            t, tokens[:, t : t + 1], cache, mask, ancestry=ancestry,
+            beam_select=1 if resident else None, **flags)
+        per_step.append(torch.gather(log_probs, 1, ids[:, t : t + 1])[:, 0])
+    return torch.stack(per_step, dim=1)
+
+
+def check_forced(name, ids, vocab, got, want, gate=True):
+    """Per-step |d log-prob| of the forced tokens (steps up to the first
+    <eos>): at least FORCED_SHARE of them within FORCED_ATOL."""
+    is_eos = (ids == vocab.eos_idx).long()
+    scored = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+    diff = (got - want).abs()[scored]
+    share = (diff <= FORCED_ATOL).float().mean().item()
+    totals = ((got - want) * scored).sum(dim=1).abs()
+    log(f"  {name}: per-step |d log-prob| max {diff.max().item():.4g}, mean "
+        f"{diff.mean().item():.3g}, within {FORCED_ATOL} on {share:.4f} of "
+        f"{diff.numel()} steps; per-caption |d total| mean {totals.mean().item():.3g}, "
+        f"max {totals.max().item():.3g}")
+    if gate and share < FORCED_SHARE:
+        raise AssertionError(f"{name}: {share:.4f} of the forced steps within "
+                             f"{FORCED_ATOL} < {FORCED_SHARE}")
+
+
 def forced_phase(device, s, served):
     """The step kernels inside a whole decode with the tokens forced: the
     serve phase's captions of the first request are fed back one step at a
@@ -738,61 +863,429 @@ def forced_phase(device, s, served):
     path's within FORCED_ATOL on at least FORCED_SHARE of the scored
     (image, step) pairs (steps up to the first <eos>).  Unlike caption
     agreement, a rounding difference cannot turn into another caption."""
-    import os
-
-    from openviic_tpu_torch.models.base import make_decode_cache
-
     pipe, vocab, model = served["pipe"], served["vocab"], served["pipe"].model
-    L = s["max_len"]
     ids = torch.from_numpy(served["results"][0][1]).to(device)
     batch = pipe._batch(served["requests"][0])
-    tokens = torch.cat([torch.full_like(ids[:, :1], vocab.bos_idx), ids[:, :-1]], dim=1)
-    is_eos = (ids == vocab.eos_idx).long()
-    scored = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
 
-    @torch.no_grad()
-    def score(resident: bool, **flags):
-        memory, mask = model.encoder_forward(batch)
-        b_s = memory.shape[0]
-        cache = make_decode_cache(model.config.DECODER, vocab, b_s, dtype=torch.bfloat16,
-                                  device=device)
-        cache = model.prepare_cache(cache, memory)
-        ancestry = torch.zeros((b_s, 1, L), dtype=torch.long, device=device) if resident else None
-        per_step = []
-        for t in range(L):
-            log_probs, cache = model.decode_step(
-                t, tokens[:, t : t + 1], cache, mask, ancestry=ancestry,
-                beam_select=1 if resident else None, **flags)
-            per_step.append(torch.gather(log_probs[: len(ids)], 1, ids[:, t : t + 1])[:, 0])
-        return torch.stack(per_step, dim=1)
+    def score(resident, **flags):
+        return forced_scores(model, batch, ids, vocab, resident, **flags)
 
-    def check(name, got, want, gate=True):
-        diff = (got - want).abs()[scored]
-        share = (diff <= FORCED_ATOL).float().mean().item()
-        totals = ((got - want) * scored).sum(dim=1).abs()
-        log(f"  {name}: per-step |d log-prob| max {diff.max().item():.4g}, mean "
-            f"{diff.mean().item():.3g}, within {FORCED_ATOL} on {share:.4f} of "
-            f"{diff.numel()} steps; per-caption |d total| mean {totals.mean().item():.3g}, "
-            f"max {totals.max().item():.3g}")
-        if gate and share < FORCED_SHARE:
-            raise AssertionError(f"{name}: {share:.4f} of the forced steps within "
-                                 f"{FORCED_ATOL} < {FORCED_SHARE}")
+    def check(name, got, want):
+        check_forced(name, ids, vocab, got, want)
 
     eager = score(True)
     check("(a) attention kernel against the eager step", score(True, attn_kernel=True), eager)
     check("(b) resident kernel against the eager step", score(True, resident_kernel=True), eager)
     eager_nr = score(False)
-    before = os.environ.get("OPENVIIC_FUSED_STEP")
-    os.environ["OPENVIIC_FUSED_STEP"] = "1"
-    try:
+    with env_flag("OPENVIIC_FUSED_STEP"):
         fused = score(False)
-    finally:
-        if before is None:
-            del os.environ["OPENVIIC_FUSED_STEP"]
-        else:
-            os.environ["OPENVIIC_FUSED_STEP"] = before
     check("(c) fused step against the eager non-resident step", fused, eager_nr)
     check("eager non-resident against eager beam-resident", eager_nr, eager)
+    return {"eager": eager, "eager_nr": eager_nr}
+
+
+# ---------------------------------------------------------------- phase 9
+def ort_config(s, trig: bool):
+    """The Object Relation Transformer of ``configs/object_relation_transformer.yaml``
+    at the widths of ``s`` (3+3 layers, d_model 512, 8 heads, d_ff 2048,
+    1024-d features at full width), the yaml's beam 3, with
+    ``ENCODER.TRIGNOMETRIC_EMBEDDING`` set to ``trig`` (the yaml has it
+    false; true is the ORT paper's dim_g = 64, wave_len 1000)."""
+    config = model_config(s)
+    model = config.MODEL.to_dict()
+    model["ARCHITECTURE"] = "ObjectRelationTransformer"
+    model["ENCODER"]["ARCHITECTURE"] = "GeometricEncoder"
+    model["ENCODER"]["TRIGNOMETRIC_EMBEDDING"] = trig
+    model["ENCODER"]["SELF_ATTENTION"]["ARCHITECTURE"] = "AugmentedGeometryScaledDotProductAttention"
+    training = dict(config.TRAINING.to_dict(), EVALUATING_BEAM_SIZE=s["ort_beam"])
+    from openviic_tpu_torch.config import ConfigNode
+
+    return ConfigNode({"MODEL": model, "TRAINING": training})
+
+
+def attention_paths_phase(device, s, served, paths, card: str):
+    """The decode paths of the two attention kernels at the serve shape:
+    (d) OPENVIIC_PALLAS=1 on the served beam-resident flagship (the encoder:
+    one fused_attention per encoder layer and request); (e) the same with
+    beam_resident=False (also one per decoder self- and cross-attention per
+    step); (f) the ORT with the trig embedding off, with and without
+    OPENVIIC_PALLAS=1 (its (B, h, n, n) geometric bias through the kernel);
+    (g) the ORT with the trig embedding on, with and without
+    OPENVIIC_GEO_FUSED=1 (one geo_fused_attention per encoder layer and
+    request).  Each asserts its launches, valid ids and score parity with
+    its flag-off twin, and prints captions/s and caption agreement; (d),
+    (e) and (g) then pass the forced decode against their twins.  Returns
+    each kernel's launches on its path."""
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    vocab, requests, pipe = (served[k] for k in ("vocab", "requests", "pipe"))
+    n_enc = len(pipe.model.encoder.layers)
+    n_dec = len(pipe.model.decoder.layers)
+    beam = s["beam"]
+    refs = paths["refs"]
+    out = {}
+
+    def run(name, searcher, decode, reqs=requests, **expect):
+        return drive(name, device, s, vocab, reqs, searcher, decode, card, **expect)
+
+    with env_flag("OPENVIIC_PALLAS"):
+        res_d, launches = run("(d) OPENVIIC_PALLAS=1, served path", pipe.searcher,
+                              lambda request: pipe.caption_features(request, return_ids=True),
+                              per_step={"head_topk": 1}, per_request={"fused_attention": n_enc})
+        out["fused_attention"] = launches["fused_attention"]
+        res_d = rescore(device, requests, searcher_decode(pipe, pipe.searcher, vocab, beam),
+                        res_d, "(d)")
+        non_resident = BeamSearcher(pipe.model, torch.bfloat16, beam_resident=False)
+        res_e, _ = run("(e) OPENVIIC_PALLAS=1, beam_resident=False", non_resident,
+                       searcher_decode(pipe, non_resident, vocab, beam),
+                       per_step={"fused_attention": 2 * n_dec},
+                       per_request={"fused_attention": n_enc})
+    score_parity("(d)", res_d, refs["base"], "the served path without the flag")
+    score_parity("(e)", res_e, refs["non_resident"], "the non-resident path without the flag")
+
+    # the ORT: the same images, with boxes in pixels (all 50 regions live;
+    # the pipeline pads features and boxes to 56 rows of zeros)
+    gen = torch.Generator().manual_seed(8)
+    boxes = pixel_boxes(gen, sum(len(r) for r in requests), s["n_regions"],
+                        torch.full((sum(len(r) for r in requests),), s["n_regions"])).numpy()
+    flat = [dict(image, region_boxes=b) for r in requests for image, b in zip(r, boxes)]
+    sizes = np.cumsum([0] + [len(r) for r in requests])
+    ort_requests = [flat[a:b] for a, b in zip(sizes[:-1], sizes[1:])]
+    ort_forced = {}
+    for trig, flag, kernel in ((False, "OPENVIIC_PALLAS", "fused_attention"),
+                               (True, "OPENVIIC_GEO_FUSED", "geo_fused_attention")):
+        tag = "(g) ORT trig-on" if trig else "(f) ORT trig-off"
+        ort = CaptioningPipeline(ort_config(s, trig), vocab, batch_size=s["batch"], head_kernel=1,
+                                 device=device, seed=1)
+        beam_o = ort.beam_size
+        decode = searcher_decode(ort, ort.searcher, vocab, beam_o)
+        res_off, _ = run(f"{tag}, no flag", ort.searcher, decode, reqs=ort_requests,
+                         per_step={"head_topk": 1})
+        with env_flag(flag):
+            res_on, launches = run(f"{tag}, {flag}=1", ort.searcher, decode, reqs=ort_requests,
+                                   per_step={"head_topk": 1}, per_request={kernel: n_enc})
+        if trig:
+            out["geo_fused_attention"] = launches["geo_fused_attention"]
+        score_parity(tag, res_on, res_off, "its path without the flag")
+        if trig:
+            ort_forced = dict(pipe=ort, ids=res_off[0][1], request=ort_requests[0], flag=flag)
+
+    # forced decodes of (d), (e) and (g) against their flag-off twins
+    ids = torch.from_numpy(served["results"][0][1]).to(device)
+    batch = pipe._batch(requests[0])
+    eager, eager_nr = paths["forced"]["eager"], paths["forced"]["eager_nr"]
+    with env_flag("OPENVIIC_PALLAS"):
+        check_forced("(d) OPENVIIC_PALLAS=1 against the served eager step", ids, vocab,
+                     forced_scores(pipe.model, batch, ids, vocab, True), eager)
+        check_forced("(e) OPENVIIC_PALLAS=1 against the eager non-resident step", ids, vocab,
+                     forced_scores(pipe.model, batch, ids, vocab, False), eager_nr)
+    # (g) with the boxes as the pipeline gives them (f32), then in bf16, as
+    # the beam search casts every floating input (the JAX package's rule):
+    # there the eager path computes its log displacements in bf16, so the
+    # trig embedding's 100-rad-per-unit frequencies carry errors of order
+    # 1 rad that the kernel's f32 displacements do not, in the JAX package
+    # as here (tests/test_torch_port_ort.py, ROADMAP.md section C).  The
+    # bf16 case is gated on the card, at the served width; at the CPU
+    # rehearsal's two heads and random weights that gap alone exceeds
+    # FORCED_ATOL (as JAX's own does in the test), so there it is printed
+    ort = ort_forced["pipe"]
+    ids_g = torch.from_numpy(ort_forced["ids"]).to(device)
+    batch_g = ort._batch(ort_forced["request"])
+    batch_bf16 = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                  for k, v in batch_g.items()}
+    for boxes, batch_x in (("f32", batch_g), ("bf16", batch_bf16)):
+        off = forced_scores(ort.model, batch_x, ids_g, vocab, True)
+        with env_flag(ort_forced["flag"]):
+            on = forced_scores(ort.model, batch_x, ids_g, vocab, True)
+        check_forced(f"(g) OPENVIIC_GEO_FUSED=1 against the ORT eager encoder, {boxes} boxes",
+                     ids_g, vocab, on, off, gate=boxes == "f32" or device.type == "cuda")
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+FUSED_ATOL = 2e-5  # the JAX test's bar (tests/test_pallas_attention.py)
+GEO_ULPS, GEO_SHARE, GEO_ATOL = 2, 0.99, 0.05
+
+
+def mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    """The -1e30 additive form of a True = masked mask, as ``_attend`` makes it."""
+    return torch.zeros(mask.shape, device=mask.device).masked_fill(mask, -1e30)
+
+
+def fused_attention_cases(gen, s, device):
+    """(name, q, k, v, bias) at the shapes the decode paths give the kernel:
+    the encoder (images x regions padded to a multiple of 8, mask bias), the
+    non-resident step's self- (nq = 1, nk = max_len, position mask; q/k/v
+    strided slices of one fused projection, as ``project_qkv_fused`` gives
+    them) and cross-attention (nk = regions), the ORT trig-off encoder's full
+    (B, h, n, n) bias, and a ragged f32 shape (7 images, nk = 13) with one
+    fully masked row."""
+    img, beam, L, h, D = s["batch"], s["beam"], s["max_len"], s["heads"], s["d_model"]
+    d, n = D // h, -(-s["n_regions"] // 8) * 8
+    N = img * beam
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(device, dtype)
+
+    live = torch.randint(n // 2, s["n_regions"] + 1, (img,), generator=gen)
+    enc_mask = (torch.arange(n)[None] >= live[:, None]).reshape(img, 1, 1, n)
+    q_s = randn(N, 1, 3 * D)[..., :D].reshape(N, 1, h, d)  # strided, as sliced from q|k|v
+    t = L // 2
+    pos_mask = (torch.rand((N, L), generator=gen) < 0.1) | (torch.arange(L) > t)[None]
+    pos_mask[:, 0] = False
+    cross_live = live.repeat_interleave(beam)
+    cross_mask = (torch.arange(n)[None] >= cross_live[:, None]).reshape(N, 1, 1, n)
+    geo_bias = torch.log(torch.clamp_min(torch.relu(torch.randn((img, h, n, n), generator=gen)),
+                                         1e-6)) + mask_bias(enc_mask.expand(img, h, n, n))
+    ragged_mask = torch.rand((7, 1, 1, 13), generator=gen) < 0.3
+    ragged_mask[..., 0] = False
+    ragged_mask[3] = True  # every key of image 3: its rows are uniform
+    return [
+        ("encoder", randn(img, n, h, d), randn(img, n, h, d), randn(img, n, h, d),
+         mask_bias(enc_mask).to(device)),
+        ("step self", q_s, randn(N, L, h, d), randn(N, L, h, d),
+         mask_bias(pos_mask.reshape(N, 1, 1, L)).to(device)),
+        ("step cross", q_s, randn(N, n, h, d), randn(N, n, h, d),
+         mask_bias(cross_mask).to(device)),
+        ("ORT trig-off bias", randn(img, n, h, d), randn(img, n, h, d), randn(img, n, h, d),
+         geo_bias.to(device)),
+        ("ragged f32", randn(7, 13, h, d, dtype=torch.float32),
+         randn(7, 13, h, d, dtype=torch.float32), randn(7, 13, h, d, dtype=torch.float32),
+         mask_bias(ragged_mask).to(device)),
+    ]
+
+
+def fused_attention_phase(device, s):
+    """ops.fused_attention against its plain version at every case of
+    ``fused_attention_cases`` (within FUSED_ATOL; the fully masked rows
+    finite and uniform), then its time at the encoder shape beside its
+    bound, the plain version's and SDPA's on f32 copies with the same float
+    mask."""
+    from openviic_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_reference)
+
+    gen = torch.Generator().manual_seed(4)
+    worst = 0.0
+    cases = fused_attention_cases(gen, s, device)
+    for name, q, k, v, bias in cases:
+        got = fused_attention(q, k, v, bias)
+        want = fused_attention_reference(q, k, v, bias)
+        sync(device)
+        err = (got - want).abs().max().item()
+        if got.dtype != torch.float32 or got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"fused_attention {name}: {got.dtype} {tuple(got.shape)}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        if err > FUSED_ATOL:
+            raise AssertionError(f"fused_attention {name}: max |err| {err:.3g} > {FUSED_ATOL}")
+        detail = ""
+        if name == "ragged f32":
+            uniform = v[3].float().mean(dim=0, keepdim=True).expand_as(got[3])
+            u_err = (got[3] - uniform).abs().max().item()
+            if u_err > FUSED_ATOL:
+                raise AssertionError(f"fused_attention: a fully masked row is not uniform "
+                                     f"(max |err| {u_err:.3g} against the mean of v)")
+            detail = f"; fully masked rows finite and uniform (max |err| {u_err:.3g})"
+        worst = max(worst, err)
+        log(f"  fused_attention {name}: q {tuple(q.shape)} {str(q.dtype)[6:]}, nk {k.shape[1]}, "
+            f"bias {tuple(bias.shape)}: max |err| {err:.3g}{detail}")
+    if device.type != "cuda":
+        return None
+    for name, q, k, v, bias in cases[1:3]:  # the non-resident step's shapes, printed
+        log(f"  fused_attention at the {name} shape {tuple(q.shape)}, nk {k.shape[1]}: kernel "
+            f"{time_cuda(lambda: fused_attention(q, k, v, bias), 50):.4f} ms")
+    _, q, k, v, bias = cases[0]
+    B, nq, h, d = q.shape
+    nk = k.shape[1]
+    qf, kf, vf = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():  # SDPA in f32 with the same float mask; timed here only
+        return torch.nn.functional.scaled_dot_product_attention(qf, kf, vf, attn_mask=bias)
+
+    ms = time_cuda(lambda: fused_attention(q, k, v, bias), 50)
+    plain_ms = time_cuda(lambda: fused_attention_reference(q, k, v, bias), 10)
+    library_ms = time_cuda(library, 50)
+    lib_err = (library().transpose(1, 2) - fused_attention(q, k, v, bias)).abs().max().item()
+    # q.k of bf16 operands; p (f32) times v; one exp per score
+    flops = 2.0 * B * h * nq * nk * d
+    nbytes = 3 * B * nk * h * d * 2 + bias.numel() * 4 + B * nq * h * d * 4
+    bound_ms, bound_by, times = unit_bound(nbytes, bf16_flops=flops, f32_flops=flops,
+                                           sfu_ops=B * h * nq * nk)
+    log(f"  fused_attention at the encoder shape {tuple(q.shape)}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA f32 {library_ms:.4f} ms (max |diff| {lib_err:.3g}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {bound_detail(times)}; {flops / 1e9:.2f} GFLOP "
+        f"each product, {nbytes / 1e6:.2f} MB)")
+    return entry("fused_attention", "openviic_tpu_torch/csrc/fused_attention.cu",
+                 "openviic_tpu/ops/pallas_attention.py:164", worst, ms, plain_ms, bound_ms,
+                 bound_by, library_ms)
+
+
+def pixel_boxes(gen, bs, n, live):
+    """(bs, n, 4) f32 boxes in pixels of a 640 x 480 image, zero past each
+    image's ``live`` regions (as the pipeline pads them)."""
+    x0 = torch.rand((bs, n), generator=gen) * 600
+    y0 = torch.rand((bs, n), generator=gen) * 440
+    w = 8 + torch.rand((bs, n), generator=gen) * (640 - x0 - 8)
+    hh = 8 + torch.rand((bs, n), generator=gen) * (480 - y0 - 8)
+    boxes = torch.stack([x0, y0, x0 + w, y0 + hh], dim=-1)
+    return boxes * (torch.arange(n)[None] < live[:, None])[..., None]
+
+
+def geo_attention_phase(device, s):
+    """ops.geo_fused_attention against its plain version at the ORT encoder
+    shape (images x regions padded to 8, the trig embedding's dim_g =
+    d_model / heads) and a ragged shape (7 images, n = 13, f32): within
+    GEO_ULPS bf16 ulps on GEO_SHARE of the elements and GEO_ATOL
+    everywhere; then its time beside its bound, the plain version's and the
+    composite of box_relational_embedding + fc_gs + SDPA with the
+    materialised bias."""
+    from openviic_tpu_torch.models.geometry import box_relational_embedding
+    from openviic_tpu_torch.ops.geo_attention import (
+        geo_fused_attention, geo_fused_attention_reference)
+
+    gen = torch.Generator().manual_seed(5)
+    h, D = s["heads"], s["d_model"]
+    d, n = D // h, -(-s["n_regions"] // 8) * 8
+    dim_g = d
+    bound_g = (6.0 / (dim_g + 1)) ** 0.5  # _per_head_xavier
+    worst, timed_case = 0.0, None
+    for bs, nn_, dtype in ((s["batch"], n, torch.bfloat16), (7, 13, torch.float32)):
+        live = torch.randint(nn_ // 2, min(nn_, s["n_regions"]) + 1, (bs,), generator=gen)
+        boxes = pixel_boxes(gen, bs, nn_, live).to(device)
+        mask = (torch.arange(nn_)[None] >= live[:, None]).reshape(bs, 1, 1, nn_).to(device)
+        q, k, v = (torch.randn((bs, nn_, h, d), generator=gen).to(device, dtype) for _ in range(3))
+        wg = ((torch.rand((dim_g, h), generator=gen) * 2 - 1) * bound_g).to(device)
+        bg = (0.1 * torch.randn((h,), generator=gen)).to(device)
+        args = (q, k, v, boxes, wg, bg, mask, 1.0 / d ** 0.5)
+        got = geo_fused_attention(*args)
+        want = geo_fused_attention_reference(*args)
+        sync(device)
+        err, ulps, share = ulp_errors(got, want)
+        beyond = float(((got.float() - want.float()).abs()
+                        > GEO_ULPS * bf16_ulp(want.float().abs().clamp_min(ULP_FLOOR))).float().mean())
+        if (got.dtype != q.dtype or not torch.isfinite(got).all() or err > GEO_ATOL
+                or beyond > 1 - GEO_SHARE):
+            raise AssertionError(f"geo_fused_attention bs={bs} n={nn_}: max |err| {err:.3g}, "
+                                 f"{beyond:.4f} of the elements beyond {GEO_ULPS} bf16 ulps")
+        worst = max(worst, err)
+        log(f"  geo_fused_attention bs={bs} n={nn_} h={h} dk={d} dim_g={dim_g} "
+            f"{str(dtype)[6:]}: max |err| {err:.3g} = {ulps:.2f} bf16 ulps, {share:.2e} beyond "
+            f"1 ulp, {beyond:.2e} beyond {GEO_ULPS}")
+        if timed_case is None:
+            timed_case = args
+    if device.type != "cuda":
+        return None
+    q, k, v, boxes, wg, bg, mask, scale = timed_case
+    bs, n, h, d = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():  # the materialised path: embedding, fc_gs, SDPA with the bias
+        emb = box_relational_embedding(boxes, dim_g=dim_g)
+        wts = torch.relu(emb @ wg + bg).permute(0, 3, 1, 2)
+        bias = torch.log(torch.clamp_min(wts, 1e-6)) + mask_bias(mask)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias.to(q.dtype), scale=scale)
+
+    ms = time_cuda(lambda: geo_fused_attention(*timed_case), 20)
+    plain_ms = time_cuda(lambda: geo_fused_attention_reference(*timed_case), 3)
+    library_ms = time_cuda(library, 20)
+    pairs = bs * n * n
+    mma = 2.0 * pairs * h * 2 * d  # q.k and p.v: bf16 operands, f32 accumulation
+    fold = 2.0 * pairs * h * 2 * 4 * (dim_g // 8)  # the f32 fold of the sin/cos planes
+    sincos = pairs * 2 * 4 * (dim_g // 8)
+    sfu = sincos + pairs * (2 + 2 * h)  # and the displacements' logs, each bias's log and exp
+    nbytes = 4 * bs * n * h * d * 2 + bs * n * (4 * 4 + 1)
+    bound_ms, bound_by, times = unit_bound(nbytes, bf16_flops=mma, f32_flops=fold, sfu_ops=sfu)
+    log(f"  geo_fused_attention at {tuple(q.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"embedding+fc_gs+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{bound_detail(times)}; {mma / 1e9:.2f} GFLOP bf16 at 989 TFLOP/s, {fold / 1e9:.2f} "
+        f"GFLOP f32 at 67 TFLOP/s, {sfu / 1e6:.1f} M transcendentals ({sincos / 1e6:.1f} M "
+        f"sin/cos) at {PEAK_SFU_OPS / 1e12:.2f} T/s (16 per SM per clock, 132 SMs, 1.98 GHz), "
+        f"{nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    return entry("geo_fused_attention", "openviic_tpu_torch/csrc/geo_attention.cu",
+                 "openviic_tpu/ops/geo_attention.py:134", worst, ms, plain_ms, bound_ms,
+                 bound_by, library_ms)
+
+
+def head_large_k_phase(device, s):
+    """head_topk at k = 32 and k = 128 (the shared-memory lists) against its
+    plain version at the flagship decode rows, exact and gaussian inputs."""
+    from openviic_tpu_torch.ops.head_topk import head_topk
+
+    gen = torch.Generator().manual_seed(6)
+    N, D, V = s["batch"] * s["beam"], s["d_model"], s["vocab"]
+    worst = 0.0
+    for k in (32, 128):
+        k = min(k, V - 1)
+        compare(f"k={k}, exact inputs", *exact_inputs(gen, N, D, V, device), k, exact=True)
+        x, w = gaussian_inputs(gen, N, D, V, device)
+        err, _ = compare(f"k={k}, gaussian inputs", x, w, k, exact=False)
+        worst = max(worst, err)
+        if device.type == "cuda":
+            log(f"  head_topk k={k} at N={N}: {time_cuda(lambda: head_topk(x, w, k), 10):.4f} ms")
+    return worst
+
+
+GATE_BEAMS = (1, 3, 5, 8, 16)  # 16: the largest k of the register lists
+
+
+def head_gate_phase(device, s):
+    """One beam-resident selection step both ways at each (rows, beam): the
+    head kernel + ``_finish_select`` against fast select (the head's raw
+    logits, their logsumexp and ``_select_topk_hier``), at images x beam
+    rows (the row count rounded down to a multiple of the beam).  Prints
+    the times and, per beam, the crossover: the fewest rows from which the
+    kernel wins at every larger row count measured."""
+    from openviic_tpu_torch.decoding.beam_search import (
+        _finish_select, _head_kernel_wins, _select_topk_hier)
+    from openviic_tpu_torch.ops.head_topk import head_topk
+
+    gen = torch.Generator().manual_seed(7)
+    D, V = s["d_model"], s["vocab"]
+    w = gaussian_inputs(gen, 1, D, V, device)[1]
+    row_counts = ((1, 2, 4, 8, 16, 24, 40, 80, 160, 320, 480, 960, 1600, 3200)
+                  if device.type == "cuda"
+                  else (16, 32))
+    table = {}
+    for beam in GATE_BEAMS:
+        for nominal in row_counts:
+            b_s = nominal // beam
+            if b_s < 1:
+                continue
+            x = gaussian_inputs(gen, b_s * beam, D, V, device)[0]
+            seq = torch.randn((b_s, beam), generator=gen).to(device) * 5
+            fin = torch.zeros((b_s, beam), dtype=torch.bool, device=device)
+
+            def kernel():
+                vals, idxs, lse = head_topk(x, w, beam)
+                lse = lse.reshape(b_s, beam)
+                return _finish_select(vals.reshape(b_s, beam, beam),
+                                      idxs.long().reshape(b_s, beam, beam),
+                                      seq - lse, fin, seq, beam)
+
+            def fast():
+                logits = torch.nn.functional.linear(x, w).float()
+                lse = torch.logsumexp(logits, dim=-1).reshape(b_s, beam)
+                return _select_topk_hier(logits.reshape(b_s, beam, V), seq - lse, fin, seq, beam)
+
+            if device.type == "cuda":
+                table[beam, b_s * beam] = (time_cuda(kernel, 20), time_cuda(fast, 20))
+            else:
+                kernel(), fast()
+                table[beam, b_s * beam] = (0.0, 0.0)
+    if device.type != "cuda":
+        return table
+    log("  selection step, ms (kernel + _finish_select / fast select), NVIDIA H100 per run:")
+    for beam in GATE_BEAMS:
+        rows = sorted(r for b, r in table if b == beam)
+        cells = [f"{r}: {table[beam, r][0]:.4f}/{table[beam, r][1]:.4f}" for r in rows]
+        wins = [table[beam, r][0] < table[beam, r][1] for r in rows]
+        cross = next((r for i, r in enumerate(rows) if all(wins[i:])), None)
+        gate = [r for r in rows if _head_kernel_wins(r // beam, beam)]
+        log(f"  beam {beam}: {'; '.join(cells)}; kernel wins from "
+            f"{cross if cross is not None else 'no row count measured'}; the port's gate "
+            f"takes the kernel at {gate or 'none'}")
+    return table
 
 
 def nvidia_smi_line() -> str:
@@ -816,7 +1309,7 @@ def ptxas_summary(logs) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-4 at tiny widths on the CPU")
+                        help="rehearse phases 3-8 at tiny widths on the CPU")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -827,9 +1320,7 @@ def main() -> int:
         # tiny widths: one thread is fastest, and keeps the rehearsal's cost
         # steady when other processes share the cores
         torch.set_num_threads(1)
-        timed("kernel vs plain (cpu, plain versions)", lambda: kernel_phase(device, TINY))
-        served = timed("serve (cpu)", lambda: serve_phase(device, TINY, "the CPU"))
-        step_phases(device, TINY, served, "the CPU")
+        all_phases(device, TINY, "the CPU")
         log(f"total: {time.perf_counter() - t_start:.3f} s")
         log("cpu rehearsal ok")
         return 0
@@ -853,10 +1344,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     logs = timed("build", lambda: cuda_build.build(force=True))
     log(f"  ptxas: {ptxas_summary(logs)}")
-    head = timed("kernel vs plain", lambda: kernel_phase(device, FLAGSHIP))
-    served = timed("serve", lambda: serve_phase(device, FLAGSHIP, smi))
-    head["launches"] = served["launches"]
-    entries = [head] + step_phases(device, FLAGSHIP, served, smi)
+    entries = all_phases(device, FLAGSHIP, smi)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)
     log(json.dumps({"kernels": entries}))
@@ -864,23 +1352,33 @@ def main() -> int:
     return 0
 
 
-def step_phases(device, s, served, card: str):
-    """Phases 5-7: the three decode-step kernels against their plain
-    versions, the decode paths that launch them, and those paths with the
-    tokens forced.  Returns the kernels'
-    entries of the per-kernel line (none on the CPU)."""
+def all_phases(device, s, card: str):
+    """Phases 3-8.  Returns the per-kernel entries (none on the CPU), each
+    with its launches on its decode path."""
+    head = timed("kernel vs plain", lambda: kernel_phase(device, s))
+    timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
+    timed("head-kernel gate sweep", lambda: head_gate_phase(device, s))
+    served = timed("serve", lambda: serve_phase(device, s, card))
     layer = served["pipe"].model.decoder.layers[0]
     found = [
+        head,
         timed("beam_select_attention vs plain", lambda: beam_select_phase(device, s)),
         timed("resident_layer_step vs plain", lambda: layer_step_phase(device, s, layer, True)),
         timed("fused_layer_step vs plain", lambda: layer_step_phase(device, s, layer, False)),
+        timed("fused_attention vs plain", lambda: fused_attention_phase(device, s)),
+        timed("geo_fused_attention vs plain", lambda: geo_attention_phase(device, s)),
     ]
-    launches = timed("decode paths", lambda: decode_paths_phase(device, s, served, card))
-    timed("forced decode", lambda: forced_phase(device, s, served))
+    paths = timed("decode paths (a)-(c)", lambda: decode_paths_phase(device, s, served, card))
+    paths["forced"] = timed("forced decode (a)-(c)", lambda: forced_phase(device, s, served))
+    launches = timed("attention decode paths (d)-(g), forced (d), (e), (g)",
+                     lambda: attention_paths_phase(device, s, served, paths, card))
+    launches.update(paths, head_topk=served["launches"])
     if device.type != "cuda":
         return []
     for e in found:
         e["launches"] = launches[e["name"]]
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} was not launched on its decode path")
     return found
 
 

@@ -186,7 +186,7 @@ def _supports_beam_resident(model) -> bool:
 @torch.no_grad()
 def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                  out_size: int, early_exit: bool, compute_dtype, beam_resident: bool,
-                 head_kernel: bool, attn_kernel: bool, resident_kernel: bool):
+                 head_kernel, attn_kernel: bool, resident_kernel: bool):
     """``beam_search`` that also returns the number of decode steps run."""
     if resident_kernel or head_kernel or attn_kernel:
         beam_resident = True  # the kernels implement the beam-resident math
@@ -200,6 +200,8 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
         # the network runs in compute_dtype; the caller's model is left as is
         model = copy.deepcopy(model).to(compute_dtype)
         dtype = compute_dtype
+    # every floating input runs in the compute dtype, as in the JAX package
+    # (beam_search.py:317-321): the ORT's pixel boxes round to bf16 too
     batch = {
         key: value.to(device=device, dtype=dtype if value.is_floating_point() else None)
         for key, value in batch.items()
@@ -323,7 +325,7 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
 def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                 out_size: int = 1, early_exit: bool = True,
                 compute_dtype: Optional[torch.dtype] = None,
-                beam_resident: bool = True, head_kernel: bool = False,
+                beam_resident: bool = True, head_kernel=False,
                 attn_kernel: bool = False, resident_kernel: bool = False):
     """Run batched beam search; returns (outputs, log_probs).
 
@@ -339,8 +341,10 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     step, full distributions); the port defaults to beam-resident, the path
     its serving uses, and selects through raw logits and their logsumexp
     (the JAX ``fast_select``, on with beam-resident).  Any kernel flag
-    forces beam-resident: ``head_kernel`` selects through the
-    fused head + lse + top-k (ops/head_topk.py), ``attn_kernel`` runs each
+    forces beam-resident: a true ``head_kernel`` selects through the
+    fused head + lse + top-k (ops/head_topk.py) at every step (here, as in
+    the JAX function, it forces; ``BeamSearcher`` resolves ``True`` through
+    ``_head_kernel_wins``), ``attn_kernel`` runs each
     self-attention through ops/beam_select_attention.py and
     ``resident_kernel`` each layer through ops/resident_layer_step.py
     (with both, ``attn_kernel`` wins, as in the JAX package).
@@ -354,26 +358,61 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     return outputs, log_probs
 
 
+# The head kernel's win region on the H100, measured by chip_smoke.py's
+# head-gate phase: one beam-resident selection step, the kernel +
+# _finish_select against fast select, from one image to 3200 rows at beams
+# 1, 3, 5, 8 and 16, on an H100 80GB HBM3 at 700 W (PERF.md section 6).  The
+# kernel won at every point measured, in three sweeps: fast select's
+# per-beam argmax rounds cost more launches than the whole kernel at every
+# size.  Above k = 16 the kernel keeps its lists in shared memory, which the
+# sweep did not time, so fast select stays there.  The JAX package's
+# thresholds (openviic_tpu/decoding/beam_search.py:762) are TPU v5e numbers.
+HEAD_KERNEL_MAX_BEAM = 16
+
+
+def _head_kernel_wins(b_s: int, beam_size: int) -> bool:
+    """Whether the fused head + top-k kernel beats fast select at b_s
+    images x beam_size beams: at beams up to ``HEAD_KERNEL_MAX_BEAM``, at
+    any batch (``b_s`` is kept for the JAX signature)."""
+    return beam_size <= HEAD_KERNEL_MAX_BEAM
+
+
 class BeamSearcher:
     """Decode callable for one model and decode configuration (the JAX
     ``BeamSearcher`` flags, and ``resident_kernel`` besides); keeps the
-    count of decode steps it has run (``steps``)."""
+    count of decode steps it has run (``steps``).
+
+    ``head_kernel`` follows the JAX ``BeamSearcher``: ``True`` is an auto
+    gate, resolved per call from the batch's images and the beam through
+    ``_head_kernel_wins`` (the port's own H100 thresholds); an int that is
+    not a bool forces the kernel (in the JAX package it is the kernel's
+    row-block size; the port's kernel chooses its own tiling, so only its
+    truth counts); ``False`` never launches it."""
 
     def __init__(self, model, compute_dtype=None, beam_resident: bool = True,
-                 head_kernel: bool = False, attn_kernel: bool = False,
+                 head_kernel=False, attn_kernel: bool = False,
                  resident_kernel: bool = False):
         self.model = model
         self.compute_dtype = compute_dtype
         self.beam_resident = bool(beam_resident)
-        self.head_kernel = bool(head_kernel)
+        self.head_kernel = head_kernel
         self.attn_kernel = bool(attn_kernel)
         self.resident_kernel = bool(resident_kernel)
         self.steps = 0
 
+    def effective_head_kernel(self, batch, beam_size: int) -> bool:
+        """Whether this call runs the head kernel (the JAX
+        ``_effective_head_kernel``)."""
+        if self.head_kernel is True:
+            b_s = next(iter(batch.values())).shape[0]
+            return _head_kernel_wins(b_s, beam_size)
+        return bool(self.head_kernel)
+
     def __call__(self, batch, beam_size: int, out_size: int = 1):
         outputs, log_probs, steps = _beam_search(
             self.model, batch, beam_size, out_size, True, self.compute_dtype,
-            self.beam_resident, self.head_kernel, self.attn_kernel, self.resident_kernel,
+            self.beam_resident, self.effective_head_kernel(batch, beam_size),
+            self.attn_kernel, self.resident_kernel,
         )
         self.steps += steps
         return outputs, log_probs

@@ -1,5 +1,6 @@
 """Registered captioning architectures (counterpart of
-``openviic_tpu/models/architectures.py``): ``StandardTransformerUsingRegion``."""
+``openviic_tpu/models/architectures.py``): ``StandardTransformerUsingRegion``
+and ``ObjectRelationTransformer``."""
 
 from __future__ import annotations
 
@@ -29,3 +30,20 @@ class StandardTransformerUsingRegion(BaseTransformer):
     def encoder_forward(self, batch: Dict[str, torch.Tensor]):
         features, padding_mask = self.vision_embedding(batch[self.feature_key])
         return self.encoder(features, padding_mask), padding_mask
+
+
+@META_ARCHITECTURE.register()
+class ObjectRelationTransformer(BaseTransformer):
+    """Region features and their boxes: ``batch["region_boxes"]`` (bs, n, 4)
+    as (x_min, y_min, x_max, y_max) feed the ``GeometricEncoder``; padded
+    regions have zero boxes (w = h = 1), which the padding mask hides."""
+
+    def __init__(self, config, vocab):
+        super().__init__(config, vocab)
+        self.vision_embedding = build_vision_embedding(config.VISION_EMBEDDING)
+        self.encoder = build_encoder(config.ENCODER)
+        self.decoder = build_decoder(config.DECODER, vocab)
+
+    def encoder_forward(self, batch: Dict[str, torch.Tensor]):
+        features, padding_mask = self.vision_embedding(batch["region_features"])
+        return self.encoder(features, batch["region_boxes"], padding_mask), padding_mask

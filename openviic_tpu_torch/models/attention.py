@@ -9,7 +9,14 @@ copy of the whole cache).
 
 Scores, softmax and the probability-value product run in float32 whatever
 the compute dtype, as the JAX einsums do with
-``preferred_element_type=float32``; the result is cast back."""
+``preferred_element_type=float32``; the result is cast back.
+
+With ``OPENVIIC_PALLAS`` set, ``_attend`` runs ``ops.fused_attention``
+instead and, as the JAX ``_attend`` does, returns its float32 output
+uncast: the output projection then runs in f32 (Flax promotes the bf16
+weights; the port promotes them explicitly, ``promoted_linear``), and the
+residual and LayerNorm of ``MultiHeadAttention._finish`` too, which rounds
+back to the queries' dtype once."""
 
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from torch import nn
 from openviic_tpu_torch.builders import META_ATTENTION, build_attention
 from openviic_tpu_torch.models.initializers import XavierLinear
 from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
+from openviic_tpu_torch.ops.fused_attention import NEG, fused_attention, pallas_enabled
+from openviic_tpu_torch.ops.geo_attention import geo_fused_attention
 
 Cache = Dict[str, torch.Tensor]
 
@@ -40,13 +49,51 @@ def _resolve_ancestry(cache_arr: torch.Tensor, ancestry: torch.Tensor) -> torch.
     return torch.gather(shaped, 1, idx).reshape(cache_arr.shape)
 
 
-def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor]):
+def promoted_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)`` in the promoted dtype of ``x`` and the weights, as a
+    Flax ``Dense`` computes it (an f32 input to bf16 weights gives f32)."""
+    dtype = torch.promote_types(x.dtype, linear.weight.dtype)
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
+def residual_layer_norm(layer_norm: nn.LayerNorm, x: torch.Tensor,
+                        out: torch.Tensor) -> torch.Tensor:
+    """``layer_norm(x + out)`` with the sum and the normalisation in f32,
+    rounded to ``x``'s dtype once, as XLA computes the JAX package's fused
+    residual + LayerNorm at bf16 (and as Flax promotes the bf16 LayerNorm
+    parameters for the f32 attention output under ``OPENVIIC_PALLAS``)."""
+    y = nn.functional.layer_norm(
+        x.float() + out.float(), layer_norm.normalized_shape, layer_norm.weight.float(),
+        layer_norm.bias.float(), layer_norm.eps,
+    )
+    return y.to(x.dtype)
+
+
+def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
+            bias: Optional[torch.Tensor] = None):
     """q (bs, nq, h, d_k), k/v (bs, nk, h, d), mask (bs, 1|h, nq|1, nk)
-    True = masked -> (bs, nq, h, d_v) in q's dtype.  A fully masked row
-    gives NaN, as in the JAX package's einsum path."""
+    True = masked, an optional additive bias (bs, h, nq, nk) -> (bs, nq, h,
+    d_v) in q's dtype.  A fully masked row gives NaN, as in the JAX
+    package's einsum path.
+
+    With ``OPENVIIC_PALLAS`` (``pallas_enabled``) the mask becomes a -1e30
+    bias (in the bias's dtype, as JAX's weakly typed ``jnp.where`` adds to
+    it), and ``ops.fused_attention``'s float32 output is returned uncast,
+    as in the JAX package; a fully masked row is then uniform."""
+    if pallas_enabled():
+        total = bias
+        if mask is not None:
+            dtype = torch.float32 if bias is None else bias.dtype
+            mask_bias = torch.zeros(mask.shape, dtype=dtype, device=mask.device)
+            mask_bias = mask_bias.masked_fill(mask, NEG)
+            total = mask_bias if total is None else total + mask_bias
+        return fused_attention(q, k, v, bias=total, sm_scale=1.0 / math.sqrt(d_k))
     att = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d_k)
     if mask is not None:
         att = att.masked_fill(mask, float("-inf"))
+    if bias is not None:
+        att = att + bias
     att = torch.softmax(att, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", att, v.float()).to(q.dtype)
 
@@ -76,7 +123,7 @@ class ScaledDotProductAttention(nn.Module):
 
     def output(self, out):
         bs, nq = out.shape[:2]
-        return self.fc_o(out.reshape(bs, nq, self.h * self.d_v))
+        return promoted_linear(self.fc_o, out.reshape(bs, nq, self.h * self.d_v))
 
     def forward(self, queries, keys, values, attention_mask=None):
         q = self.project_q(queries)
@@ -160,6 +207,30 @@ class ScaledDotProductAttention(nn.Module):
         return self.output(out.reshape(b_s * n_beams, 1, self.h, self.d_v))
 
 
+@META_ATTENTION.register()
+class AugmentedGeometryScaledDotProductAttention(ScaledDotProductAttention):
+    """SDPA with the log-ReLU geometric bias of the Object Relation
+    Transformer (JAX ``AugmentedGeometryScaledDotProductAttention``): K and
+    V are both projected from ``keys``.  ``relative_geometry_weights``
+    (bs, h, nq, nk) are non-negative weights whose log(clamp(g, 1e-6)) is
+    added to the scores through ``_attend``; ``geometry_fused`` (``boxes``,
+    the fc_g ``kernel`` (dim_g, h) and ``bias``) instead runs
+    ``ops.geo_fused_attention``, which builds that bias from the boxes."""
+
+    def forward(self, queries, keys, values, attention_mask=None,
+                relative_geometry_weights=None, geometry_fused=None):
+        q = self.project_q(queries)
+        k, v = self.project_kv(keys)
+        if geometry_fused is not None:
+            out = geo_fused_attention(
+                q, k, v, geometry_fused["boxes"], geometry_fused["kernel"],
+                geometry_fused["bias"], attention_mask, sm_scale=1.0 / math.sqrt(self.d_k),
+            ).to(queries.dtype)
+            return self.output(out)
+        bias = torch.log(torch.clamp_min(relative_geometry_weights, 1e-6))
+        return self.output(_attend(q, k, v, self.d_k, attention_mask, bias=bias))
+
+
 class MultiHeadAttention(nn.Module):
     """Attention kernel + dropout + post-LN residual (AoA gating is not
     ported).  ``forward`` is the cache-free path; ``decode_self`` and
@@ -175,10 +246,15 @@ class MultiHeadAttention(nn.Module):
         self.layer_norm = nn.LayerNorm(config.D_MODEL, eps=1e-5)
 
     def _finish(self, queries, out):
-        return self.layer_norm(queries + self.dropout(out))
+        """Post-LN residual, rounded to the queries' dtype once (JAX
+        ``_finish``'s ``.astype``); see ``residual_layer_norm``."""
+        return residual_layer_norm(self.layer_norm, queries, self.dropout(out))
 
-    def forward(self, queries, keys, values, attention_mask=None):
-        out = self.attention(queries, keys, values, attention_mask=attention_mask)
+    def forward(self, queries, keys, values, attention_mask=None, **kwargs):
+        """``kwargs`` go to the attention (the geometry of the Object
+        Relation Transformer: ``relative_geometry_weights`` or
+        ``geometry_fused``)."""
+        out = self.attention(queries, keys, values, attention_mask=attention_mask, **kwargs)
         return self._finish(queries, out)
 
     def decode_self(self, queries, cache: Cache, decode_index: int,

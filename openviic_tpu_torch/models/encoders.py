@@ -1,15 +1,21 @@
-"""Encoder stack (counterpart of ``openviic_tpu/models/encoders.py:Encoder``):
-LayerNorm + DETR sinusoid positions, then N self-attention + FFN layers
-whose padded query rows are zeroed."""
+"""Encoder stacks (counterparts of ``openviic_tpu/models/encoders.py``):
+``Encoder`` (LayerNorm + DETR sinusoid positions, then N self-attention +
+FFN layers whose padded query rows are zeroed) and ``GeometricEncoder``
+(the same, with the Object Relation Transformer's per-head geometric
+attention bias from the region boxes)."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from openviic_tpu_torch.builders import META_ENCODER
-from openviic_tpu_torch.models.attention import MultiHeadAttention
+from openviic_tpu_torch.models.attention import MultiHeadAttention, promoted_linear
 from openviic_tpu_torch.models.ffn import make_pwff
+from openviic_tpu_torch.models.geometry import box_relational_embedding
+from openviic_tpu_torch.models.initializers import PerHeadXavierLinear
 from openviic_tpu_torch.models.positional import sinusoid_positional_embedding
+from openviic_tpu_torch.ops.geo_attention import geo_fused_enabled
 
 
 class EncoderLayer(nn.Module):
@@ -18,8 +24,8 @@ class EncoderLayer(nn.Module):
         self.mhatt = MultiHeadAttention(config)
         self.pwff = make_pwff(config)
 
-    def forward(self, queries, keys, values, padding_mask, attention_mask):
-        att = self.mhatt(queries, keys, values, attention_mask=attention_mask)
+    def forward(self, queries, keys, values, padding_mask, attention_mask, **kwargs):
+        att = self.mhatt(queries, keys, values, attention_mask=attention_mask, **kwargs)
         ff = self.pwff(att)
         # padding_mask is (bs, 1, 1, len) over the queries
         return ff.masked_fill(padding_mask[:, 0, 0, :, None], 0.0)
@@ -35,9 +41,43 @@ class Encoder(nn.Module):
             EncoderLayer(config.SELF_ATTENTION) for _ in range(config.LAYERS)
         )
 
-    def forward(self, features, padding_mask):
+    def forward(self, features, padding_mask, **layer_kwargs):
+        """``layer_kwargs`` go to every layer's attention."""
         pos = sinusoid_positional_embedding(features, self.d_model)
         out = (self.layer_norm(features) + pos).to(features.dtype)
         for layer in self.layers:
-            out = layer(out, out, out, padding_mask, padding_mask)
+            out = layer(out, out, out, padding_mask, padding_mask, **layer_kwargs)
         return out
+
+
+@META_ENCODER.register()
+class GeometricEncoder(Encoder):
+    """The Object Relation Transformer's encoder: per-head geometry weights
+    relu(fc_gs(box_relational_embedding(boxes))) enter every layer's
+    attention as a log bias.  ``fc_gs`` is one Linear(d_g, h) (d_g =
+    d_model / heads with the trig embedding, else 4), its columns
+    initialised as h separate Linear(d_g, 1) layers.  With
+    ``OPENVIIC_GEO_FUSED``, the trig embedding and d_g % 8 == 0 the bias is
+    built inside ``ops.geo_fused_attention`` from the boxes instead."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.trignometric_embedding = config.TRIGNOMETRIC_EMBEDDING
+        self.n_heads = config.SELF_ATTENTION.HEAD
+        self.d_g = config.D_MODEL // self.n_heads if self.trignometric_embedding else 4
+        self.fc_gs = PerHeadXavierLinear(self.d_g, self.n_heads)
+
+    def geometry_weights(self, boxes: torch.Tensor) -> torch.Tensor:
+        """(bs, n, 4) boxes -> (bs, h, n, n) non-negative weights."""
+        emb = box_relational_embedding(
+            boxes, dim_g=self.d_g, trignometric_embedding=self.trignometric_embedding
+        )
+        return torch.relu(promoted_linear(self.fc_gs, emb).permute(0, 3, 1, 2))
+
+    def forward(self, features, boxes, padding_mask):
+        if geo_fused_enabled() and self.trignometric_embedding and self.d_g % 8 == 0:
+            return super().forward(features, padding_mask, geometry_fused={
+                "boxes": boxes, "kernel": self.fc_gs.weight.t(), "bias": self.fc_gs.bias,
+            })
+        return super().forward(features, padding_mask,
+                               relative_geometry_weights=self.geometry_weights(boxes))

@@ -1,6 +1,7 @@
 """Position-wise feed-forward layer (counterpart of
 ``openviic_tpu/models/ffn.py:PositionWiseFeedForward``): fc1 -> ReLU ->
-dropout -> fc2 -> dropout -> post-LN residual.  The MoE variant is not
+dropout -> fc2 -> dropout -> post-LN residual (sum and LayerNorm in f32,
+rounded once, ``attention.residual_layer_norm``).  The MoE variant is not
 ported."""
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from openviic_tpu_torch.models.attention import residual_layer_norm
 from openviic_tpu_torch.models.initializers import TorchLinear
 
 
@@ -22,7 +24,7 @@ class PositionWiseFeedForward(nn.Module):
 
     def forward(self, x):
         out = self.fc2(self.dropout_2(torch.relu(self.fc1(x))))
-        return self.layer_norm(x + self.dropout(out))
+        return residual_layer_norm(self.layer_norm, x, self.dropout(out))
 
 
 def make_pwff(config) -> PositionWiseFeedForward:

@@ -26,6 +26,18 @@ class XavierLinear(nn.Linear):
             self.bias.zero_()
 
 
+class PerHeadXavierLinear(nn.Linear):
+    """Linear(d_g, h) whose h output columns are initialised as h separate
+    Linear(d_g, 1) layers would be by xavier-uniform (the JAX
+    ``_per_head_xavier``: bound sqrt(6 / (d_g + 1))); zero bias."""
+
+    def reset_with(self, generator: torch.Generator) -> None:
+        bound = math.sqrt(6.0 / (self.in_features + 1))
+        self.weight.uniform_(-bound, bound, generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
 class TorchLinear(nn.Linear):
     def reset_with(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.in_features)

@@ -16,7 +16,9 @@ as the JAX kernel computes them.
 ``head_topk`` dispatches on the tensors' device: on the CPU it runs
 ``head_topk_reference``, the plain PyTorch version; on a CUDA device it
 launches the kernel or raises.  ``head_topk.launches`` counts kernel
-launches.
+launches.  k runs from 1 to min(128, V), as in the JAX kernel; above 16 the
+kernel keeps its per-thread lists in shared memory instead of registers,
+which is slower.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from openviic_tpu_torch.ops import cuda_build
 
-MAX_K = 16  # the kernel's largest k (csrc/head_topk.cu)
+MAX_K = 128  # the kernel's largest k, as the JAX kernel's (csrc/head_topk.cu)
 _BLOCKS_PER_SM = 4  # vocab splits are chosen to give about this many blocks per SM
 
 

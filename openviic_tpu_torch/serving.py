@@ -10,7 +10,7 @@ example ``compat.from_jax.state_dict_from_jax``) or are drawn from
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -23,12 +23,15 @@ from openviic_tpu_torch.decoding.beam_search import BeamSearcher
 class CaptioningPipeline:
     def __init__(self, config, vocab, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  beam_size: Optional[int] = None, batch_size: int = 32,
-                 use_bf16: bool = True, head_kernel: Optional[bool] = None,
+                 use_bf16: bool = True, head_kernel: Optional[Union[bool, int]] = None,
                  device="cuda", seed: int = 0):
         """``config`` holds ``MODEL`` and ``TRAINING`` nodes, as the JAX
         pipeline's does.  ``head_kernel`` defaults to
-        ``TRAINING.DECODE_HEAD_KERNEL``; on a CUDA device every decode step
-        then launches the fused head + lse + top-k kernel.
+        ``TRAINING.DECODE_HEAD_KERNEL`` and goes to ``BeamSearcher`` as is:
+        ``True`` takes the fused head + lse + top-k kernel where the port's
+        measured gate says it wins (every call is padded to ``batch_size``
+        images), an int that is not a bool forces it (the JAX package's
+        row-block size; the port's kernel picks its own tiling).
         ``TRAINING.DECODE_ATTN_KERNEL`` runs every decoder self-attention
         step through the beam-select attention kernel, as in the JAX
         pipeline."""
@@ -45,7 +48,7 @@ class CaptioningPipeline:
             head_kernel = config.TRAINING.get("DECODE_HEAD_KERNEL", False)
         attn_kernel = config.TRAINING.get("DECODE_ATTN_KERNEL", False) or False
         self.searcher = BeamSearcher(self.model, self.compute_dtype, beam_resident=True,
-                                     head_kernel=bool(head_kernel),
+                                     head_kernel=head_kernel or False,
                                      attn_kernel=bool(attn_kernel))
 
     def _batch(self, chunk: List[Dict]) -> Dict[str, torch.Tensor]:

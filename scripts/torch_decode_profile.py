@@ -3,11 +3,13 @@
 
     python3 scripts/torch_decode_profile.py            # on a machine with one NVIDIA GPU
     python3 scripts/torch_decode_profile.py --cpu      # tiny widths, CPU (no device metrics)
+    python3 scripts/torch_decode_profile.py --out report.json  # the JSON also to a file
 
 Builds the flagship captioner of ``chip_smoke.py`` (random weights from
-seed 0), then, for each decode path (head kernel; attention kernel + head
-kernel; resident kernel + head kernel; non-resident; non-resident with
-``OPENVIIC_FUSED_STEP=1``), decodes one warm-up request and one profiled
+seed 0), then, for each decode path (head kernel, without and with
+``OPENVIIC_PALLAS=1``; attention kernel + head kernel; resident kernel +
+head kernel; non-resident, without a flag, with ``OPENVIIC_FUSED_STEP=1``
+and with ``OPENVIIC_PALLAS=1``), decodes one warm-up request and one profiled
 request of one full batch under ``torch.profiler``.  It prints, per path:
 the host-clock seconds of the request and per decode step (the profiler's
 own overhead included), the summed
@@ -34,12 +36,15 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 
 PATHS = {
-    "head_kernel": dict(head_kernel=True),
-    "attn_kernel+head_kernel": dict(attn_kernel=True, head_kernel=True),
-    "resident_kernel+head_kernel": dict(resident_kernel=True, head_kernel=True),
+    "head_kernel": dict(head_kernel=1),
+    "attn_kernel+head_kernel": dict(attn_kernel=True, head_kernel=1),
+    "resident_kernel+head_kernel": dict(resident_kernel=True, head_kernel=1),
+    "head_kernel+OPENVIIC_PALLAS": dict(head_kernel=1, pallas=True),
     "non_resident": dict(beam_resident=False),
     "non_resident+fused_step": dict(beam_resident=False, fused=True),
+    "non_resident+OPENVIIC_PALLAS": dict(beam_resident=False, pallas=True),
 }
+ENV_FLAGS = {"fused": "OPENVIIC_FUSED_STEP", "pallas": "OPENVIIC_PALLAS"}
 
 
 def device_times(prof):
@@ -57,6 +62,7 @@ def device_times(prof):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true", help="tiny widths on the CPU")
+    parser.add_argument("--out", help="also write the JSON report to this file")
     args = parser.parse_args()
     if not args.cpu and not torch.cuda.is_available():
         print("no CUDA device: use --cpu", file=sys.stderr)
@@ -82,10 +88,11 @@ def main() -> int:
     report = {"card": card, "batch": s["batch"], "beam": s["beam"], "paths": {}}
     for name, flags in PATHS.items():
         flags = dict(flags)
-        if flags.pop("fused", False):
-            os.environ["OPENVIIC_FUSED_STEP"] = "1"
-        else:
-            os.environ.pop("OPENVIIC_FUSED_STEP", None)
+        for key, var in ENV_FLAGS.items():
+            if flags.pop(key, False):
+                os.environ[var] = "1"
+            else:
+                os.environ.pop(var, None)
         searcher = BeamSearcher(pipe.model, torch.bfloat16, **flags)
         searcher(warm, s["beam"])
         chip_smoke.sync(device)
@@ -112,7 +119,11 @@ def main() -> int:
               f"({entry['ms_per_step']:.3f} ms per step); {busy} on {card}", flush=True)
         for key, ms in top:
             print(f"    {ms:9.3f} ms  {key[:110]}", flush=True)
-    os.environ.pop("OPENVIIC_FUSED_STEP", None)
+    for var in ENV_FLAGS.values():
+        os.environ.pop(var, None)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
     print(json.dumps(report))
     return 0
 

@@ -105,7 +105,8 @@ def test_kernel_checks_reject_bad_shapes_dtypes_and_k():
         check(torch.zeros(4, 12, dtype=bf), torch.zeros(32, 12, dtype=bf), 5)  # D % 8
     with pytest.raises(ValueError):
         check(torch.zeros(65, dtype=bf)[1:].view(4, 16), good_w, 5)  # 2-byte offset
+    check(good_x, good_w, 17)  # 16 < k <= 128: the shared-memory lists
     with pytest.raises(ValueError):
-        check(good_x, good_w, 17)  # k above the kernel's maximum
+        check(good_x, torch.zeros(200, 16, dtype=bf), 129)  # k above the kernel's maximum
     with pytest.raises(ValueError):
         check(good_x, torch.zeros(3, 16, dtype=bf), 5)  # k > V
