@@ -9,7 +9,8 @@ On the card it runs these phases, each printing its seconds:
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when CUDA is unavailable;
 2. build: nvcc over ``openviic_tpu_torch/csrc/*.cu`` (one process per
-   source, all started together) and the ptxas register/spill report;
+   source, all started together), the ptxas register/spill report and the
+   resident step kernel's occupancy at the flagship shape;
 3. head kernel: the ``head_topk`` CUDA kernel against its plain PyTorch
    version at the flagship decode shape (N = 320 x 5 beams = 1600 rows,
    D = 512, V = 10 000, k = 5), at a ragged shape (N = 37, V = 7 094) and in
@@ -29,16 +30,24 @@ On the card it runs these phases, each printing its seconds:
    must agree with the fast-select path on >= 95% of the images; it prints
    what the auto gate (``head_kernel=True``) resolves to there;
 5. kernels vs plain: ``beam_select_attention`` (both mask axes),
-   ``resident_layer_step`` and ``fused_layer_step`` (rows other than t
-   bit-unchanged) at a mid-decode step and a ragged shape, with the
-   flagship's layer-0 weights; ``fused_attention`` at the encoder, the
-   non-resident step's self- and cross-attention, the ORT's full-bias and a
-   ragged f32 shape with a fully masked row (within 2e-5; that row finite
-   and uniform); ``geo_fused_attention`` at the ORT encoder shape and a
-   ragged one (2 bf16 ulps on 99% of the elements, 0.05 everywhere); then
-   each one's time beside its bound, its plain version's and a PyTorch
+   ``resident_layer_step`` (also at N = 1600 with t = 0 and t = L - 1,
+   and at 37 images, whose 185 rows leave the last cluster tile short) and
+   ``fused_layer_step`` (rows other than t bit-unchanged) at a mid-decode
+   step and a ragged shape, with the flagship's layer-0 weights;
+   ``fused_attention`` at the encoder, the non-resident step's self- and
+   cross-attention, the ORT's full-bias and a ragged f32 shape with a fully
+   masked row, and at its tiles' edges (nq = 1 with nk = 1, 200 and 300,
+   nq = 65, bf16 q/k/v 2 bytes off 16-byte alignment), the edge cases also
+   through the tile their nq does not choose (within 2e-5; the masked row
+   finite and uniform); ``geo_fused_attention`` at the ORT encoder shape
+   and a ragged one (2 bf16 ulps on 99% of the elements, 0.05 everywhere);
+   then each one's time beside its bound, its plain version's and a PyTorch
    yardstick's (the gather + SDPA composite, the eager
-   ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA);
+   ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA); the
+   fused_attention and layer-step times are device times (a CUDA graph of
+   the calls), fused_attention's at the encoder and both step shapes with
+   the DECODE/MMA crossover over nq; beside them each launch's cost from
+   Python (CUDA events and the host's clock, without a graph);
 6. decode paths at the serve shape over the same requests: (a)
    ``TRAINING.DECODE_ATTN_KERNEL`` in the pipeline, (b) ``resident_kernel``,
    (c) ``beam_resident=False`` with ``OPENVIIC_FUSED_STEP=1`` and without;
@@ -243,17 +252,47 @@ def tie_case(gen, device, k):
     log(f"  tie case: {int(tied.sum())} rows with a tied top-2, all resolved to the lower id")
 
 
-def time_cuda(fn, iters: int) -> float:
+def time_cuda(fn, iters: int, graph: bool = False) -> float:
+    """ms per call of ``fn`` over ``iters`` calls, between CUDA events.  With
+    ``graph`` the calls are captured once into a CUDA graph and replayed, so
+    the time is the device's alone, without the host's launch overhead."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        captured.replay()
+        run = captured.replay
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_costs(fn, iters: int) -> dict:
+    """What ``fn`` costs launched from Python, one call after another: ms
+    per call between CUDA events (``launch_ms``; the device's time, or the
+    host's where the host is slower) and ms of the host's clock per call
+    until the last one returns (``host_ms``: the wrapper's own cost, its
+    checks, ctypes call and launch)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return dict(launch_ms=start.elapsed_time(end) / iters, host_ms=host * 1e3 / iters)
 
 
 def kernel_phase(device, s):
@@ -535,8 +574,11 @@ def layer_step_phase(device, s, layer, resident: bool):
     """ops.resident_layer_step (resident) or ops.fused_layer_step against its
     plain version, with the flagship's layer-0 weights: the main shape at a
     mid-decode step and a ragged shape (7 images, 35 rows) at the last
-    step; then times, the unfused eager ``DecoderLayer.step`` it replaces,
-    and the bound."""
+    step, and for the resident step the main shape at t = 0 and t = L - 1
+    and 37 images (185 rows, which on the card leave the last cluster tile
+    short: asserted) at a mid-decode step too; then times (a CUDA graph's,
+    and launched from Python), the unfused eager ``DecoderLayer.step`` it
+    replaces, and the bound."""
     from openviic_tpu_torch.ops.beam_select_attention import ancestor_rows
     from openviic_tpu_torch.ops.fused_decoder_step import (
         fused_layer_step, fused_layer_step_reference)
@@ -549,7 +591,10 @@ def layer_step_phase(device, s, layer, resident: bool):
     beam, L, M, D, h = s["beam"], s["max_len"], s["n_regions"], s["d_model"], s["heads"]
     F = weights["w1"].shape[1]
     worst, timed_case = 0.0, None
-    for img, t in ((s["batch"], L // 2), (7, L - 1)):
+    shapes = [(s["batch"], L // 2), (7, L - 1)]
+    if resident:
+        shapes += [(s["batch"], 0), (s["batch"], L - 1), (37, L // 2)]
+    for img, t in shapes:
         c = step_case(gen, img, s, t, device)
         N = img * beam
         if resident:
@@ -588,6 +633,14 @@ def layer_step_phase(device, s, layer, resident: bool):
             args = (ins, k0, v0)
         if not ok:
             raise AssertionError(f"{name} N={N} t={t}: {detail}")
+        if resident and img == 37 and device.type == "cuda":
+            from openviic_tpu_torch.ops.layer_step import resident_occupancy
+
+            tile = resident_occupancy(N, D, F, L, M, h)["rows_per_tile"]
+            if N % tile == 0:
+                raise AssertionError(f"resident_layer_step N={N}: tiles of {tile} rows leave "
+                                     f"no short tile; pick another row count")
+            detail += f"; tiles of {tile} rows, the last of {N % tile}"
         worst = max(worst, err)
         log(f"  {name} N={N} L={L} M={M} D={D} F={F} t={t}: {detail}")
         if timed_case is None:
@@ -617,9 +670,10 @@ def layer_step_phase(device, s, layer, resident: bool):
                            "v": ins[2].reshape(N, M, h, D // h)}}
         eager = lambda: layer.step(  # noqa: E731
             c["x"][:, None], cache, t, ins[3].reshape(N, 1, 1, L), ins[4].reshape(N, 1, 1, M))
-    ms = time_cuda(kernel, 20)
-    plain_ms = time_cuda(plain, 5)
+    ms = time_cuda(kernel, 20, graph=True)
+    plain_ms = time_cuda(plain, 5, graph=True)
     eager_ms = time_cuda(eager, 20)
+    costs = host_costs(kernel, 20)
     # how far the kernel's numerics sit from the eager bf16 step it replaces
     # (informational: the eager step rounds every intermediate to bf16)
     y_kernel, y_eager = kernel()[0].reshape(N, D), eager().reshape(N, D)
@@ -649,13 +703,14 @@ def layer_step_phase(device, s, layer, resident: bool):
         # f32 products go to the tensor cores as three bf16 terms each
         flops = 3 * gemm_flops + 4.0 * (int(live.sum()) + N + live_cross) * D
     bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-    log(f"  {name} at N={N} t={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, eager "
-        f"DecoderLayer.step {eager_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    log(f"  {name} at N={N} t={t}: kernel {ms:.4f} ms (launched from Python: "
+        f"{costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), plain "
+        f"{plain_ms:.4f} ms, eager DecoderLayer.step {eager_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
     replaces = ("openviic_tpu/ops/resident_layer_step.py:201" if resident
                 else "openviic_tpu/ops/fused_decoder_step.py:190")
     return entry(name, "openviic_tpu_torch/csrc/layer_step.cu", replaces, worst, ms, plain_ms,
-                 bound_ms, bound_by, None, eager_ms=eager_ms)
+                 bound_ms, bound_by, None, eager_ms=eager_ms, **costs)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1019,14 +1074,26 @@ def fused_attention_cases(gen, s, device):
     non-resident step's self- (nq = 1, nk = max_len, position mask; q/k/v
     strided slices of one fused projection, as ``project_qkv_fused`` gives
     them) and cross-attention (nk = regions), the ORT trig-off encoder's full
-    (B, h, n, n) bias, and a ragged f32 shape (7 images, nk = 13) with one
-    fully masked row."""
+    (B, h, n, n) bias, a ragged f32 shape (7 images, nk = 13) with one fully
+    masked row; then the tiles' edges: nq = 1 at nk = 1, nk = 200 (past
+    64-key tiles) and nk = 300 (past the decode tile's 256 kept scores),
+    nq = 65 (past a 64-query tile), and bf16 q/k/v sliced 2 bytes off
+    16-byte alignment with odd strides (the kernel loads them element by
+    element) at the encoder's and the step's nq."""
     img, beam, L, h, D = s["batch"], s["beam"], s["max_len"], s["heads"], s["d_model"]
     d, n = D // h, -(-s["n_regions"] // 8) * 8
     N = img * beam
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen).to(device, dtype)
+
+    def unaligned(B, m):  # (B, m, h, d) bf16 views 2 bytes past 16-byte alignment
+        return randn(B, m, h * d + 1)[..., 1:].view(B, m, h, d)
+
+    def random_mask(B, nq, nk, p=0.2):
+        mask = torch.rand((B, 1, nq, nk), generator=gen) < p
+        mask[..., 0] = False
+        return mask_bias(mask).to(device)
 
     live = torch.randint(n // 2, s["n_regions"] + 1, (img,), generator=gen)
     enc_mask = (torch.arange(n)[None] >= live[:, None]).reshape(img, 1, 1, n)
@@ -1041,6 +1108,7 @@ def fused_attention_cases(gen, s, device):
     ragged_mask = torch.rand((7, 1, 1, 13), generator=gen) < 0.3
     ragged_mask[..., 0] = False
     ragged_mask[3] = True  # every key of image 3: its rows are uniform
+    few = 16  # images of the edge cases
     return [
         ("encoder", randn(img, n, h, d), randn(img, n, h, d), randn(img, n, h, d),
          mask_bias(enc_mask).to(device)),
@@ -1053,71 +1121,132 @@ def fused_attention_cases(gen, s, device):
         ("ragged f32", randn(7, 13, h, d, dtype=torch.float32),
          randn(7, 13, h, d, dtype=torch.float32), randn(7, 13, h, d, dtype=torch.float32),
          mask_bias(ragged_mask).to(device)),
+        ("nq 1, nk 1", randn(few, 1, h, d), randn(few, 1, h, d), randn(few, 1, h, d), None),
+        ("nq 1, nk 200", randn(few, 1, h, d), randn(few, 200, h, d), randn(few, 200, h, d),
+         random_mask(few, 1, 200)),
+        ("nq 1, nk 300", randn(few, 1, h, d), randn(few, 300, h, d), randn(few, 300, h, d),
+         random_mask(few, 1, 300)),
+        ("nq 65, nk 200", randn(few, 65, h, d), randn(few, 200, h, d), randn(few, 200, h, d),
+         random_mask(few, 65, 200)),
+        ("unaligned bf16 encoder", unaligned(few, n), unaligned(few, n), unaligned(few, n),
+         random_mask(few, 1, n)),
+        ("unaligned bf16 step", unaligned(few, 1), unaligned(few, L), unaligned(few, L),
+         random_mask(few, 1, L)),
     ]
+
+
+CROSSOVER_NQ = (1, 2, 4, 8, 16, 32)
+
+
+def attention_bound(q, k, v, bias):
+    """fused_attention's bound on these inputs, counting the work their
+    masks leave: q read once (its live columns only); the K and V rows of
+    the keys that some query of their (batch, head) can see (a bias above
+    -5e29), with every key of a fully masked row (its output is the mean of
+    V); the f32 bias as given and the f32 output; q.k of bf16 operands at
+    the tensor-core peak, p.v (an f32 operand) at the f32 peak and one
+    exponent, each over the (query, key) pairs so counted."""
+    B, nq, h, d = q.shape
+    nk, dv = k.shape[1], v.shape[3]
+    if bias is None:
+        seen = torch.ones((B, h, nq, nk), dtype=torch.bool, device=q.device)
+    else:
+        seen = (bias > -5e29).expand(B, h, nq, nk)
+    seen = seen | ~seen.any(dim=-1, keepdim=True)
+    pairs, keys = int(seen.sum()), int(seen.any(dim=2).sum())
+    nbytes = ((q[..., 0].numel() * d + keys * (d + dv)) * q.element_size()
+              + (0 if bias is None else bias.numel() * 4) + B * nq * h * dv * 4)
+    qk_flops, pv_flops = 2.0 * pairs * d, 2.0 * pairs * dv
+    return unit_bound(nbytes, bf16_flops=qk_flops, f32_flops=pv_flops, sfu_ops=pairs) + (
+        qk_flops, nbytes, keys / (B * h * nk))
 
 
 def fused_attention_phase(device, s):
     """ops.fused_attention against its plain version at every case of
     ``fused_attention_cases`` (within FUSED_ATOL; the fully masked rows
-    finite and uniform), then its time at the encoder shape beside its
-    bound, the plain version's and SDPA's on f32 copies with the same float
-    mask."""
-    from openviic_tpu_torch.ops.fused_attention import (
-        fused_attention, fused_attention_reference)
+    finite and uniform; the edge cases also through the tile that their nq
+    does not choose), then its time at the encoder and the two step shapes
+    beside its bound, the plain version's and SDPA's on f32 copies with the
+    same float mask, and the DECODE/MMA crossover over nq."""
+    from openviic_tpu_torch.ops import fused_attention as fa
 
+    fused_attention, fused_attention_reference = fa.fused_attention, fa.fused_attention_reference
     gen = torch.Generator().manual_seed(4)
     worst = 0.0
     cases = fused_attention_cases(gen, s, device)
+    forced = {"nq 1, nk 200": fa.MMA, "nq 1, nk 300": fa.MMA, "nq 65, nk 200": fa.DECODE,
+              "unaligned bf16 encoder": fa.DECODE, "unaligned bf16 step": fa.MMA}
     for name, q, k, v, bias in cases:
-        got = fused_attention(q, k, v, bias)
+        tiles = [None] + ([forced[name]] if name in forced else [])
         want = fused_attention_reference(q, k, v, bias)
-        sync(device)
-        err = (got - want).abs().max().item()
-        if got.dtype != torch.float32 or got.shape != want.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"fused_attention {name}: {got.dtype} {tuple(got.shape)}, "
-                                 f"finite {bool(torch.isfinite(got).all())}")
-        if err > FUSED_ATOL:
-            raise AssertionError(f"fused_attention {name}: max |err| {err:.3g} > {FUSED_ATOL}")
-        detail = ""
-        if name == "ragged f32":
-            uniform = v[3].float().mean(dim=0, keepdim=True).expand_as(got[3])
-            u_err = (got[3] - uniform).abs().max().item()
-            if u_err > FUSED_ATOL:
-                raise AssertionError(f"fused_attention: a fully masked row is not uniform "
-                                     f"(max |err| {u_err:.3g} against the mean of v)")
-            detail = f"; fully masked rows finite and uniform (max |err| {u_err:.3g})"
-        worst = max(worst, err)
-        log(f"  fused_attention {name}: q {tuple(q.shape)} {str(q.dtype)[6:]}, nk {k.shape[1]}, "
-            f"bias {tuple(bias.shape)}: max |err| {err:.3g}{detail}")
+        for tile in tiles:
+            got = fused_attention(q, k, v, bias, tile=tile)
+            sync(device)
+            err = (got - want).abs().max().item()
+            if (got.dtype != torch.float32 or got.shape != want.shape
+                    or not torch.isfinite(got).all()):
+                raise AssertionError(f"fused_attention {name}: {got.dtype} {tuple(got.shape)}, "
+                                     f"finite {bool(torch.isfinite(got).all())}")
+            if err > FUSED_ATOL:
+                raise AssertionError(f"fused_attention {name}: max |err| {err:.3g} > {FUSED_ATOL}")
+            detail = ""
+            if name == "ragged f32":
+                uniform = v[3].float().mean(dim=0, keepdim=True).expand_as(got[3])
+                u_err = (got[3] - uniform).abs().max().item()
+                if u_err > FUSED_ATOL:
+                    raise AssertionError(f"fused_attention: a fully masked row is not uniform "
+                                         f"(max |err| {u_err:.3g} against the mean of v)")
+                detail = f"; fully masked rows finite and uniform (max |err| {u_err:.3g})"
+            worst = max(worst, err)
+            used = fa.resolve_tile(q.shape[1], q.dtype, tile)
+            log(f"  fused_attention {name} ({fa.TILE_NAMES[used]} tile): q {tuple(q.shape)} "
+                f"{str(q.dtype)[6:]}, nk {k.shape[1]}, bias "
+                f"{None if bias is None else tuple(bias.shape)}: max |err| {err:.3g}{detail}")
     if device.type != "cuda":
         return None
-    for name, q, k, v, bias in cases[1:3]:  # the non-resident step's shapes, printed
-        log(f"  fused_attention at the {name} shape {tuple(q.shape)}, nk {k.shape[1]}: kernel "
-            f"{time_cuda(lambda: fused_attention(q, k, v, bias), 50):.4f} ms")
+
+    rows = {}
+    for name, q, k, v, bias in cases[:3]:
+        qf, kf, vf = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():  # SDPA in f32 with the same float mask; timed here only
+            return torch.nn.functional.scaled_dot_product_attention(qf, kf, vf, attn_mask=bias)
+
+        ms = time_cuda(lambda: fused_attention(q, k, v, bias), 50, graph=True)
+        plain_ms = time_cuda(lambda: fused_attention_reference(q, k, v, bias), 10, graph=True)
+        library_ms = time_cuda(library, 50, graph=True)
+        costs = host_costs(lambda: fused_attention(q, k, v, bias), 50)
+        lib_err = (library().transpose(1, 2) - fused_attention(q, k, v, bias)).abs().max().item()
+        bound_ms, bound_by, times, flops, nbytes, seen = attention_bound(q, k, v, bias)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, **costs)
+        log(f"  fused_attention at the {name} shape {tuple(q.shape)}, nk {k.shape[1]} "
+            f"({fa.TILE_NAMES[fa.choose_tile(q.shape[1], q.dtype)]} tile): kernel {ms:.4f} ms "
+            f"(launched from Python: {costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} "
+            f"ms per call), plain {plain_ms:.4f} ms, SDPA f32 {library_ms:.4f} ms (max |diff| "
+            f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}; {bound_detail(times)}; "
+            f"{flops / 1e9:.3f} GFLOP q.k, {nbytes / 1e6:.2f} MB with {seen:.3f} of the keys "
+            f"seen)")
+
+    # the DECODE/MMA crossover: the encoder's images, heads and keys, nq queries
     _, q, k, v, bias = cases[0]
-    B, nq, h, d = q.shape
-    nk = k.shape[1]
-    qf, kf, vf = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+    cells, crossover = [], None
+    for nq in CROSSOVER_NQ:
+        qn = q[:, :1].expand(-1, nq, -1, -1).contiguous()
+        t_dec = time_cuda(lambda: fused_attention(qn, k, v, bias, tile=fa.DECODE), 20, graph=True)
+        t_mma = time_cuda(lambda: fused_attention(qn, k, v, bias, tile=fa.MMA), 20, graph=True)
+        cells.append(f"nq {nq}: decode {t_dec:.4f} / mma {t_mma:.4f} ms")
+        if t_dec <= t_mma:
+            crossover = nq
+    log(f"  fused_attention tiles over nq at {tuple(k.shape)} keys: {'; '.join(cells)}; decode "
+        f"wins up to nq {crossover}; the port's DECODE_MAX_NQ is {fa.DECODE_MAX_NQ}")
 
-    def library():  # SDPA in f32 with the same float mask; timed here only
-        return torch.nn.functional.scaled_dot_product_attention(qf, kf, vf, attn_mask=bias)
-
-    ms = time_cuda(lambda: fused_attention(q, k, v, bias), 50)
-    plain_ms = time_cuda(lambda: fused_attention_reference(q, k, v, bias), 10)
-    library_ms = time_cuda(library, 50)
-    lib_err = (library().transpose(1, 2) - fused_attention(q, k, v, bias)).abs().max().item()
-    # q.k of bf16 operands; p (f32) times v; one exp per score
-    flops = 2.0 * B * h * nq * nk * d
-    nbytes = 3 * B * nk * h * d * 2 + bias.numel() * 4 + B * nq * h * d * 4
-    bound_ms, bound_by, times = unit_bound(nbytes, bf16_flops=flops, f32_flops=flops,
-                                           sfu_ops=B * h * nq * nk)
-    log(f"  fused_attention at the encoder shape {tuple(q.shape)}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA f32 {library_ms:.4f} ms (max |diff| {lib_err:.3g}), bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {bound_detail(times)}; {flops / 1e9:.2f} GFLOP "
-        f"each product, {nbytes / 1e6:.2f} MB)")
+    enc = rows["encoder"]
     return entry("fused_attention", "openviic_tpu_torch/csrc/fused_attention.cu",
-                 "openviic_tpu/ops/pallas_attention.py:164", worst, ms, plain_ms, bound_ms,
-                 bound_by, library_ms)
+                 "openviic_tpu/ops/pallas_attention.py:164", worst, enc["ms"],
+                 enc["plain_ms"], enc["bound_ms"], enc["bound_by"], enc["library_ms"],
+                 launch_ms=enc["launch_ms"], host_ms=enc["host_ms"],
+                 step_self=rows["step self"], step_cross=rows["step cross"])
 
 
 def pixel_boxes(gen, bs, n, live):
@@ -1306,6 +1435,17 @@ def ptxas_summary(logs) -> str:
     return " | ".join(keep)
 
 
+def occupancy_line(s) -> str:
+    """How the resident step kernel runs at the main shape on this card."""
+    from openviic_tpu_torch.ops.layer_step import resident_occupancy
+
+    N = s["batch"] * s["beam"]
+    occ = resident_occupancy(N, s["d_model"], s["d_ff"], s["max_len"], s["n_regions"],
+                             s["heads"])
+    return (f"resident_layer_step occupancy at N = {N}: "
+            + ", ".join(f"{k} {v}" for k, v in occ.items()))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
@@ -1344,6 +1484,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     logs = timed("build", lambda: cuda_build.build(force=True))
     log(f"  ptxas: {ptxas_summary(logs)}")
+    log(f"  {occupancy_line(FLAGSHIP)}")
     entries = all_phases(device, FLAGSHIP, smi)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)

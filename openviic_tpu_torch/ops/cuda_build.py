@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries go to ``openviic_tpu_torch/_build/``, named by a
 hash of the sources and flags, at first use; ``build`` starts one nvcc per
-source, all at once, and waits for them.  Nothing here runs at import."""
+source, all at once, and waits for them.  ``defines`` (``-D`` flags) build a
+variant of a source for measurement; the port's own libraries take none.
+Nothing here runs at import."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -25,7 +27,7 @@ NVCC_FLAGS = (
 )
 NVCC_TIMEOUT_S = 600
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -42,30 +44,32 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     digest = hashlib.sha256()
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         if path.suffix == ".cuh" or path.stem == name:
             digest.update(path.name.encode())
             digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None, force: bool = False,
+          defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile the named sources (default: all) that are not built yet, or
-    all of them with ``force``; one nvcc process each, started together.
-    Returns each compiled source's ptxas report; raises if any fails."""
+    all of them with ``force``, each with the ``-D`` flags ``defines``; one
+    nvcc process each, started together.  Returns each compiled source's
+    ptxas report; raises if any fails."""
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists() and not force:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -89,14 +93,16 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built first if needed."""
+    key = (name, *defines)
+    lib = _loaded.get(key)
     if lib is None:
-        path = library_path(name)
+        path = library_path(name, defines)
         if not path.exists():
-            build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+            build([name], defines=defines)
+        lib = _loaded[key] = ctypes.CDLL(str(path))
     return lib
 
 

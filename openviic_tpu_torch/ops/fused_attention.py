@@ -1,10 +1,12 @@
-"""Flash-style multi-head attention with an additive f32 bias.
+"""Multi-head attention with an additive f32 bias.
 
 Replaces the Pallas kernel ``openviic_tpu/ops/pallas_attention.py::
 fused_attention`` with the hand-written CUDA kernel
 ``csrc/fused_attention.cu`` (the bound and the design are described
-there).  For q (B, nq, h, d), k (B, nk, h, d), v (B, nk, h, dv) and an
-optional additive bias that broadcasts from (B, h|1, nq|1, nk), it returns
+there).  The host side lives here: ``choose_tile`` picks the kernel's tile
+from nq and the dtype, ``_check`` holds the contract.  For q (B, nq, h, d),
+k (B, nk, h, d), v (B, nk, h, dv) and an optional additive bias that
+broadcasts from (B, h|1, nq|1, nk), it returns
 softmax(q . k * sm_scale + bias) @ v as (B, nq, h, dv) **in float32**,
 whatever the inputs' dtype, as the JAX kernel does (it casts q/k/v to f32
 and its output keeps that dtype).  A mask enters as a -1e30 bias, so a row
@@ -33,6 +35,13 @@ from openviic_tpu_torch.ops import cuda_build
 
 NEG = -1e30  # the JAX kernels' additive mask
 MAX_HEAD_DIM = 128  # the kernel's largest d and dv (csrc/fused_attention.cu)
+# the kernel's tiles, numbered as in csrc/fused_attention.cu
+SIMT, MMA, DECODE = 0, 1, 2
+TILE_NAMES = {SIMT: "simt", MMA: "mma", DECODE: "decode"}
+# Up to this many queries the one-query-per-warp DECODE tile is faster than
+# the 64-query MMA tile (chip_smoke.py's crossover sweep on one H100, at
+# 320 images x 8 heads x 56 keys, bf16).
+DECODE_MAX_NQ = 2
 
 
 def pallas_enabled() -> bool:
@@ -51,6 +60,35 @@ def fused_attention_reference(q, k, v, bias=None, sm_scale: Optional[float] = No
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
 
 
+def choose_tile(nq: int, dtype: torch.dtype) -> int:
+    """The kernel's tile for nq queries of q/k/v in ``dtype``: DECODE up to
+    ``DECODE_MAX_NQ`` queries, else MMA (tensor cores) for bf16 and SIMT
+    (CUDA cores) for f32."""
+    if nq <= DECODE_MAX_NQ:
+        return DECODE
+    return MMA if dtype == torch.bfloat16 else SIMT
+
+
+def resolve_tile(nq: int, dtype: torch.dtype, tile: Optional[int] = None) -> int:
+    """``tile``, or ``choose_tile``'s when None; raises on a tile that does
+    not take ``dtype`` (MMA takes bf16 only, SIMT f32 only)."""
+    tile = choose_tile(nq, dtype) if tile is None else tile
+    takes = {DECODE: (torch.float32, torch.bfloat16), MMA: (torch.bfloat16,),
+             SIMT: (torch.float32,)}
+    if dtype not in takes.get(tile, ()):
+        raise ValueError(f"fused_attention: tile {tile} does not take {dtype}")
+    return tile
+
+
+def loads_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every 8-element chunk along the last axis of q/k/v can be one
+    16-byte load: 16-byte aligned bases, the batch, position and head
+    strides and the head widths multiples of 8 elements.  Otherwise the
+    kernel loads element by element (same results, slower)."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]) for t in tensors)
+
+
 _lib = None
 
 
@@ -60,7 +98,7 @@ def _library():
         lib = cuda_build.load("fused_attention")
         fn = lib.openviic_fused_attention
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         if lib.openviic_fused_attention_max_head_dim() != MAX_HEAD_DIM:
             raise RuntimeError("csrc/fused_attention.cu and ops/fused_attention.py disagree "
@@ -90,7 +128,7 @@ def _check(q, k, v, bias) -> Optional[torch.Tensor]:
         raise ValueError(f"fused_attention kernel takes d, dv <= {MAX_HEAD_DIM}, got {d}, {dv}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("fused_attention kernel takes q, k, v with a contiguous last axis")
-    if B * h >= 2**31 or -(-nq // 32) >= 2**16:
+    if B * h * nq >= 2**31 or -(-nq // 32) >= 2**16:
         raise ValueError(f"fused_attention kernel grid too large for B={B}, h={h}, nq={nq}")
     expanded = None
     if bias is not None:
@@ -110,8 +148,11 @@ def _check(q, k, v, bias) -> Optional[torch.Tensor]:
     return expanded
 
 
-def fused_attention(q, k, v, bias=None, sm_scale: Optional[float] = None):
-    """Fused attention with an additive bias; see the module docstring."""
+def fused_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
+                    tile: Optional[int] = None):
+    """Fused attention with an additive bias; see the module docstring.
+    ``tile`` overrides ``choose_tile`` (for measurements); the MMA tile
+    takes bf16 only, SIMT f32 only."""
     tensors = (q, k, v) + (() if bias is None else (bias,))
     if all(t.device.type == "cpu" for t in tensors):
         return fused_attention_reference(q, k, v, bias, sm_scale)
@@ -120,6 +161,7 @@ def fused_attention(q, k, v, bias=None, sm_scale: Optional[float] = None):
     nk, dv = k.shape[1], v.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    tile = resolve_tile(nq, q.dtype, tile)
     out = torch.empty((B, nq, h, dv), dtype=torch.float32, device=q.device)
     if expanded is None:
         bias_ptr, bias_strides = None, (0, 0, 0)
@@ -130,7 +172,8 @@ def fused_attention(q, k, v, bias=None, sm_scale: Optional[float] = None):
         B, h, nq, nk, d, dv,
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), *bias_strides,
-        int(q.dtype == torch.bfloat16), float(sm_scale), cuda_build.current_stream(q.device),
+        int(q.dtype == torch.bfloat16), tile, int(loads_aligned(q, k, v)), float(sm_scale),
+        cuda_build.current_stream(q.device),
     )
     cuda_build.check_launch("fused_attention", err)
     fused_attention.launches += 1

@@ -12,7 +12,8 @@ The weight pack is the JAX kernels' dict, in their (in, out) layout:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,7 +21,7 @@ from openviic_tpu_torch.ops import cuda_build
 
 NEG = -1e30  # the JAX kernels' additive mask
 LN_EPS = 1e-5
-MAX_D = 512  # the kernel's widest model (one pass of output columns)
+MAX_D = 512  # the kernels' widest model (csrc/layer_step.cu)
 WEIGHT_KEYS = (
     "wqkv", "bqkv", "wo", "bo", "wqc", "bqc", "woc", "boc",
     "w1", "b1", "w2", "b2", "ln1s", "ln1b", "ln2s", "ln2b", "ln3s", "ln3b",
@@ -44,21 +45,20 @@ def per_column(x: torch.Tensor, n_heads: int, width: int) -> torch.Tensor:
     return x.repeat_interleave(width // n_heads, dim=-1)
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("layer_step")
-        lib.openviic_layer_step.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.openviic_layer_step.restype = ctypes.c_int
-        lib.openviic_layer_step_smem.argtypes = [ctypes.c_int] * 4
-        lib.openviic_layer_step_smem.restype = ctypes.c_longlong
-        _lib = lib
-    return _lib
+@functools.lru_cache(maxsize=None)
+def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """``csrc/layer_step.cu``'s library with its entries typed: the port's
+    own, or a measurement build with the ``-D`` flags ``defines``."""
+    lib = cuda_build.load("layer_step", defines)
+    lib.openviic_layer_step.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.openviic_layer_step.restype = ctypes.c_int
+    lib.openviic_layer_step_smem.argtypes = [ctypes.c_int] * 5
+    lib.openviic_layer_step_smem.restype = ctypes.c_longlong
+    lib.openviic_layer_step_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.openviic_layer_step_occupancy.restype = ctypes.c_int
+    return lib
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor], weights: Dict[str, torch.Tensor],
@@ -103,12 +103,12 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor], weights: Dict[str, t
 
 
 def launch(name: str, resident: bool, ptrs, N: int, L: int, M: int, D: int, F: int,
-           n_heads: int, beam: int, t: int, device) -> None:
-    """Launch ``csrc/layer_step.cu`` with the 30 pointers in the order its C
-    entry lists; raises on a launch error or a block that needs more shared
-    memory than the card has."""
-    lib = _library()
-    smem = lib.openviic_layer_step_smem(D, F, L, M)
+           n_heads: int, beam: int, t: int, device, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Launch ``csrc/layer_step.cu`` (or the measurement build ``lib``) with
+    the 30 pointers in the order its C entry lists; raises on a launch error
+    or a block that needs more shared memory than the card has."""
+    lib = lib or library()
+    smem = lib.openviic_layer_step_smem(int(resident), D, F, L, M)
     limit = getattr(torch.cuda.get_device_properties(device), "shared_memory_per_block_optin", None)
     if limit is not None and smem > limit:
         raise ValueError(f"{name} kernel needs {smem} B of shared memory per block, "
@@ -122,6 +122,20 @@ def launch(name: str, resident: bool, ptrs, N: int, L: int, M: int, D: int, F: i
     err = lib.openviic_layer_step(int(resident), array, dims, 1.0 / (D // n_heads) ** 0.5,
                                   cuda_build.current_stream(device))
     cuda_build.check_launch(name, err)
+
+
+def resident_occupancy(N: int, D: int, F: int, L: int, M: int, n_heads: int,
+                       lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """How the resident kernel (of the port's build, or of ``lib``) runs at
+    N rows on the current card: CTAs per SM, CTAs resident at once, the
+    cluster size it takes, rows per cluster tile, grid, registers and local
+    (spill) bytes per thread, shared bytes per CTA."""
+    out = (ctypes.c_int * 8)()
+    err = (lib or library()).openviic_layer_step_occupancy(N, D, F, L, M, n_heads, out)
+    cuda_build.check_launch("resident_layer_step occupancy", err)
+    keys = ("ctas_per_sm", "resident_ctas", "cluster", "rows_per_tile", "grid", "registers",
+            "local_bytes", "smem_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def weight_ptrs(weights: Dict[str, torch.Tensor]):

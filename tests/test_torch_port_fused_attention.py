@@ -15,7 +15,11 @@ Tolerances:
    max(|y|, 1) (both project, attend and normalise in f32 and round the
    output once; the bf16 q/k/v projections may round differently);
  - whole decodes at f32 under the flag: tokens equal, log-probs within
-   1e-5."""
+   1e-5;
+ - the CUDA kernel's MMA tile, emulated in torch (bf16 Q K^T with f32 sums,
+   the online softmax over 64-key tiles, p split into three bf16 terms each
+   times the bf16 V with f32 sums) against the JAX kernel: 2e-5, the same
+   bar, which the kernel must meet on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +37,7 @@ from openviic_tpu_torch.compat.from_jax import state_dict_from_jax
 from openviic_tpu_torch.config import ConfigNode
 from openviic_tpu_torch.decoding import beam_search
 from openviic_tpu_torch.models.attention import MultiHeadAttention, _attend
+from openviic_tpu_torch.ops import fused_attention as fa_ops
 from openviic_tpu_torch.ops.fused_attention import (
     fused_attention,
     fused_attention_reference,
@@ -239,3 +244,101 @@ def test_flagship_decode_under_the_flag_matches_jax(pair, monkeypatch, beam_resi
                                beam_size=3, out_size=3, beam_resident=beam_resident)
     np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------------ the MMA tile's numerics
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _split(p: torch.Tensor, terms: int):
+    """p as `terms` bf16-valued terms whose f32 sum approximates it: hi,
+    then the rounded remainders (three terms carry p's 24 bits)."""
+    out, rest = [], p
+    for _ in range(terms):
+        out.append(_bf16(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def _mma_tile_plan(q, k, v, bias, scale, terms=3, tile=64):
+    """The MMA tile's arithmetic in torch, f32: S = Q K^T of bf16 operands
+    (exact products, f32 sums) * scale + bias; an online softmax over
+    64-key tiles with the running max starting at -1e30; P V as the sum of
+    the bf16 terms of p, each times the bf16 V."""
+    B, nq, h, d = q.shape
+    nk = k.shape[1]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, h, n, d)
+    m = torch.full((B, h, nq, 1), -1e30)
+    l = torch.zeros((B, h, nq, 1))
+    o = torch.zeros((B, h, nq, v.shape[3]))
+    for k0 in range(0, nk, tile):
+        s = qf @ kf[:, :, k0 : k0 + tile].transpose(2, 3) * scale
+        if bias is not None:
+            s = s + bias.float().expand(B, h, nq, nk)[..., k0 : k0 + tile]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha
+        for term in _split(p, terms):
+            o = o + term @ vf[:, :, k0 : k0 + tile]
+        m = m_new
+    return (o / l).transpose(1, 2)
+
+
+def _bf16_values(shape, seed, gain=1.0):
+    return _bf16(torch.from_numpy(_rand(shape, seed)) * gain)
+
+
+@pytest.mark.parametrize("B,nq,nk,h,d,v_gain", [
+    (2, 7, 9, 2, 16, 1.0), (2, 65, 150, 2, 64, 1.0),
+    (1, 56, 56, 8, 64, 1.0), (1, 56, 56, 8, 64, 5.0),  # the flagship encoder, one image
+])
+def test_mma_tile_plan_matches_jax_kernel(pallas, B, nq, nk, h, d, v_gain):
+    """The kernel's P V in three bf16 terms meets the JAX kernel's 2e-5 bar;
+    two terms leave up to 2^-18 |p| per weight and are the weaker plan."""
+    q, k = _bf16_values((B, nq, h, d), 0), _bf16_values((B, nk, h, d), 1)
+    v = _bf16_values((B, nk, h, d), 2, v_gain)
+    mask = np.random.default_rng(3).random((B, 1, 1, nk)) < 0.2
+    mask[..., 0] = False
+    bias = np.where(mask, -1e30, 0.0).astype(np.float32)
+    want = np.asarray(jax_fused_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                          bias=jnp.asarray(bias)))
+    scale = 1.0 / np.sqrt(d)
+    tb = torch.from_numpy(bias)
+    err3 = np.abs(_mma_tile_plan(q, k, v, tb, scale, terms=3).numpy() - want).max()
+    err2 = np.abs(_mma_tile_plan(q, k, v, tb, scale, terms=2).numpy() - want).max()
+    print(f"MMA tile plan at {(B, nq, nk, h, d)}, |v| ~ {v_gain}: three terms {err3:.3g}, "
+          f"two terms {err2:.3g}")
+    assert err3 <= ATOL
+    assert err2 >= err3
+
+
+def test_tile_choice_and_its_contract():
+    """The host side of csrc/fused_attention.cu: DECODE up to the measured
+    crossover, then MMA for bf16 and SIMT for f32; a forced tile that does
+    not take the dtype raises; 16-byte loads only where every base, stride
+    and width allows them."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cross = fa_ops.DECODE_MAX_NQ
+    assert cross >= 1
+    for dtype in (bf, f32):
+        assert fa_ops.choose_tile(1, dtype) == fa_ops.DECODE
+        assert fa_ops.choose_tile(cross, dtype) == fa_ops.DECODE
+    assert fa_ops.choose_tile(cross + 1, bf) == fa_ops.MMA
+    assert fa_ops.choose_tile(56, f32) == fa_ops.SIMT
+    assert fa_ops.resolve_tile(56, bf) == fa_ops.MMA
+    assert fa_ops.resolve_tile(1, f32, fa_ops.DECODE) == fa_ops.DECODE
+    assert fa_ops.resolve_tile(1, bf, fa_ops.MMA) == fa_ops.MMA
+    for nq, dtype, tile in ((56, f32, fa_ops.MMA), (56, bf, fa_ops.SIMT), (1, bf, 7)):
+        with pytest.raises(ValueError, match="does not take"):
+            fa_ops.resolve_tile(nq, dtype, tile)
+
+    whole = torch.zeros(4, 6, 2, 64, dtype=bf)
+    fused = torch.zeros(4, 6, 3 * 128, dtype=bf)[..., :128].view(4, 6, 2, 64)
+    shifted = torch.zeros(4, 6, 2 * 64 + 1, dtype=bf)[..., 1:].view(4, 6, 2, 64)
+    narrow = torch.zeros(4, 6, 2, 20, dtype=bf)
+    assert fa_ops.loads_aligned(whole, fused, whole.float())
+    assert not fa_ops.loads_aligned(whole, shifted)  # base 2 bytes off, odd strides
+    assert not fa_ops.loads_aligned(narrow)          # d not a multiple of 8
