@@ -9,14 +9,20 @@ On the card it runs these phases, each printing its seconds:
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when CUDA is unavailable;
 2. build: nvcc over ``openviic_tpu_torch/csrc/*.cu`` (one process per
-   source, all started together), the ptxas register/spill report and the
-   resident step kernel's occupancy at the flagship shape;
+   source, all started together), the ptxas register/spill report, and at
+   the flagship shape the occupancy of both layer-step kernels (CTAs per
+   SM, cluster size, rows per tile, grid, registers, spills, shared
+   memory) and of the head kernel's partial pass at k = 5, 16 and 128;
+   the counts of wgmma, mma.sync, TMA and local-memory instructions in
+   the head and layer-step kernels' machine code (``cuobjdump -sass``);
 3. head kernel: the ``head_topk`` CUDA kernel against its plain PyTorch
    version at the flagship decode shape (N = 320 x 5 beams = 1600 rows,
-   D = 512, V = 10 000, k = 5), at a ragged shape (N = 37, V = 7 094) and in
-   a constructed tie case, then its time beside its bound, the plain
-   version's and a PyTorch composite's; k = 32 and k = 128 (the
-   shared-memory lists) against the plain version; the head-kernel gate
+   D = 512, V = 10 000, k = 5), at the first step's 320 rows, at a ragged
+   shape (N = 37, V = 7 094 and 277) and in a constructed tie case, then
+   its device time (a CUDA graph) beside its bound, the plain version's and
+   matmul + logsumexp + topk's, and its cost launched from Python; k = 32
+   and k = 128 (the shared-memory lists) at 1600 and 320 rows against the
+   plain version, with their device times; the head-kernel gate
    sweep: one beam-resident selection step through the kernel and through
    fast select from one image to 3200 rows at beams 1, 3, 5, 8 and 16,
    with the crossover (``_head_kernel_wins`` holds what it gave);
@@ -30,10 +36,10 @@ On the card it runs these phases, each printing its seconds:
    must agree with the fast-select path on >= 95% of the images; it prints
    what the auto gate (``head_kernel=True``) resolves to there;
 5. kernels vs plain: ``beam_select_attention`` (both mask axes),
-   ``resident_layer_step`` (also at N = 1600 with t = 0 and t = L - 1,
-   and at 37 images, whose 185 rows leave the last cluster tile short) and
-   ``fused_layer_step`` (rows other than t bit-unchanged) at a mid-decode
-   step and a ragged shape, with the flagship's layer-0 weights;
+   ``resident_layer_step`` and ``fused_layer_step`` (rows other than t
+   bit-unchanged) at a mid-decode step and a ragged shape (35 rows), at
+   N = 1600 with t = 0 and t = L - 1, and at 37 images, whose 185 rows leave
+   the last cluster tile short, with the flagship's layer-0 weights;
    ``fused_attention`` at the encoder, the non-resident step's self- and
    cross-attention, the ORT's full-bias and a ragged f32 shape with a fully
    masked row, and at its tiles' edges (nq = 1 with nk = 1, 200 and 300,
@@ -43,10 +49,11 @@ On the card it runs these phases, each printing its seconds:
    and a ragged one (2 bf16 ulps on 99% of the elements, 0.05 everywhere);
    then each one's time beside its bound, its plain version's and a PyTorch
    yardstick's (the gather + SDPA composite, the eager
-   ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA); the
-   fused_attention and layer-step times are device times (a CUDA graph of
-   the calls), fused_attention's at the encoder and both step shapes with
-   the DECODE/MMA crossover over nq; beside them each launch's cost from
+   ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA); every
+   kernel's time is a device time (a CUDA graph of the calls), and so are
+   the plain versions' and the yardsticks', fused_attention's at the
+   encoder and both step shapes with the DECODE/MMA crossover over nq;
+   beside them each launch's cost from
    Python (CUDA events and the host's clock, without a graph);
 6. decode paths at the serve shape over the same requests: (a)
    ``TRAINING.DECODE_ATTN_KERNEL`` in the pipeline, (b) ``resident_kernel``,
@@ -295,7 +302,21 @@ def host_costs(fn, iters: int) -> dict:
     return dict(launch_ms=start.elapsed_time(end) / iters, host_ms=host * 1e3 / iters)
 
 
+def head_bound(N, D, V, k):
+    """The head kernel's bound: its bf16 products at the tensor-core peak
+    against x and w read once and the outputs written once."""
+    flops = 2.0 * N * D * V
+    bytes_moved = (N * D + V * D) * 2 + N * k * (4 + 4) + N * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, bytes_moved
+
+
 def kernel_phase(device, s):
+    """head_topk against its plain version at the decode rows (N = batch x
+    beam) and the first step's (N = batch), a ragged shape at two vocab
+    sizes and the tie case; then device times (CUDA graphs) of the kernel,
+    its plain version and matmul + logsumexp + topk, and the kernel's host
+    cost per call launched from Python."""
     from openviic_tpu_torch.ops.head_topk import head_topk, head_topk_reference
 
     gen = torch.Generator().manual_seed(0)
@@ -303,8 +324,10 @@ def kernel_phase(device, s):
     compare("main shape, exact inputs", *exact_inputs(gen, N, D, V, device), k, exact=True)
     x, w = gaussian_inputs(gen, N, D, V, device)
     err, _ = compare("main shape, gaussian inputs", x, w, k, exact=False)
-    ragged_v = 7094 if s is FLAGSHIP else 277
-    compare("ragged shape", *exact_inputs(gen, 37, D, ragged_v, device), k, exact=True)
+    x0, w0 = gaussian_inputs(gen, s["batch"], D, V, device)
+    err = max(err, compare("first step's rows, gaussian inputs", x0, w0, k, exact=False)[0])
+    for ragged_v in ((7094, 277) if s is FLAGSHIP else (277,)):
+        compare("ragged shape", *exact_inputs(gen, 37, D, ragged_v, device), k, exact=True)
     if s is FLAGSHIP:
         tie_case(gen, device, k)
     if device.type != "cuda":
@@ -314,25 +337,21 @@ def kernel_phase(device, s):
         logits = x @ w.T
         return torch.logsumexp(logits.float(), dim=1), torch.topk(logits, k, dim=1)
 
-    ms = time_cuda(lambda: head_topk(x, w, k), 50)
-    plain_ms = time_cuda(lambda: head_topk_reference(x, w, k), 10)
-    library_ms = time_cuda(library, 50)
-    flops = 2.0 * N * D * V
-    bytes_moved = (N * D + V * D) * 2 + N * k * (4 + 4) + N * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
-    log(f"  head_topk at N={N} D={D} V={V} k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"matmul+logsumexp+topk {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.1f} GFLOP, "
-        f"{bytes_moved / 1e6:.2f} MB)")
-    return {
-        "name": "head_topk", "route": "cuda",
-        "source": "openviic_tpu_torch/csrc/head_topk.cu",
-        "replaces": "openviic_tpu/ops/head_topk.py:103",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }
+    ms = time_cuda(lambda: head_topk(x, w, k), 50, graph=True)
+    plain_ms = time_cuda(lambda: head_topk_reference(x, w, k), 10, graph=True)
+    library_ms = time_cuda(library, 50, graph=True)
+    costs = host_costs(lambda: head_topk(x, w, k), 50)
+    ms0 = time_cuda(lambda: head_topk(x0, w0, k), 50, graph=True)
+    bound_ms, bound_by, flops, bytes_moved = head_bound(N, D, V, k)
+    log(f"  head_topk at N={N} D={D} V={V} k={k}: kernel {ms:.4f} ms (launched from Python: "
+        f"{costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), plain "
+        f"{plain_ms:.4f} ms, matmul+logsumexp+topk {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.2f} MB); "
+        f"at N={s['batch']}: kernel {ms0:.4f} ms, "
+        f"bound {head_bound(s['batch'], D, V, k)[0]:.4f} ms")
+    return entry("head_topk", "openviic_tpu_torch/csrc/head_topk.cu",
+                 "openviic_tpu/ops/head_topk.py:103", err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms, first_step_ms=ms0, **costs)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -552,22 +571,25 @@ def beam_select_phase(device, s):
             q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
             attn_mask=live[:, None, None, :])
 
-    ms = time_cuda(lambda: beam_select_attention(*args, mask_axis="p"), 50)
-    plain_ms = time_cuda(lambda: beam_select_attention_reference(*args, mask_axis="p"), 10)
-    library_ms = time_cuda(library, 50)
+    ms = time_cuda(lambda: beam_select_attention(*args, mask_axis="p"), 50, graph=True)
+    plain_ms = time_cuda(lambda: beam_select_attention_reference(*args, mask_axis="p"), 10,
+                         graph=True)
+    library_ms = time_cuda(library, 50, graph=True)
+    costs = host_costs(lambda: beam_select_attention(*args, mask_axis="p"), 50)
     live = ~dead
     n_live = int(live.sum())
     rows = distinct_rows(src * L + pos, live)
     nbytes = rows * h * d * 2 * 2 + 2 * N * h * d * 2 + N * L * (8 + 1)
     flops = 4.0 * n_live * h * d
     bound_ms, bound_by = bound(flops, PEAK_F32_FLOPS, nbytes)
-    log(f"  beam_select_attention at N={N} L={L} t={L // 2}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    log(f"  beam_select_attention at N={N} L={L} t={L // 2}: kernel {ms:.4f} ms (launched "
+        f"from Python: {costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), "
+        f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes / 1e6:.2f} MB over {rows} distinct live cache rows, "
         f"{flops / 1e9:.3f} GFLOP)")
     return entry("beam_select_attention", "openviic_tpu_torch/csrc/beam_select_attention.cu",
                  "openviic_tpu/ops/beam_select_attention.py:173", worst, ms, plain_ms,
-                 bound_ms, bound_by, library_ms)
+                 bound_ms, bound_by, library_ms, **costs)
 
 
 def layer_step_phase(device, s, layer, resident: bool):
@@ -591,9 +613,8 @@ def layer_step_phase(device, s, layer, resident: bool):
     beam, L, M, D, h = s["beam"], s["max_len"], s["n_regions"], s["d_model"], s["heads"]
     F = weights["w1"].shape[1]
     worst, timed_case = 0.0, None
-    shapes = [(s["batch"], L // 2), (7, L - 1)]
-    if resident:
-        shapes += [(s["batch"], 0), (s["batch"], L - 1), (37, L // 2)]
+    shapes = [(s["batch"], L // 2), (7, L - 1), (s["batch"], 0), (s["batch"], L - 1),
+              (37, L // 2)]
     for img, t in shapes:
         c = step_case(gen, img, s, t, device)
         N = img * beam
@@ -633,12 +654,12 @@ def layer_step_phase(device, s, layer, resident: bool):
             args = (ins, k0, v0)
         if not ok:
             raise AssertionError(f"{name} N={N} t={t}: {detail}")
-        if resident and img == 37 and device.type == "cuda":
-            from openviic_tpu_torch.ops.layer_step import resident_occupancy
+        if img == 37 and device.type == "cuda":
+            from openviic_tpu_torch.ops.layer_step import occupancy
 
-            tile = resident_occupancy(N, D, F, L, M, h)["rows_per_tile"]
+            tile = occupancy(resident, N, D, F, L, M, h)["rows_per_tile"]
             if N % tile == 0:
-                raise AssertionError(f"resident_layer_step N={N}: tiles of {tile} rows leave "
+                raise AssertionError(f"{name} N={N}: tiles of {tile} rows leave "
                                      f"no short tile; pick another row count")
             detail += f"; tiles of {tile} rows, the last of {N % tile}"
         worst = max(worst, err)
@@ -1315,9 +1336,10 @@ def geo_attention_phase(device, s):
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=bias.to(q.dtype), scale=scale)
 
-    ms = time_cuda(lambda: geo_fused_attention(*timed_case), 20)
-    plain_ms = time_cuda(lambda: geo_fused_attention_reference(*timed_case), 3)
-    library_ms = time_cuda(library, 20)
+    ms = time_cuda(lambda: geo_fused_attention(*timed_case), 20, graph=True)
+    plain_ms = time_cuda(lambda: geo_fused_attention_reference(*timed_case), 3, graph=True)
+    library_ms = time_cuda(library, 20, graph=True)
+    costs = host_costs(lambda: geo_fused_attention(*timed_case), 20)
     pairs = bs * n * n
     mma = 2.0 * pairs * h * 2 * d  # q.k and p.v: bf16 operands, f32 accumulation
     fold = 2.0 * pairs * h * 2 * 4 * (dim_g // 8)  # the f32 fold of the sin/cos planes
@@ -1325,33 +1347,40 @@ def geo_attention_phase(device, s):
     sfu = sincos + pairs * (2 + 2 * h)  # and the displacements' logs, each bias's log and exp
     nbytes = 4 * bs * n * h * d * 2 + bs * n * (4 * 4 + 1)
     bound_ms, bound_by, times = unit_bound(nbytes, bf16_flops=mma, f32_flops=fold, sfu_ops=sfu)
-    log(f"  geo_fused_attention at {tuple(q.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"embedding+fc_gs+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+    log(f"  geo_fused_attention at {tuple(q.shape)}: kernel {ms:.4f} ms (launched from Python: "
+        f"{costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), plain "
+        f"{plain_ms:.4f} ms, embedding+fc_gs+SDPA {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; "
         f"{bound_detail(times)}; {mma / 1e9:.2f} GFLOP bf16 at 989 TFLOP/s, {fold / 1e9:.2f} "
         f"GFLOP f32 at 67 TFLOP/s, {sfu / 1e6:.1f} M transcendentals ({sincos / 1e6:.1f} M "
         f"sin/cos) at {PEAK_SFU_OPS / 1e12:.2f} T/s (16 per SM per clock, 132 SMs, 1.98 GHz), "
         f"{nbytes / 1e6:.2f} MB at 3.35 TB/s)")
     return entry("geo_fused_attention", "openviic_tpu_torch/csrc/geo_attention.cu",
                  "openviic_tpu/ops/geo_attention.py:134", worst, ms, plain_ms, bound_ms,
-                 bound_by, library_ms)
+                 bound_by, library_ms, **costs)
 
 
 def head_large_k_phase(device, s):
     """head_topk at k = 32 and k = 128 (the shared-memory lists) against its
-    plain version at the flagship decode rows, exact and gaussian inputs."""
+    plain version at the decode rows (exact and gaussian inputs) and the
+    first step's rows (gaussian), with the kernel's device time at each."""
     from openviic_tpu_torch.ops.head_topk import head_topk
 
     gen = torch.Generator().manual_seed(6)
-    N, D, V = s["batch"] * s["beam"], s["d_model"], s["vocab"]
+    D, V = s["d_model"], s["vocab"]
     worst = 0.0
     for k in (32, 128):
         k = min(k, V - 1)
-        compare(f"k={k}, exact inputs", *exact_inputs(gen, N, D, V, device), k, exact=True)
-        x, w = gaussian_inputs(gen, N, D, V, device)
-        err, _ = compare(f"k={k}, gaussian inputs", x, w, k, exact=False)
-        worst = max(worst, err)
-        if device.type == "cuda":
-            log(f"  head_topk k={k} at N={N}: {time_cuda(lambda: head_topk(x, w, k), 10):.4f} ms")
+        for N in (s["batch"] * s["beam"], s["batch"]):
+            if N > s["batch"]:
+                compare(f"k={k}, exact inputs", *exact_inputs(gen, N, D, V, device), k,
+                        exact=True)
+            x, w = gaussian_inputs(gen, N, D, V, device)
+            err, _ = compare(f"k={k}, gaussian inputs", x, w, k, exact=False)
+            worst = max(worst, err)
+            if device.type == "cuda":
+                log(f"  head_topk k={k} at N={N}: "
+                    f"{time_cuda(lambda: head_topk(x, w, k), 10, graph=True):.4f} ms")
     return worst
 
 
@@ -1435,15 +1464,56 @@ def ptxas_summary(logs) -> str:
     return " | ".join(keep)
 
 
-def occupancy_line(s) -> str:
-    """How the resident step kernel runs at the main shape on this card."""
-    from openviic_tpu_torch.ops.layer_step import resident_occupancy
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDL", "STL")  # wgmma, mma.sync, TMA loads, local memory
+
+
+def sass_counts(name: str) -> str:
+    """Per kernel of csrc/<name>.cu's library, how many of SASS_OPS its
+    machine code holds (``cuobjdump -sass``): the evidence that a kernel is
+    built on wgmma and TMA, and spills nothing."""
+    import re
+
+    from openviic_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return f"{name}: cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            func = found.group(1)
+            counts[func] = dict.fromkeys(SASS_OPS, 0)
+        elif func:
+            op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if op and op.group(1) in counts[func]:
+                counts[func][op.group(1)] += 1
+    # the mangled names differ in their template arguments, at the end
+    return " | ".join(f"{name}: ...{func[-44:]}: " + ", ".join(f"{k} {v}" for k, v in c.items())
+                      for func, c in counts.items())
+
+
+def occupancy_lines(s):
+    """How the layer-step kernels and the head kernel run at the main shape
+    on this card (the ptxas report gives the same registers and spills)."""
+    from openviic_tpu_torch.ops.head_topk import occupancy as head_occupancy
+    from openviic_tpu_torch.ops.layer_step import occupancy
 
     N = s["batch"] * s["beam"]
-    occ = resident_occupancy(N, s["d_model"], s["d_ff"], s["max_len"], s["n_regions"],
-                             s["heads"])
-    return (f"resident_layer_step occupancy at N = {N}: "
-            + ", ".join(f"{k} {v}" for k, v in occ.items()))
+    lines = []
+    for resident in (True, False):
+        occ = occupancy(resident, N, s["d_model"], s["d_ff"], s["max_len"],
+                        -(-s["n_regions"] // 8) * 8, s["heads"])  # the regions as padded
+        name = "resident_layer_step" if resident else "fused_layer_step"
+        lines.append(f"{name} occupancy at N = {N}: "
+                     + ", ".join(f"{k} {v}" for k, v in occ.items()))
+    for k in (s["beam"], 16, 128):
+        occ = head_occupancy(s["d_model"], k)
+        lines.append(f"head_topk partial kernel at D = {s['d_model']}, k = {k}: "
+                     + ", ".join(f"{key} {v}" for key, v in occ.items()))
+    return lines
 
 
 def main() -> int:
@@ -1484,7 +1554,10 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     logs = timed("build", lambda: cuda_build.build(force=True))
     log(f"  ptxas: {ptxas_summary(logs)}")
-    log(f"  {occupancy_line(FLAGSHIP)}")
+    for line in occupancy_lines(FLAGSHIP):
+        log(f"  {line}")
+    for name in ("head_topk", "layer_step"):
+        log(f"  sass: {sass_counts(name)}")
     entries = all_phases(device, FLAGSHIP, smi)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)

@@ -1,9 +1,11 @@
 // Small Hopper (sm_90a) building blocks shared by the port's kernels:
 // bf16 tensor-core products (mma.sync m16n8k16, f32 accumulation), ldmatrix,
-// 16-byte cp.async, and the three-term bf16 split of an f32 value.
+// 16-byte cp.async, the three-term bf16 split of an f32 value, and the
+// driver's tensor-map encoder for TMA copies.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -73,6 +75,26 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_
   hi = *reinterpret_cast<const uint32_t*>(&h);
   mid = *reinterpret_cast<const uint32_t*>(&m);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver (the libraries link the runtime
+// only); null where the driver has none.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &status) ==
+            cudaSuccess && status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(entry);
+    }
+  }
+  return fn;
 }
 
 }  // namespace hopper

@@ -26,6 +26,7 @@ JAX package's values) switches ``GeometricEncoder`` onto it."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -57,9 +58,17 @@ def _operands(boxes, fc_g_kernel, fc_g_bias, padding_mask, wave_len: float):
     mask = padding_mask.reshape(bs, n).float().contiguous()
     wsin = fc_g_kernel[: dim_g // 2].reshape(-1).float().contiguous()
     wcos = fc_g_kernel[dim_g // 2 :].reshape(-1).float().contiguous()
-    omega = torch.tensor([100.0 / (wave_len ** (f / n_freq)) for f in range(n_freq)],
-                         dtype=torch.float32, device=boxes.device)
+    omega = _frequencies(n_freq, float(wave_len), boxes.device)
     return geo, mask, wsin, wcos, fc_g_bias.float().contiguous(), omega
+
+
+@functools.lru_cache(maxsize=None)
+def _frequencies(n_freq: int, wave_len: float, device: torch.device) -> torch.Tensor:
+    """omega_f = 100 / wave_len**(f / n_freq) in f32, made once per device:
+    a host-to-device copy on every call would keep the call out of a CUDA
+    graph.  Never written to."""
+    return torch.tensor([100.0 / (wave_len ** (f / n_freq)) for f in range(n_freq)],
+                        dtype=torch.float32, device=device)
 
 
 def geo_fused_attention_reference(q, k, v, boxes, fc_g_kernel, fc_g_bias, padding_mask,

@@ -16,9 +16,10 @@ as the JAX kernel computes them.
 ``head_topk`` dispatches on the tensors' device: on the CPU it runs
 ``head_topk_reference``, the plain PyTorch version; on a CUDA device it
 launches the kernel or raises.  ``head_topk.launches`` counts kernel
-launches.  k runs from 1 to min(128, V), as in the JAX kernel; above 16 the
-kernel keeps its per-thread lists in shared memory instead of registers,
-which is slower.
+launches.  k runs from 1 to min(128, V), as in the JAX kernel; up to 16 the
+kernel keeps a list per thread and row, above 16 one heap per row, which is
+slower.  The kernel's grid is ``split_count`` vocab splits of
+``TILE_ROWS``-row blocks; ``split_tiles`` gives each split's vocab tiles.
 """
 
 from __future__ import annotations
@@ -30,7 +31,25 @@ import torch
 from openviic_tpu_torch.ops import cuda_build
 
 MAX_K = 128  # the kernel's largest k, as the JAX kernel's (csrc/head_topk.cu)
-_BLOCKS_PER_SM = 4  # vocab splits are chosen to give about this many blocks per SM
+TILE_ROWS = 64  # rows of x per block (csrc/head_topk.cu's BM)
+TILE_COLS = 128  # vocab ids per tile (BN)
+MAX_SPLITS = 96  # vocab splits the merge kernel takes
+
+
+def split_count(N: int, V: int, sms: int) -> int:
+    """Vocab splits of the kernel's grid: as many as fill ``sms`` SMs at one
+    block per SM beside the ceil(N / TILE_ROWS) row blocks, at most one per
+    vocab tile of TILE_COLS ids and MAX_SPLITS, at least one."""
+    row_blocks = -(-N // TILE_ROWS)
+    tiles = -(-V // TILE_COLS)
+    return max(1, min(tiles, MAX_SPLITS, sms // row_blocks))
+
+
+def split_tiles(V: int, splits: int):
+    """The vocab tiles [begin, end) of each split, as the kernel takes them:
+    sizes that differ by at most one tile, none empty while splits <= tiles."""
+    tiles = -(-V // TILE_COLS)
+    return [(s * tiles // splits, (s + 1) * tiles // splits) for s in range(splits)]
 
 
 def head_topk_reference(x: torch.Tensor, w: torch.Tensor, k: int):
@@ -53,14 +72,30 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("head_topk")
         fn = lib.openviic_head_topk
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for name in ("tile_rows", "tile_cols", "max_k"):
+        for name in ("tile_rows", "tile_cols", "max_k", "max_splits", "smem"):
             getattr(lib, f"openviic_head_topk_{name}").restype = ctypes.c_int
-        if lib.openviic_head_topk_max_k() != MAX_K:
-            raise RuntimeError("csrc/head_topk.cu and ops/head_topk.py disagree on MAX_K")
+        lib.openviic_head_topk_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.openviic_head_topk_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        shapes = (lib.openviic_head_topk_max_k(), lib.openviic_head_topk_tile_rows(),
+                  lib.openviic_head_topk_tile_cols(), lib.openviic_head_topk_max_splits())
+        if shapes != (MAX_K, TILE_ROWS, TILE_COLS, MAX_SPLITS):
+            raise RuntimeError("csrc/head_topk.cu and ops/head_topk.py disagree on MAX_K, "
+                               "TILE_ROWS, TILE_COLS or MAX_SPLITS")
         _lib = lib
     return _lib
+
+
+def occupancy(D: int, k: int):
+    """How the kernel's partial pass runs on the current card at width D
+    and k: CTAs per SM, threads per CTA, registers and local (spill) bytes
+    per thread, shared bytes per CTA."""
+    out = (ctypes.c_int * 5)()
+    err = _library().openviic_head_topk_occupancy(D, k, out)
+    cuda_build.check_launch("head_topk occupancy", err)
+    keys = ("ctas_per_sm", "threads", "registers", "local_bytes", "smem_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, k: int) -> None:
@@ -98,12 +133,13 @@ def head_topk(x: torch.Tensor, w: torch.Tensor, k: int):
     lib = _library()
     N, D = x.shape
     V = w.shape[0]
-    n_tiles = -(-V // lib.openviic_head_topk_tile_cols())
-    row_blocks = -(-N // lib.openviic_head_topk_tile_rows())
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = min(n_tiles, max(1, -(-_BLOCKS_PER_SM * sms // row_blocks)))
-    tiles_per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // tiles_per_split)  # every split non-empty
+    props = torch.cuda.get_device_properties(x.device)
+    smem = lib.openviic_head_topk_smem(D, k)
+    limit = getattr(props, "shared_memory_per_block_optin", None)
+    if limit is not None and smem > limit:
+        raise ValueError(f"head_topk kernel needs {smem} B of shared memory per block at D={D}, "
+                         f"k={k}; the card offers {limit}")
+    splits = split_count(N, V, props.multi_processor_count)
 
     dev = x.device
     part_val = torch.empty((N, splits, k), dtype=torch.float32, device=dev)
@@ -116,7 +152,7 @@ def head_topk(x: torch.Tensor, w: torch.Tensor, k: int):
     err = lib.openviic_head_topk(
         x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
         part_max.data_ptr(), part_sum.data_ptr(), vals.data_ptr(),
-        idxs.data_ptr(), lse.data_ptr(), N, D, V, k, tiles_per_split, splits,
+        idxs.data_ptr(), lse.data_ptr(), N, D, V, k, splits,
         cuda_build.current_stream(dev),
     )
     cuda_build.check_launch("head_topk", err)

@@ -56,7 +56,7 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.openviic_layer_step.restype = ctypes.c_int
     lib.openviic_layer_step_smem.argtypes = [ctypes.c_int] * 5
     lib.openviic_layer_step_smem.restype = ctypes.c_longlong
-    lib.openviic_layer_step_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.openviic_layer_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.openviic_layer_step_occupancy.restype = ctypes.c_int
     return lib
 
@@ -124,15 +124,16 @@ def launch(name: str, resident: bool, ptrs, N: int, L: int, M: int, D: int, F: i
     cuda_build.check_launch(name, err)
 
 
-def resident_occupancy(N: int, D: int, F: int, L: int, M: int, n_heads: int,
-                       lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
-    """How the resident kernel (of the port's build, or of ``lib``) runs at
-    N rows on the current card: CTAs per SM, CTAs resident at once, the
-    cluster size it takes, rows per cluster tile, grid, registers and local
-    (spill) bytes per thread, shared bytes per CTA."""
+def occupancy(resident: bool, N: int, D: int, F: int, L: int, M: int, n_heads: int,
+              lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """How the resident (or fused) kernel of the port's build, or of
+    ``lib``, runs at N rows on the current card: CTAs per SM, CTAs resident
+    at once, the cluster size it takes, rows per cluster tile, grid,
+    registers and local (spill) bytes per thread, shared bytes per CTA."""
     out = (ctypes.c_int * 8)()
-    err = (lib or library()).openviic_layer_step_occupancy(N, D, F, L, M, n_heads, out)
-    cuda_build.check_launch("resident_layer_step occupancy", err)
+    err = (lib or library()).openviic_layer_step_occupancy(int(resident), N, D, F, L, M,
+                                                            n_heads, out)
+    cuda_build.check_launch("layer step occupancy", err)
     keys = ("ctas_per_sm", "resident_ctas", "cluster", "rows_per_tile", "grid", "registers",
             "local_bytes", "smem_bytes")
     return dict(zip(keys, list(out)))

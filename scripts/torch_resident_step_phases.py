@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Where the resident layer-step kernel's time goes, phase by phase, on the card.
+"""Where the layer-step kernels' time goes, phase by phase, on the card.
 
     python3 scripts/torch_resident_step_phases.py     # on a machine with one NVIDIA GPU
 
 Builds ``openviic_tpu_torch/csrc/layer_step.cu`` four ways through
-``ops/cuda_build.py``: clusters of two CTAs (the port's build) and of one
-(``-DOPENVIIC_RESIDENT_CLUSTER=1``), each without and with its phase marks
-(``-DOPENVIIC_PHASES``: the consumer warps read the GPU's global timer,
-``%globaltimer``, after the staging of the inputs, after each product and
-attention phase and at the end).  Then, at the flagship decode step of
-``chip_smoke.py`` (N = 1600 rows, t = 12, layer-0 weights from seed 0), for
-each cluster size: the kernel's time without the marks and with them (a
+``ops/cuda_build.py``: both kernels with clusters of two CTAs (the port's
+build) and of one (``-DOPENVIIC_RESIDENT_CLUSTER=1``), each without and
+with its phase marks (``-DOPENVIIC_PHASES``: the consumer warps read the
+GPU's global timer, ``%globaltimer``, after the staging of the inputs,
+after each product and attention phase and at the end).  Then, at the
+flagship decode step of ``chip_smoke.py`` (N = 1600 rows, t = 12, layer-0
+weights from seed 0): for the resident and the fused (non-resident) kernel
+at each cluster size, the kernel's time without the marks and with them (a
 CUDA graph of 20 launches between CUDA events), its agreement with the
-plain version, and the mean microseconds per CTA of each phase.  Prints
-the card's name and power limit first."""
+plain version, and the mean microseconds per CTA of each phase.  Prints the card's name and
+power limit first."""
 
 from __future__ import annotations
 
@@ -34,6 +35,9 @@ from openviic_tpu_torch.ops import cuda_build, layer_step  # noqa: E402
 PHASES = ("stage inputs", "qkv product", "self-attention", "wo product + LN1", "wqc product",
           "cross-attention", "woc product + LN2", "w1 product", "w2 product + cluster sum",
           "LN3")
+FUSED_PHASES = ("stage inputs", "qkv product", "self-attention", "wo product + LN1",
+                "wqc product", "cross-attention", "woc product + LN2",
+                "FFN (w1 and w2 by chunks of 128)", "cluster sum", "LN3")
 PHASE_CTAS, PHASE_SLOTS = 1024, 16  # csrc/layer_step.cu's phase_clock
 CLUSTER_BUILDS = ((), ("-DOPENVIIC_RESIDENT_CLUSTER=1",))  # clusters of 2 CTAs, of 1
 MARKS = ("-DOPENVIIC_PHASES",)
@@ -54,6 +58,32 @@ def resident_launch(lib, args, t, weights, n_heads):
     layer_step.launch("resident_layer_step", True, ptrs, N, L, cross_k.shape[1], D,
                       weights["w1"].shape[1], n_heads, beam, t, x.device, lib=lib)
     return y
+
+
+def fused_launch(lib, ins, kc, vc, t, weights, n_heads):
+    """One launch of the fused kernel of the build ``lib`` (it writes row t
+    of the caches in place, the same values each time); returns y."""
+    x, cross_k, cross_v, smask, cmask = ins
+    N, D = x.shape
+    y = torch.empty_like(x)
+    ptrs = [x.data_ptr(), kc.data_ptr(), vc.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
+            None, smask.data_ptr(), cmask.data_ptr(), None, *layer_step.weight_ptrs(weights),
+            y.data_ptr(), kc.data_ptr(), vc.data_ptr()]
+    layer_step.launch("fused_layer_step", False, ptrs, N, kc.shape[1], cross_k.shape[1], D,
+                      weights["w1"].shape[1], n_heads, 1, t, x.device, lib=lib)
+    return y
+
+
+def phase_table(lib, grid, names):
+    """Mean microseconds per CTA of each phase of the last launch of ``lib``,
+    and the span from the first CTA's start to the last CTA's end."""
+    buf = (ctypes.c_ulonglong * (PHASE_CTAS * PHASE_SLOTS))()
+    lib.openviic_phase_clock.argtypes = [ctypes.c_void_p]
+    cuda_build.check_launch("phase clock copy", lib.openviic_phase_clock(ctypes.addressof(buf)))
+    clock = np.array(buf, dtype=np.float64).reshape(PHASE_CTAS, PHASE_SLOTS)[:grid]
+    per_phase = np.diff(clock[:, : len(names) + 1], axis=1).mean(axis=0) / 1e3
+    span = (clock[:, len(names)].max() - clock[:, 0].min()) / 1e3
+    return per_phase, span
 
 
 def main() -> int:
@@ -86,7 +116,7 @@ def main() -> int:
 
     for defines in CLUSTER_BUILDS:
         plain_lib, marked = layer_step.library(defines), layer_step.library(defines + MARKS)
-        occ = layer_step.resident_occupancy(N, D, F, L, M, h, lib=plain_lib)
+        occ = layer_step.occupancy(True, N, D, F, L, M, h, lib=plain_lib)
         times, ulps = [], 0.0
         for lib in (plain_lib, marked):
             y = resident_launch(lib, args, t, weights, h)
@@ -97,19 +127,45 @@ def main() -> int:
                 lambda: resident_launch(lib, args, t, weights, h), 20, graph=True))
         resident_launch(marked, args, t, weights, h)
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (PHASE_CTAS * PHASE_SLOTS))()
-        marked.openviic_phase_clock.argtypes = [ctypes.c_void_p]
-        cuda_build.check_launch("phase clock copy",
-                                marked.openviic_phase_clock(ctypes.addressof(buf)))
-        clock = np.array(buf, dtype=np.float64).reshape(PHASE_CTAS, PHASE_SLOTS)[: occ["grid"]]
-        per_phase = np.diff(clock[:, : len(PHASES) + 1], axis=1).mean(axis=0) / 1e3
-        span = (clock[:, len(PHASES)].max() - clock[:, 0].min()) / 1e3
-        print(f"cluster {occ['cluster']} ({occ['grid']} CTAs, tiles of {occ['rows_per_tile']} "
+        per_phase, span = phase_table(marked, occ["grid"], PHASES)
+        print(f"resident, cluster {occ['cluster']} ({occ['grid']} CTAs, tiles of "
+              f"{occ['rows_per_tile']} "
               f"rows, {occ['registers']} registers, {occ['local_bytes']} local bytes): kernel "
               f"{times[0]:.4f} ms, {times[1]:.4f} ms with the timer reads, y within {ulps:.1f} "
               f"bf16 ulps of the plain version; first CTA start to last CTA end {span:.1f} us; "
               f"mean us per CTA: "
               + ", ".join(f"{name} {us:.1f}" for name, us in zip(PHASES, per_phase)),
+              flush=True)
+
+    # the fused step at the same shape: per-row cross K/V, f32 numerics
+    from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step_reference
+
+    c = chip_smoke.step_case(torch.Generator().manual_seed(3), img, s, t, device)
+    rows = lambda a: a.reshape(img, M, D).repeat_interleave(s["beam"], dim=0)  # noqa: E731
+    ins = (c["x"], rows(c["ck"]), rows(c["cv"]), c["smask"],
+           c["cmask"].repeat_interleave(s["beam"], dim=0))
+    k0, v0 = c["k"].reshape(N, L, D).clone(), c["v"].reshape(N, L, D).clone()
+    want = fused_layer_step_reference(ins[0], k0.clone(), v0.clone(), *ins[1:], t, weights,
+                                      h)[0]
+    for defines in CLUSTER_BUILDS:
+        plain_lib, marked = layer_step.library(defines), layer_step.library(defines + MARKS)
+        occ = layer_step.occupancy(False, N, D, F, L, M, h, lib=plain_lib)
+        times, ulps = [], 0.0
+        for lib in (plain_lib, marked):
+            y = fused_launch(lib, ins, k0, v0, t, weights, h)
+            torch.cuda.synchronize()
+            ulps = max(ulps, chip_smoke.ulp_errors(y, want)[1])
+            times.append(chip_smoke.time_cuda(
+                lambda: fused_launch(lib, ins, k0, v0, t, weights, h), 20, graph=True))
+        fused_launch(marked, ins, k0, v0, t, weights, h)
+        torch.cuda.synchronize()
+        per_phase, span = phase_table(marked, occ["grid"], FUSED_PHASES)
+        print(f"fused, cluster {occ['cluster']} ({occ['grid']} CTAs, tiles of "
+              f"{occ['rows_per_tile']} rows, {occ['registers']} registers, {occ['local_bytes']} "
+              f"local bytes): kernel {times[0]:.4f} ms, {times[1]:.4f} ms with the timer reads, "
+              f"y within {ulps:.1f} bf16 ulps of the plain version; first CTA start to last CTA "
+              f"end {span:.1f} us; mean us per CTA: "
+              + ", ".join(f"{name} {us:.1f}" for name, us in zip(FUSED_PHASES, per_phase)),
               flush=True)
     return 0
 
