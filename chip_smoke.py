@@ -13,8 +13,11 @@ On the card it runs these phases, each printing its seconds:
    the flagship shape the occupancy of both layer-step kernels (CTAs per
    SM, cluster size, rows per tile, grid, registers, spills, shared
    memory) and of the head kernel's partial pass at k = 5, 16 and 128;
-   the counts of wgmma, mma.sync, TMA and local-memory instructions in
-   the head and layer-step kernels' machine code (``cuobjdump -sass``);
+   the occupancy of both beam-select kernels and of the geo MMA kernel
+   (with its slabs per phase and persistent grid); the counts of wgmma,
+   mma.sync, TMA and local-memory instructions in the head, layer-step,
+   beam-select and geo kernels' machine code (``cuobjdump -sass``; the geo
+   MMA kernels must hold mma.sync);
 3. head kernel: the ``head_topk`` CUDA kernel against its plain PyTorch
    version at the flagship decode shape (N = 320 x 5 beams = 1600 rows,
    D = 512, V = 10 000, k = 5), at the first step's 320 rows, at a ragged
@@ -35,18 +38,24 @@ On the card it runs these phases, each printing its seconds:
    equal the decode steps, every id must lie in the vocab, and the captions
    must agree with the fast-select path on >= 95% of the images; it prints
    what the auto gate (``head_kernel=True``) resolves to there;
-5. kernels vs plain: ``beam_select_attention`` (both mask axes),
-   ``resident_layer_step`` and ``fused_layer_step`` (rows other than t
-   bit-unchanged) at a mid-decode step and a ragged shape (35 rows), at
-   N = 1600 with t = 0 and t = L - 1, and at 37 images, whose 185 rows leave
-   the last cluster tile short, with the flagship's layer-0 weights;
+5. kernels vs plain: ``beam_select_attention`` (both mask axes) at a
+   mid-decode step, at t = 0 and t = L - 1, with q sliced from a fused qkv
+   projection, at a ragged shape (35 rows) with a fully masked row, at
+   L = 40 and at the general kernel's shape (4 heads of 100), timed at
+   t = 0, L // 2 and L - 1; ``resident_layer_step`` and ``fused_layer_step``
+   (rows other than t bit-unchanged) at a mid-decode step and a ragged
+   shape (35 rows), at N = 1600 with t = 0 and t = L - 1, and at 37 images,
+   whose 185 rows leave the last cluster tile short, with the flagship's
+   layer-0 weights;
    ``fused_attention`` at the encoder, the non-resident step's self- and
    cross-attention, the ORT's full-bias and a ragged f32 shape with a fully
    masked row, and at its tiles' edges (nq = 1 with nk = 1, 200 and 300,
    nq = 65, bf16 q/k/v 2 bytes off 16-byte alignment), the edge cases also
    through the tile their nq does not choose (within 2e-5; the masked row
-   finite and uniform); ``geo_fused_attention`` at the ORT encoder shape
-   and a ragged one (2 bf16 ulps on 99% of the elements, 0.05 everywhere);
+   finite and uniform); ``geo_fused_attention`` at the ORT encoder shape,
+   a ragged one, n = 72 (the MMA kernel past 64 rows), bf16 boxes and
+   n = 160 (the SIMT kernel) (2 bf16 ulps on 99% of the elements, 0.05
+   everywhere);
    then each one's time beside its bound, its plain version's and a PyTorch
    yardstick's (the gather + SDPA composite, the eager
    ``DecoderLayer.step``, SDPA, or box embedding + fc_gs + SDPA); every
@@ -60,7 +69,10 @@ On the card it runs these phases, each printing its seconds:
    (c) ``beam_resident=False`` with ``OPENVIIC_FUSED_STEP=1`` and without;
    each asserts its kernels' launches per step, valid ids and a mean
    best-beam log-prob within 0.5% of its reference path's, and prints its
-   captions/s and caption agreement;
+   captions/s and caption agreement; path (a)'s own beam-select inputs at
+   t = L // 2 (layer 0), captured while it serves a request, against the
+   plain version, timed beside the kernel's mean time per launch over a
+   request of path (a) under torch.profiler;
 7. forced decode: the served captions fed back through each kernel path
    and the eager step, per-step log-probs compared;
 8. attention paths: (d) ``OPENVIIC_PALLAS=1`` on the served path (the
@@ -524,72 +536,206 @@ def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library
                 bound_by=bound_by, library_ms=library_ms, **extra)
 
 
+def check_beam_select(name, args, mask_axis, device):
+    """The kernel against its plain version within one bf16 ulp; returns
+    max |error|."""
+    from openviic_tpu_torch.ops.beam_select_attention import (
+        beam_select_attention, beam_select_attention_reference, kernel_route)
+
+    got = beam_select_attention(*args, mask_axis=mask_axis)
+    want = beam_select_attention_reference(*args, mask_axis=mask_axis)
+    sync(device)
+    err, ulps, _ = ulp_errors(got, want)
+    if not torch.isfinite(got).all() or ulps > 1:
+        raise AssertionError(f"beam_select_attention {name} mask_axis={mask_axis}: "
+                             f"{ulps:.2f} bf16 ulps (max |err| {err:.3g}) > 1")
+    route = kernel_route(*args[:3]) if device.type == "cuda" else "plain"
+    log(f"  beam_select_attention {name} mask_axis={mask_axis} (route {route}): "
+        f"max |err| {err:.3g} = {ulps:.2f} bf16 ulps")
+    return err
+
+
 def beam_select_phase(device, s):
     """ops.beam_select_attention against its plain version: the main shape
-    at a mid-decode step with both mask axes, and a ragged shape (7 images,
-    35 rows) at the last step; then times and the bound."""
+    at mid-decode (t = L // 2) with both mask axes, at t = 0 and t = L - 1,
+    q sliced from a fused qkv projection (as the decode gives it), a ragged
+    shape (7 images, 35 rows) at the last step with a fully masked row,
+    L = 40 (two chunks of 32 positions) and the general kernel's shape (4
+    heads of 100); then times at t = 0, L // 2 and L - 1, the bound and the
+    yardstick at t = L // 2."""
     from openviic_tpu_torch.ops.beam_select_attention import (
         ancestor_rows, beam_select_attention, beam_select_attention_reference)
 
     gen = torch.Generator().manual_seed(1)
     beam, L, D, h = s["beam"], s["max_len"], s["d_model"], s["heads"]
-    worst, timed_case = 0.0, None
-    for img, t, axes in ((s["batch"], L // 2, ("p", "q")), (7, L - 1, ("p",))):
-        c = step_case(gen, img, s, t, device)
+    worst, timed = 0.0, {}
+
+    def args_of(c, img, LL, axis):
         N = img * beam
         src = ancestor_rows(c["anc"])
-        pos = torch.arange(L, device=device)
-        q = c["x"].reshape(N, 1, h, D // h)
+        mask = c["smask"] if axis == "p" else c["smask"][src, torch.arange(LL, device=device)]
+        return (c["x"].reshape(N, 1, h, D // h), c["k"], c["v"], c["anc"],
+                mask.reshape(N, 1, 1, LL).contiguous())
+
+    for img, t, LL, axes in ((s["batch"], L // 2, L, ("p", "q")), (s["batch"], 0, L, ("p",)),
+                             (s["batch"], L - 1, L, ("p",)), (7, L - 1, L, ("p", "q")),
+                             (40, 37, 40, ("p", "q"))):
+        c = step_case(gen, img, dict(s, max_len=LL), t, device)
         for axis in axes:
-            mask = c["smask"] if axis == "p" else c["smask"][src, pos]
-            args = (q, c["k"], c["v"], c["anc"], mask.reshape(N, 1, 1, L).contiguous())
-            got = beam_select_attention(*args, mask_axis=axis)
-            want = beam_select_attention_reference(*args, mask_axis=axis)
-            sync(device)
-            err, ulps, _ = ulp_errors(got, want)
-            if not torch.isfinite(got).all() or ulps > 1:
-                raise AssertionError(f"beam_select_attention N={N} t={t} mask_axis={axis}: "
-                                     f"{ulps:.2f} bf16 ulps (max |err| {err:.3g}) > 1")
-            worst = max(worst, err)
-            log(f"  beam_select_attention N={N} L={L} h={h} t={t} mask_axis={axis}: "
-                f"max |err| {err:.3g} = {ulps:.2f} bf16 ulps")
-            if timed_case is None:
-                timed_case = (args, src, pos, c["smask"][src, pos])
+            args = args_of(c, img, LL, axis)
+            if img == 7 and axis == "q":  # a fully masked row: uniform over all L positions
+                args[4][3] = True
+            name = f"N={img * beam} L={LL} h={h} t={t}"
+            if img == 7 and axis == "q":
+                name += ", row 3 fully masked"
+            worst = max(worst, check_beam_select(name, args, axis, device))
+            if img == s["batch"] and axis == "p":
+                timed[t] = (args, c)
+    # q as the decode gives it: a slice of the fused qkv projection's rows
+    args, c = timed[L // 2]
+    N = s["batch"] * beam
+    qkv = torch.randn((N, 1, 3 * D), generator=gen).to(device, torch.bfloat16)
+    sliced = (qkv[..., :D].reshape(N, 1, h, D // h),) + args[1:]
+    worst = max(worst, check_beam_select(f"N={N} t={L // 2}, q sliced from qkv", sliced, "p",
+                                         device))
+    # the general kernel's shape: rows of 4 x 100 elements
+    g = torch.Generator().manual_seed(2)
+    odd = tuple(torch.randn(shape, generator=g).to(device, torch.bfloat16)
+                for shape in ((35, 1, 4, 100), (35, L, 4, 100), (35, L, 4, 100)))
+    odd += (torch.randint(0, beam, (7, beam, L), generator=g).to(device),
+            (torch.rand((35, 1, 1, L), generator=g) < 0.3).to(device))
+    worst = max(worst, check_beam_select("N=35 h=4 d=100", odd, "q", device))
     if device.type != "cuda":
         return None
-    args, src, pos, dead = timed_case
+
     q, k, v, anc, mask = args
-    N, _, h, d = q.shape
+    h, d = q.shape[2], q.shape[3]
+    src = ancestor_rows(anc)
+    pos = torch.arange(L, device=device)
+    dead = c["smask"][src, pos]
 
     def library():  # torch.gather of the ancestor K/V, then SDPA; timed here only
         idx = anc[..., None].expand(-1, -1, -1, h * d)
         b_s = anc.shape[0]
         ks = torch.gather(k.reshape(b_s, beam, L, h * d), 1, idx).reshape(N, L, h, d)
         vs = torch.gather(v.reshape(b_s, beam, L, h * d), 1, idx).reshape(N, L, h, d)
-        live = ~mask.reshape(N, L)[src, pos]
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
-            attn_mask=live[:, None, None, :])
+            attn_mask=~dead[:, None, None, :])
 
-    ms = time_cuda(lambda: beam_select_attention(*args, mask_axis="p"), 50, graph=True)
+    times = {t: time_cuda(lambda: beam_select_attention(*a, mask_axis="p"), 50, graph=True)
+             for t, (a, _) in timed.items()}
+    ms = times[L // 2]
     plain_ms = time_cuda(lambda: beam_select_attention_reference(*args, mask_axis="p"), 10,
                          graph=True)
     library_ms = time_cuda(library, 50, graph=True)
-    costs = host_costs(lambda: beam_select_attention(*args, mask_axis="p"), 50)
+    costs = host_costs(lambda: beam_select_attention(*sliced, mask_axis="p"), 50)
     live = ~dead
-    n_live = int(live.sum())
     rows = distinct_rows(src * L + pos, live)
-    nbytes = rows * h * d * 2 * 2 + 2 * N * h * d * 2 + N * L * (8 + 1)
-    flops = 4.0 * n_live * h * d
+    nbytes, flops = beam_select_work(N, L, h, d, rows, int(live.sum()))
     bound_ms, bound_by = bound(flops, PEAK_F32_FLOPS, nbytes)
-    log(f"  beam_select_attention at N={N} L={L} t={L // 2}: kernel {ms:.4f} ms (launched "
-        f"from Python: {costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), "
-        f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes / 1e6:.2f} MB over {rows} distinct live cache rows, "
-        f"{flops / 1e9:.3f} GFLOP)")
+    log(f"  beam_select_attention at N={N} L={L}: kernel {times[0]:.4f} / {ms:.4f} / "
+        f"{times[L - 1]:.4f} ms at t = 0 / {L // 2} / {L - 1} (synthetic ancestry: "
+        f"{rows} distinct live cache rows at t = {L // 2}); at t = {L // 2}: launched from "
+        f"Python {costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call (q sliced "
+        f"from qkv), plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return entry("beam_select_attention", "openviic_tpu_torch/csrc/beam_select_attention.cu",
                  "openviic_tpu/ops/beam_select_attention.py:173", worst, ms, plain_ms,
-                 bound_ms, bound_by, library_ms, **costs)
+                 bound_ms, bound_by, library_ms, ms_t0=times[0], ms_tlast=times[L - 1], **costs)
+
+
+def beam_select_work(N, L, h, d, rows, n_live):
+    """(bytes, flops) one beam-select call must move and do: the distinct
+    live K and V cache rows read once, q read and the output written, the
+    ancestry and mask read; a dot and a weighted add per live position."""
+    return rows * h * d * 2 * 2 + 2 * N * h * d * 2 + N * L * (8 + 1), 4.0 * n_live * h * d
+
+
+def captured_beam_select(device, s, pipe, request, t):
+    """Path (a)'s own inputs to beam_select_attention at decode step t
+    (layer 0's call), captured while the pipeline serves ``request``: the
+    kernel against its plain version within one bf16 ulp, both timed (CUDA
+    graphs), and beside them the kernel's mean device time per launch
+    over one profiled request of path (a) (torch.profiler)."""
+    import openviic_tpu_torch.models.attention as attention
+    from openviic_tpu_torch.ops.beam_select_attention import (
+        ancestor_rows, beam_select_attention, beam_select_attention_reference)
+
+    n_layers = len(pipe.model.decoder.layers)
+    calls, captured = [0], {}
+
+    def capture(q_t, k, v, ancestry, position_mask, mask_axis="q"):
+        if calls[0] == t * n_layers:
+            q_copy = torch.empty_strided(q_t.shape, q_t.stride(), dtype=q_t.dtype,
+                                         device=q_t.device)
+            q_copy.copy_(q_t)  # with the decode's row stride
+            captured.update(args=(q_copy, k.clone(), v.clone(), ancestry.clone(),
+                                  position_mask.clone()), mask_axis=mask_axis)
+        calls[0] += 1
+        return beam_select_attention(q_t, k, v, ancestry, position_mask, mask_axis=mask_axis)
+
+    attention.beam_select_attention = capture
+    try:
+        pipe.caption_features(request, return_ids=True)
+    finally:
+        attention.beam_select_attention = beam_select_attention
+    if not captured:
+        raise AssertionError(f"path (a) made {calls[0]} beam-select calls, none at step {t}")
+    args, axis = captured["args"], captured["mask_axis"]
+    err = check_beam_select(f"captured from path (a) at t={t}", args, axis, device)
+    if device.type != "cuda":
+        return {}
+    q, k, v, anc, mask = args
+    N, L = k.shape[:2]
+    src = ancestor_rows(anc)
+    pos = torch.arange(L, device=device)
+    pm = mask.reshape(N, L)
+    live = ~(pm[src, pos] if axis == "p" else pm)
+    rows = distinct_rows(src * L + pos, live)
+    ms = time_cuda(lambda: beam_select_attention(*args, mask_axis=axis), 50, graph=True)
+    plain_ms = time_cuda(lambda: beam_select_attention_reference(*args, mask_axis=axis), 10,
+                         graph=True)
+    nbytes, flops = beam_select_work(N, L, q.shape[2], q.shape[3], rows, int(live.sum()))
+    bound_ms, _ = bound(flops, PEAK_F32_FLOPS, nbytes)
+    profile_ms, launches = profiled_kernel_ms(
+        device, lambda: pipe.caption_features(request, return_ids=True), "beam_select")
+    per_launch = profile_ms / max(launches, 1)
+    log(f"  beam_select_attention, path (a)'s inputs at t={t}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({rows} distinct live cache rows, "
+        f"{int(live.sum())} live positions of {N} rows); profiled path (a) request: "
+        f"{launches} launches, {profile_ms:.3f} ms, {per_launch:.4f} ms per launch (every step)")
+    return dict(captured_t=t, captured_err=err, captured_ms=ms, captured_plain_ms=plain_ms,
+                captured_bound_ms=bound_ms, profile_ms_per_launch=per_launch,
+                profile_launches=launches)
+
+
+def device_times(prof) -> dict:
+    """{kernel name: (device ms, launches)} summed over a torch.profiler
+    window."""
+    out = {}
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0.0)
+        if us and event.device_type == torch.autograd.DeviceType.CUDA:
+            total, count = out.get(event.key, (0.0, 0))
+            out[event.key] = (total + us / 1e3, count + event.count)
+    return out
+
+
+def profiled_kernel_ms(device, fn, match: str):
+    """(device ms, launches) of the CUDA kernels whose name holds ``match``
+    over one call of ``fn`` under torch.profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sync(device)
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        sync(device)
+    found = [v for key, v in device_times(prof).items() if match in key]
+    if not found:
+        raise AssertionError(f"the profile shows no kernel named like {match!r}")
+    return sum(ms for ms, _ in found), sum(count for _, count in found)
 
 
 def layer_step_phase(device, s, layer, resident: bool):
@@ -863,6 +1009,8 @@ def decode_paths_phase(device, s, served, card: str):
         lambda request: attn_pipe.caption_features(request, return_ids=True),
         per_step={"beam_select_attention": n_layers, "head_topk": 1})
     out["beam_select_attention"] = launches["beam_select_attention"]
+    out["beam_select_captured"] = captured_beam_select(device, s, attn_pipe, requests[0],
+                                                       s["max_len"] // 2)
     res_a = rescore(device, requests, searcher_decode(attn_pipe, attn_pipe.searcher, vocab, beam),
                     res_a, "(a)")
     score_parity("(a)", res_a, base, "the head-kernel path")
@@ -1284,14 +1432,18 @@ def pixel_boxes(gen, bs, n, live):
 def geo_attention_phase(device, s):
     """ops.geo_fused_attention against its plain version at the ORT encoder
     shape (images x regions padded to 8, the trig embedding's dim_g =
-    d_model / heads) and a ragged shape (7 images, n = 13, f32): within
+    d_model / heads), a ragged shape (7 images, n = 13, f32), n 16 rows
+    longer than the encoder's (the MMA kernel past 64 rows: its 8-warp,
+    128-key instance, one slab per phase), the encoder shape with bf16
+    boxes (the kernel's own bf16 geometry rows) and n = 160 (the SIMT
+    kernel): within
     GEO_ULPS bf16 ulps on GEO_SHARE of the elements and GEO_ATOL
     everywhere; then its time beside its bound, the plain version's and the
     composite of box_relational_embedding + fc_gs + SDPA with the
     materialised bias."""
     from openviic_tpu_torch.models.geometry import box_relational_embedding
     from openviic_tpu_torch.ops.geo_attention import (
-        geo_fused_attention, geo_fused_attention_reference)
+        geo_fused_attention, geo_fused_attention_reference, kernel_route)
 
     gen = torch.Generator().manual_seed(5)
     h, D = s["heads"], s["d_model"]
@@ -1299,9 +1451,14 @@ def geo_attention_phase(device, s):
     dim_g = d
     bound_g = (6.0 / (dim_g + 1)) ** 0.5  # _per_head_xavier
     worst, timed_case = 0.0, None
-    for bs, nn_, dtype in ((s["batch"], n, torch.bfloat16), (7, 13, torch.float32)):
-        live = torch.randint(nn_ // 2, min(nn_, s["n_regions"]) + 1, (bs,), generator=gen)
-        boxes = pixel_boxes(gen, bs, nn_, live).to(device)
+    for bs, nn_, dtype, box_dtype in ((s["batch"], n, torch.bfloat16, torch.float32),
+                                      (7, 13, torch.float32, torch.float32),
+                                      (40, n + 16, torch.bfloat16, torch.float32),
+                                      (s["batch"], n, torch.bfloat16, torch.bfloat16),
+                                      (20, 160, torch.bfloat16, torch.float32)):
+        most = min(nn_, s["n_regions"])
+        live = torch.randint(min(nn_ // 2, most), most + 1, (bs,), generator=gen)
+        boxes = pixel_boxes(gen, bs, nn_, live).to(device, box_dtype)
         mask = (torch.arange(nn_)[None] >= live[:, None]).reshape(bs, 1, 1, nn_).to(device)
         q, k, v = (torch.randn((bs, nn_, h, d), generator=gen).to(device, dtype) for _ in range(3))
         wg = ((torch.rand((dim_g, h), generator=gen) * 2 - 1) * bound_g).to(device)
@@ -1318,9 +1475,12 @@ def geo_attention_phase(device, s):
             raise AssertionError(f"geo_fused_attention bs={bs} n={nn_}: max |err| {err:.3g}, "
                                  f"{beyond:.4f} of the elements beyond {GEO_ULPS} bf16 ulps")
         worst = max(worst, err)
+        route = (kernel_route(*(t.to(torch.bfloat16) for t in (q, k, v)), dim_g // 8)
+                 if device.type == "cuda" else "plain")
         log(f"  geo_fused_attention bs={bs} n={nn_} h={h} dk={d} dim_g={dim_g} "
-            f"{str(dtype)[6:]}: max |err| {err:.3g} = {ulps:.2f} bf16 ulps, {share:.2e} beyond "
-            f"1 ulp, {beyond:.2e} beyond {GEO_ULPS}")
+            f"{str(dtype)[6:]}, {str(box_dtype)[6:]} boxes (route {route}): max |err| "
+            f"{err:.3g} = {ulps:.2f} bf16 ulps, {share:.2e} beyond 1 ulp, {beyond:.2e} beyond "
+            f"{GEO_ULPS}")
         if timed_case is None:
             timed_case = args
     if device.type != "cuda":
@@ -1467,17 +1627,16 @@ def ptxas_summary(logs) -> str:
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDL", "STL")  # wgmma, mma.sync, TMA loads, local memory
 
 
-def sass_counts(name: str) -> str:
-    """Per kernel of csrc/<name>.cu's library, how many of SASS_OPS its
-    machine code holds (``cuobjdump -sass``): the evidence that a kernel is
-    built on wgmma and TMA, and spills nothing."""
+def sass_table(name: str) -> dict:
+    """Per kernel of csrc/<name>.cu's library (mangled name), how many of
+    SASS_OPS its machine code holds (``cuobjdump -sass``)."""
     import re
 
     from openviic_tpu_torch.ops import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
-        return f"{name}: cuobjdump not found"
+        return {}
     sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     counts, func = {}, None
@@ -1490,14 +1649,33 @@ def sass_counts(name: str) -> str:
             op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
             if op and op.group(1) in counts[func]:
                 counts[func][op.group(1)] += 1
-    # the mangled names differ in their template arguments, at the end
-    return " | ".join(f"{name}: ...{func[-44:]}: " + ", ".join(f"{k} {v}" for k, v in c.items())
-                      for func, c in counts.items())
+    return counts
+
+
+def sass_counts(name: str) -> str:
+    """sass_table as a line: the evidence that a kernel is built on wgmma,
+    mma.sync and TMA, and spills nothing."""
+    import re
+
+    table = sass_table(name)
+    if not table:
+        return f"{name}: cuobjdump not found"
+    out = []
+    for func, c in table.items():
+        # the kernel's own name and its template arguments, out of the mangled name
+        found = re.search(r"\d+([a-z_]*(?:kernel|partial|merge|fast|general|mma|simt)\w*)", func)
+        label = found.group(1) if found else f"...{func[-44:]}"
+        out.append(f"{name}: {label[:60]}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    return " | ".join(out)
 
 
 def occupancy_lines(s):
-    """How the layer-step kernels and the head kernel run at the main shape
-    on this card (the ptxas report gives the same registers and spills)."""
+    """How the layer-step kernels, the head kernel, the beam-select kernels
+    and the geo MMA kernel run at the main shape on this card (the ptxas
+    report gives the same registers and spills)."""
+    from openviic_tpu_torch.ops.beam_select_attention import kernel_route as beam_route
+    from openviic_tpu_torch.ops.beam_select_attention import occupancy as beam_occupancy
+    from openviic_tpu_torch.ops.geo_attention import occupancy as geo_occupancy
     from openviic_tpu_torch.ops.head_topk import occupancy as head_occupancy
     from openviic_tpu_torch.ops.layer_step import occupancy
 
@@ -1512,6 +1690,19 @@ def occupancy_lines(s):
     for k in (s["beam"], 16, 128):
         occ = head_occupancy(s["d_model"], k)
         lines.append(f"head_topk partial kernel at D = {s['d_model']}, k = {k}: "
+                     + ", ".join(f"{key} {v}" for key, v in occ.items()))
+    h, d = s["heads"], s["d_model"] // s["heads"]
+    meta = torch.empty((N, 1, h, d), dtype=torch.bfloat16, device="meta")
+    route = beam_route(meta, meta, meta)
+    for r in sorted({route, 0}):
+        occ = beam_occupancy(r, s["beam"], h, s["max_len"])
+        lines.append(f"beam_select_attention {'fast' if r else 'general'} kernel (route {r}) "
+                     f"at beam {s['beam']}, {h} heads of {d}: "
+                     + ", ".join(f"{key} {v}" for key, v in occ.items()))
+    n = -(-s["n_regions"] // 8) * 8
+    for nn_ in (n, n + 16):
+        occ = geo_occupancy(s["batch"], nn_, h, d // 8)
+        lines.append(f"geo_fused_attention MMA kernel at bs {s['batch']}, n {nn_}, {h} heads: "
                      + ", ".join(f"{key} {v}" for key, v in occ.items()))
     return lines
 
@@ -1556,8 +1747,11 @@ def main() -> int:
     log(f"  ptxas: {ptxas_summary(logs)}")
     for line in occupancy_lines(FLAGSHIP):
         log(f"  {line}")
-    for name in ("head_topk", "layer_step"):
+    for name in ("head_topk", "layer_step", "beam_select_attention", "geo_attention"):
         log(f"  sass: {sass_counts(name)}")
+    if not any(c["HMMA"] and "geo_attention_mma" in f
+               for f, c in sass_table("geo_attention").items()):
+        raise AssertionError("the geo MMA kernels hold no HMMA (mma.sync) instruction")
     entries = all_phases(device, FLAGSHIP, smi)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)
@@ -1589,6 +1783,7 @@ def all_phases(device, s, card: str):
     launches.update(paths, head_topk=served["launches"])
     if device.type != "cuda":
         return []
+    found[1].update(paths["beam_select_captured"])
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

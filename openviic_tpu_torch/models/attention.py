@@ -166,9 +166,7 @@ class ScaledDotProductAttention(nn.Module):
         (equivalent, since position (q, t') survives only at slot
         p = ancestry[q, t'])."""
         if use_kernel:
-            out = beam_select_attention(
-                q_t.contiguous(), k, v, ancestry, position_mask, mask_axis=mask_axis
-            )
+            out = beam_select_attention(q_t, k, v, ancestry, position_mask, mask_axis=mask_axis)
             return self.output(out)
         b_s, n_beams, L = ancestry.shape
         h = q_t.shape[2]

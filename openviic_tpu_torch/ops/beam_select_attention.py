@@ -2,16 +2,24 @@
 
 Replaces the Pallas kernel
 ``openviic_tpu/ops/beam_select_attention.py::beam_select_attention`` with
-the hand-written CUDA kernel ``csrc/beam_select_attention.cu`` (the bound
-and the design are described there).  For this step's queries q_t
-(N, 1, h, d_k), the append-only caches k (N, L, h, d_k) and v (N, L, h,
-d_v) (N = bs * beam rows, each beam writing its own slot and never
-reordered), the ancestry table (bs, beam, L) (the slot of the same image
-that holds position l of each current beam's prefix) and the position mask
-(N, 1, 1, L) (True = masked), it returns the pre-output-projection
-attention (N, 1, h, d_v) in q_t's dtype.  With ``mask_axis="q"`` the mask
-is already resolved per current beam; with ``"p"`` it is the raw per-slot
-mask and is read at the ancestor's slot.
+the hand-written CUDA kernels of ``csrc/beam_select_attention.cu`` (the
+bound and the designs are described there): a fast kernel (one block per
+image, one warp per beam row over every head, the live K and V rows of a
+batch of positions loaded at once, an online softmax in registers) for
+rows of h * d_k = 256, 512 or 1024 elements with d_k = d_v and 16-byte
+aligned pointers, and a general kernel for the other shapes the wrapper
+takes (``kernel_route`` says which).
+
+For this step's queries q_t (N, 1, h, d_k) (its rows may lie any even
+number of elements apart, as in a slice of a fused qkv projection), the
+append-only caches k (N, L, h, d_k) and v (N, L, h, d_v) (N = bs * beam
+rows, each beam writing its own slot and never reordered), the ancestry
+table (bs, beam, L) (the slot of the same image that holds position l of
+each current beam's prefix) and the position mask (N, 1, 1, L) (True =
+masked), it returns the pre-output-projection attention (N, 1, h, d_v) in
+q_t's dtype.  With ``mask_axis="q"`` the mask is already resolved per
+current beam; with ``"p"`` it is the raw per-slot mask and is read at the
+ancestor's slot.
 
 Numerics follow the JAX kernel: f32 scores ``(q . k) * d_k**-0.5``, a
 -1e30 additive mask (so a fully masked row is uniform, not NaN), an f32
@@ -19,7 +27,7 @@ softmax and PV, the result cast to q_t's dtype.
 
 ``beam_select_attention`` dispatches on the tensors' device: on the CPU it
 runs ``beam_select_attention_reference``, the plain PyTorch version; on a
-CUDA device it launches the kernel or raises.  ``beam_select_attention
+CUDA device it launches a kernel or raises.  ``beam_select_attention
 .launches`` counts kernel launches."""
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import torch
 from openviic_tpu_torch.ops import cuda_build
 
 NEG = -1e30  # the JAX kernels' additive mask
-MAX_HEAD_DIM = 512  # the kernel's largest d_k and d_v (csrc/beam_select_attention.cu)
+MAX_HEAD_DIM = 512  # the kernels' largest d_k and d_v (csrc/beam_select_attention.cu)
+FAST_ROW = 256  # the fast kernel's rows of h * d_k elements are 1, 2 or 4 times this
 
 
 def ancestor_rows(ancestry: torch.Tensor) -> torch.Tensor:
@@ -71,18 +80,48 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("beam_select_attention")
         fn = lib.openviic_beam_select_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.openviic_beam_select_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.openviic_beam_select_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def occupancy(route: int, beam: int, h: int, L: int):
+    """How the kernel of ``route`` (``kernel_route``) runs on the current
+    card at beam, h and L: CTAs per SM, threads per CTA, registers and
+    local (spill) bytes per thread, shared bytes per CTA."""
+    out = (ctypes.c_int * 5)()
+    err = _library().openviic_beam_select_occupancy(route, beam, h, L, out)
+    cuda_build.check_launch("beam_select_attention occupancy", err)
+    keys = ("ctas_per_sm", "threads", "registers", "local_bytes", "smem_bytes")
+    return dict(zip(keys, list(out)))
+
+
+def kernel_route(q_t, k, v) -> int:
+    """Which CUDA kernel takes these operands: 1, 2 or 4, the fast kernel
+    for rows of h * d_k = 256, 512 or 1024 elements (d_k = d_v, each lane's
+    8, 16 or 32 elements within one head, every pointer and q_t's row
+    stride 16-byte aligned); 0, the general kernel."""
+    h, d_k, d_v = q_t.shape[2], q_t.shape[3], v.shape[3]
+    ck = h * d_k // FAST_ROW
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (q_t, k, v))
+               and q_t.stride(0) % 8 == 0)
+    if (not aligned or d_k != d_v or h * d_k != ck * FAST_ROW or ck not in (1, 2, 4)
+            or d_k % (8 * ck) or (d_k // (8 * ck)) & (d_k // (8 * ck) - 1)):
+        return 0
+    return ck
+
+
 def _check(q_t, k, v, ancestry, position_mask, mask_axis: str) -> None:
-    """What the kernel takes: contiguous q_t, k, v in bf16 with even d_k,
-    d_v <= 512 and h <= 32, int64 ancestry and a bool position_mask, all on
-    one CUDA device (checked last, so that shapes and dtypes are checked on
-    any device)."""
+    """What the kernels take: q_t, k, v in bf16 with even d_k, d_v <= 512
+    and h <= 32, k and v contiguous, q_t's heads contiguous within a row
+    (its rows may lie any even number of elements apart, as in a slice of
+    a fused qkv projection), int64 ancestry and a bool position_mask, all
+    on one CUDA device (checked last, so that shapes and dtypes are checked
+    on any device)."""
     tensors = (q_t, k, v, ancestry, position_mask)
     if mask_axis not in ("q", "p"):
         raise ValueError(f"mask_axis must be 'q' or 'p', got {mask_axis!r}")
@@ -104,8 +143,12 @@ def _check(q_t, k, v, ancestry, position_mask, mask_axis: str) -> None:
     if ancestry.dtype != torch.int64 or position_mask.dtype != torch.bool:
         raise TypeError(f"beam_select_attention kernel takes int64 ancestry and a bool mask, "
                         f"got {ancestry.dtype}, {position_mask.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("beam_select_attention kernel takes contiguous tensors")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("beam_select_attention kernel takes contiguous k, v, ancestry and "
+                         "position_mask")
+    if q_t.stride(3) != 1 or (h > 1 and q_t.stride(2) != d_k) or q_t.stride(0) % 2:
+        raise ValueError(f"beam_select_attention kernel takes q_t with each row's heads "
+                         f"contiguous and an even row stride, got strides {q_t.stride()}")
     if not (1 <= h <= 32 and d_k % 2 == 0 and d_v % 2 == 0
             and 2 <= d_k <= MAX_HEAD_DIM and 2 <= d_v <= MAX_HEAD_DIM and L >= 1):
         raise ValueError(f"beam_select_attention kernel needs h <= 32 and even d_k, d_v <= "
@@ -129,10 +172,10 @@ def beam_select_attention(q_t, k, v, ancestry, position_mask, mask_axis: str = "
     L, d_v = k.shape[1], v.shape[3]
     out = torch.empty((N, 1, h, d_v), dtype=q_t.dtype, device=q_t.device)
     err = _library().openviic_beam_select_attention(
-        q_t.data_ptr(), k.data_ptr(), v.data_ptr(), ancestry.data_ptr(),
+        q_t.data_ptr(), q_t.stride(0), k.data_ptr(), v.data_ptr(), ancestry.data_ptr(),
         position_mask.data_ptr(), out.data_ptr(), N, L, h, d_k, d_v,
         ancestry.shape[1], int(mask_axis == "p"), 1.0 / math.sqrt(d_k),
-        cuda_build.current_stream(q_t.device),
+        kernel_route(q_t, k, v), cuda_build.current_stream(q_t.device),
     )
     cuda_build.check_launch("beam_select_attention", err)
     beam_select_attention.launches += 1
