@@ -1,4 +1,4 @@
 from openviic_tpu_torch.data.instance import Instance, InstanceList
-from openviic_tpu_torch.data.vocab import Vocab
+from openviic_tpu_torch.data.vocab import Vocab, load_vocab
 
-__all__ = ["Instance", "InstanceList", "Vocab"]
+__all__ = ["Instance", "InstanceList", "Vocab", "load_vocab"]

@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from openviic_tpu_torch.ops import cuda_build
+from openviic_tpu_torch.ops import cuda_build, refuse_grad
 
 NEG = -1e30  # the JAX kernels' additive mask
 MAX_HEAD_DIM = 512  # the kernels' largest d_k and d_v (csrc/beam_select_attention.cu)
@@ -165,6 +165,7 @@ def _check(q_t, k, v, ancestry, position_mask, mask_axis: str) -> None:
 def beam_select_attention(q_t, k, v, ancestry, position_mask, mask_axis: str = "q"):
     """Beam-resident self-attention step; see the module docstring.  The
     kernel trusts ``0 <= ancestry < beam``, as the decode guarantees."""
+    refuse_grad("beam_select_attention", q_t, k, v)
     if all(t.device.type == "cpu" for t in (q_t, k, v, ancestry, position_mask)):
         return beam_select_attention_reference(q_t, k, v, ancestry, position_mask, mask_axis)
     _check(q_t, k, v, ancestry, position_mask, mask_axis)

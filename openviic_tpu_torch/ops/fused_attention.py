@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from openviic_tpu_torch.ops import cuda_build
+from openviic_tpu_torch.ops import cuda_build, refuse_grad
 
 NEG = -1e30  # the JAX kernels' additive mask
 MAX_HEAD_DIM = 128  # the kernel's largest d and dv (csrc/fused_attention.cu)
@@ -154,6 +154,7 @@ def fused_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
     ``tile`` overrides ``choose_tile`` (for measurements); the MMA tile
     takes bf16 only, SIMT f32 only."""
     tensors = (q, k, v) + (() if bias is None else (bias,))
+    refuse_grad("fused_attention", *tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_attention_reference(q, k, v, bias, sm_scale)
     expanded = _check(q, k, v, bias)

@@ -30,7 +30,7 @@ from typing import Dict
 
 import torch
 
-from openviic_tpu_torch.ops import layer_step
+from openviic_tpu_torch.ops import layer_step, refuse_grad
 from openviic_tpu_torch.ops.layer_step import NEG, head_sums, layer_norm, per_column
 
 
@@ -82,6 +82,7 @@ def fused_layer_step(x, k_cache, v_cache, cross_k, cross_v, self_mask, cross_mas
     True = masked.  Returns (y (N, D), k_cache, v_cache)."""
     tensors = dict(x=x, k_cache=k_cache, v_cache=v_cache, cross_k=cross_k, cross_v=cross_v,
                    self_mask=self_mask, cross_mask=cross_mask)
+    refuse_grad("fused_layer_step", tensors, weights)
     if all(v.device.type == "cpu" for v in list(tensors.values()) + list(weights.values())):
         return fused_layer_step_reference(x, k_cache, v_cache, cross_k, cross_v, self_mask,
                                           cross_mask, t, weights, n_heads)

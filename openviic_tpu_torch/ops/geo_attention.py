@@ -34,7 +34,7 @@ import os
 
 import torch
 
-from openviic_tpu_torch.ops import cuda_build
+from openviic_tpu_torch.ops import cuda_build, refuse_grad
 
 NEG = -1e30  # the JAX kernels' additive mask
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
@@ -227,6 +227,7 @@ def geo_fused_attention(q, k, v, boxes, fc_g_kernel, fc_g_bias, padding_mask,
     dtype, so a call runs no torch op beyond the output's allocation (and
     the bf16 copies of f32 q, k, v)."""
     tensors = (q, k, v, boxes, fc_g_kernel, fc_g_bias, padding_mask)
+    refuse_grad("geo_fused_attention", *tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return geo_fused_attention_reference(q, k, v, boxes, fc_g_kernel, fc_g_bias,
                                              padding_mask, sm_scale, wave_len)

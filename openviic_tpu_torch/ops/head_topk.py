@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from openviic_tpu_torch.ops import cuda_build
+from openviic_tpu_torch.ops import cuda_build, refuse_grad
 
 MAX_K = 128  # the kernel's largest k, as the JAX kernel's (csrc/head_topk.cu)
 TILE_ROWS = 64  # rows of x per block (csrc/head_topk.cu's BM)
@@ -127,6 +127,7 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor, k: int) -> None:
 
 def head_topk(x: torch.Tensor, w: torch.Tensor, k: int):
     """Fused head + lse + top-k; see the module docstring."""
+    refuse_grad("head_topk", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return head_topk_reference(x, w, k)
     _check(x, w, k)

@@ -28,7 +28,7 @@ from typing import Dict
 
 import torch
 
-from openviic_tpu_torch.ops import layer_step
+from openviic_tpu_torch.ops import layer_step, refuse_grad
 from openviic_tpu_torch.ops.beam_select_attention import ancestor_rows
 from openviic_tpu_torch.ops.layer_step import NEG, head_sums, layer_norm, per_column
 
@@ -115,6 +115,7 @@ def resident_layer_step(x, k_cache, v_cache, cross_k, cross_v, ancestry, self_ma
     ``0 <= ancestry < beam``, as the decode guarantees."""
     tensors = dict(x=x, k_cache=k_cache, v_cache=v_cache, cross_k=cross_k, cross_v=cross_v,
                    ancestry=ancestry, self_mask=self_mask, cross_mask=cross_mask, is_pad=is_pad)
+    refuse_grad("resident_layer_step", tensors, weights)
     if all(v.device.type == "cpu" for v in list(tensors.values()) + list(weights.values())):
         return resident_layer_step_reference(x, k_cache, v_cache, cross_k, cross_v, ancestry,
                                              self_mask, cross_mask, is_pad, t, weights, n_heads)

@@ -78,4 +78,48 @@ def test_port_modules_never_import_the_jax_stack():
                     continue
                 offenders.append(f"{rel}:{node.lineno} imports {name}")
     assert {"chip_smoke.py", "openviic_tpu_torch/config/loader.py"} <= scanned
+    assert {f"openviic_tpu_torch/{m}.py" for m in NEW_MODULES} <= scanned
     assert not offenders, offenders
+
+
+# the trained-artifact decode, the scorers and XE training
+NEW_MODULES = (
+    "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
+    "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
+    "evaluation/ngram", "evaluation/porter", "evaluation/ptb_tokenizer", "evaluation/rouge",
+    "training/__init__", "training/optim", "training/steps",
+)
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+
+BLOCKED = {blocked!r}
+
+
+class BlockImports:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"import of {{name}} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, BlockImports())
+import openviic_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(openviic_tpu_torch.__path__, "openviic_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("imported", len(names), sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
+"""
+
+
+def test_every_port_module_imports_with_the_jax_stack_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(blocked=BLOCKED)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=60,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    count = int(proc.stdout.split()[1])
+    assert count >= 40 and proc.stdout.strip().endswith("[]"), proc.stdout
