@@ -100,14 +100,24 @@ On the card it runs these phases, each printing its seconds:
    multi-step call against single steps, grad_accum 2 against the full
    batch, 20 bf16 steps whose loss must fall (ms per step, peak memory),
    and the refusal of a step under ``OPENVIIC_PALLAS=1``;
-11. the last line: ``{"ok": true, "device": {...}}``.
+11. SCST from the artifact's weights at batch 60 x beam 5 (its test
+   references also serve as the df corpus): the f32 step on the card
+   against its host's CPU on fixed beams, the device reward against the
+   host's (Python and native CIDEr), the native scorers against the Python
+   ones on the card's host, 20 iterations of ``scst_iteration`` as the
+   tuned config runs them (bf16 sampling through the head kernel, device
+   reward, f32 step; ms split into sample, reward and step, the step's
+   peak memory, head_topk launches per decode step), and dropout-active
+   sampling (seeded, and the resident step kernel bypassed);
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound); the line before
 that is the card's name and power limit.  Any failure raises, and the
-script exits non-zero without those lines.  ``--cpu`` runs phases 3-10 at
+script exits non-zero without those lines.  ``--cpu`` runs phases 3-11 at
 tiny widths with the plain versions on the CPU (the artifact's first 4
-images; XE at tiny widths) and ends with ``cpu rehearsal ok`` instead.  The
+images; XE and SCST at tiny widths) and ends with ``cpu rehearsal ok``
+instead.  The
 script writes nothing outside ``openviic_tpu_torch/_build/``.
 """
 
@@ -1785,10 +1795,11 @@ def captured_steps(kept):
     return out
 
 
-def trained_kernel_cases(device, captured, n_layers):
-    """Each kernel on its own inputs captured from the artifact decode,
-    against its plain version under its gate, and timed beside its bound
-    (on the card).  Returns {kernel: [rows]}."""
+def trained_kernel_cases(device, captured, what="trained decode"):
+    """Each kernel on its own inputs captured from the artifact decode
+    (``what``; the kernels of ``captured``'s keys), against its plain
+    version under its gate, and timed beside its bound (on the card).
+    Returns {kernel: [rows]}."""
     from openviic_tpu_torch.ops.beam_select_attention import (
         ancestor_rows, beam_select_attention, beam_select_attention_reference)
     from openviic_tpu_torch.ops.fused_attention import fused_attention, fused_attention_reference
@@ -1818,19 +1829,22 @@ def trained_kernel_cases(device, captured, n_layers):
                 f"bound {bound_ms:.4f} ms ({bound_by})")
         rows.setdefault(kernel, []).append(r)
 
-    for t, ((x, w, k), _) in captured_steps(captured["head_topk"]).items():
+    def steps_of(key):
+        return captured_steps(captured[key]).items() if key in captured else ()
+
+    for t, ((x, w, k), _) in steps_of("head_topk"):
         with case():
-            err, _ = compare(f"head_topk, trained decode t={t}", x, w, k, exact=False)
+            err, _ = compare(f"head_topk, {what} t={t}", x, w, k, exact=False)
             bound_ms, bound_by, _, _ = head_bound(x.shape[0], x.shape[1], w.shape[0], k)
             row("head_topk", f"t={t} N={x.shape[0]} V={w.shape[0]}", err,
                 lambda: head_topk(x, w, k), lambda: head_topk_reference(x, w, k),
                 bound_ms, bound_by)
 
-    for t, (args, kwargs) in captured_steps(captured["beam_select_attention"]).items():
+    for t, (args, kwargs) in steps_of("beam_select_attention"):
         with case():
             axis = kwargs.get("mask_axis", args[5] if len(args) > 5 else "q")
             args = args[:5]
-            err = check_beam_select(f"trained decode t={t}", args, axis, device)
+            err = check_beam_select(f"{what} t={t}", args, axis, device)
             q, kc, _, anc, mask = args
             N, L = kc.shape[:2]
             pos = torch.arange(L, device=device)
@@ -1844,14 +1858,14 @@ def trained_kernel_cases(device, captured, n_layers):
                 lambda: beam_select_attention(*args, mask_axis=axis),
                 lambda: beam_select_attention_reference(*args, mask_axis=axis), bound_ms, bound_by)
 
-    for t, (args, kwargs) in captured_steps(captured["resident_layer_step"]).items():
+    for t, (args, kwargs) in steps_of("resident_layer_step"):
         with case():
             step_args, (t_arg, weights) = args[:9], args[9:11]
             h = kwargs["n_heads"]
-            err, detail = check_resident_step(f"resident_layer_step, trained decode t={t}",
+            err, detail = check_resident_step(f"resident_layer_step, {what} t={t}",
                                               step_args, t_arg, weights, h, device)
             N, L = step_args[1].shape[:2]
-            log(f"  resident_layer_step, trained decode t={t} N={N} L={L} "
+            log(f"  resident_layer_step, {what} t={t} N={N} L={L} "
                 f"M={step_args[3].shape[1]}: {detail}")
             bound_ms, bound_by, _, _ = layer_step_bound(
                 True, t_arg, weights, N, step_args[6].reshape(N, L),
@@ -1861,15 +1875,15 @@ def trained_kernel_cases(device, captured, n_layers):
                 lambda: resident_layer_step_reference(*step_args, t_arg, weights, h),
                 bound_ms, bound_by)
 
-    for t, (args, kwargs) in captured_steps(captured["fused_layer_step"]).items():
+    for t, (args, kwargs) in steps_of("fused_layer_step"):
         with case():
             x, k0, v0, ck, cv, smask, cmask, t_arg, weights = args[:9]
             h = kwargs["n_heads"]
             ins = (x, ck, cv, smask, cmask)
-            err, detail = check_fused_step(f"fused_layer_step, trained decode t={t}", ins, k0, v0,
+            err, detail = check_fused_step(f"fused_layer_step, {what} t={t}", ins, k0, v0,
                                            t_arg, weights, h, device)
             N, L = k0.shape[:2]
-            log(f"  fused_layer_step, trained decode t={t} N={N} L={L} M={ck.shape[1]}: {detail}")
+            log(f"  fused_layer_step, {what} t={t} N={N} L={L} M={ck.shape[1]}: {detail}")
             bound_ms, bound_by, _, _ = layer_step_bound(False, t_arg, weights, N, smask, cmask)
             kk, vk = k0.clone(), v0.clone()
             row("fused_layer_step", f"t={t} N={N} L={L}", err,
@@ -1877,16 +1891,17 @@ def trained_kernel_cases(device, captured, n_layers):
                 lambda: fused_layer_step_reference(x, kk, vk, ck, cv, smask, cmask, t_arg,
                                                    weights, h), bound_ms, bound_by)
 
-    attention_calls = [("encoder", captured["fused_attention_encoder"][0])]
+    attention_calls = [("encoder", captured["fused_attention_encoder"][0])
+                       ] if "fused_attention_encoder" in captured else []
     for part in ("self", "cross"):
-        attention_calls += [(f"step {part} t={t}", call) for t, call in
-                            captured_steps(captured[f"fused_attention_{part}"]).items()]
+        attention_calls += [(f"step {part} t={t}", call)
+                            for t, call in steps_of(f"fused_attention_{part}")]
     for label, (args, kwargs) in attention_calls:
         with case():
             q, k, v = args[:3]
             bias, scale = kwargs.get("bias"), kwargs.get("sm_scale")
-            err, _ = check_fused_attention(f"trained decode {label}", q, k, v, bias, device)
-            log(f"  fused_attention, trained decode {label}: q {tuple(q.shape)}, nk {k.shape[1]}: "
+            err, _ = check_fused_attention(f"{what} {label}", q, k, v, bias, device)
+            log(f"  fused_attention, {what} {label}: q {tuple(q.shape)}, nk {k.shape[1]}: "
                 f"max |err| {err:.3g}")
             bound_ms, bound_by = attention_bound(q, k, v, bias)[:2]
             row("fused_attention", f"{label} q {tuple(q.shape)} nk {k.shape[1]}", err,
@@ -2071,7 +2086,7 @@ def trained_phase(device, s, card: str, loaded):
         f", bf16 head kernel {results['serve (head kernel)']['cider']:.4f}; the JAX package's, "
         f"measured on a TPU at bf16 with its head kernel (BENCH_r05.json): "
         f"{JAX_TPU_TRAINED_CIDER}")
-    cases = trained_kernel_cases(device, captured, n_layers)
+    cases = trained_kernel_cases(device, captured)
     # each kernel path against its eager bf16 twin (beam-resident fast
     # select, or the non-resident eager path); on the card only: the
     # rehearsal's 4 images cannot carry a share (one flip is 25%)
@@ -2121,18 +2136,52 @@ def xe_batches(vocab, loaded, n_batches: int, batch: int):
     raise AssertionError(f"the artifact holds fewer than {n_batches * batch} captions")
 
 
-def gap_of_max_abs(got: dict, want: dict, largest_grad=None) -> tuple:
-    """The largest |got - want| of a leaf over the leaf's max-abs (the key
+def leaf_gaps(got: dict, want: dict, largest_grad=None) -> dict:
+    """{leaf: the largest |got - want| over the leaf's max-abs} (the key
     projections' biases, whose gradient is zero but for rounding, over the
-    largest gradient's): (gap, leaf)."""
-    worst = (0.0, "")
+    largest gradient's)."""
+    gaps = {}
     for name, w in want.items():
         scale = w.abs().max().item()
         if largest_grad is not None and name.endswith("fc_k.bias"):
             scale = largest_grad
-        gap = (got[name].cpu() - w.cpu()).abs().max().item() / max(scale, 1e-30)
-        worst = max(worst, (gap, name))
-    return worst
+        gaps[name] = (got[name].cpu() - w.cpu()).abs().max().item() / max(scale, 1e-30)
+    return gaps
+
+
+def gap_of_max_abs(got: dict, want: dict, largest_grad=None) -> tuple:
+    """The worst of ``leaf_gaps``: (gap, leaf)."""
+    gaps = leaf_gaps(got, want, largest_grad)
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def train_config(s, cuda: bool, loaded):
+    """(the model config as a dict, its state dict): on the card the
+    artifact's config and weights; in the rehearsal the artifact's config
+    at tiny widths and one layer, with random weights."""
+    from openviic_tpu_torch import artifact
+
+    if cuda:
+        return artifact.artifact_config().MODEL.to_dict(), loaded["state_dict"]
+    return artifact.artifact_config(d_model=s["d_model"], heads=s["heads"], layers=1,
+                                    d_ff=s["d_ff"]).MODEL.to_dict(), None
+
+
+def train_model(model_cfg: dict, state, vocab, dev, dropout: float):
+    """The f32 model of ``model_cfg`` with every DROPOUT set to ``dropout``,
+    ``state`` loaded (random weights from seed 0 without it), on ``dev``."""
+    from openviic_tpu_torch.builders import build_model
+    from openviic_tpu_torch.config import ConfigNode
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (dropout if k == "DROPOUT" else walk(v)) for k, v in node.items()}
+        return node
+    model = build_model(ConfigNode(walk(model_cfg)), vocab, device="cpu", seed=0)
+    if state is not None:
+        model.load_state_dict(state)
+    return model.to(dev)
 
 
 def xe_phase(device, s, card: str, loaded):
@@ -2150,36 +2199,18 @@ def xe_phase(device, s, card: str, loaded):
     first), with ms per step (CUDA events) and peak memory; and under
     OPENVIIC_PALLAS=1 the step refuses (the kernel has no backward).  The CPU rehearsal runs it at
     tiny widths on batches of 12."""
-    from openviic_tpu_torch import artifact
-    from openviic_tpu_torch.builders import build_model
-    from openviic_tpu_torch.config import ConfigNode
     from openviic_tpu_torch.training import optim, steps
 
     cuda = device.type == "cuda"
     vocab = loaded["vocab"]
-    if cuda:
-        model_cfg = artifact.artifact_config().MODEL.to_dict()
-        state, batch = loaded["state_dict"], XE_BATCH
-    else:
-        model_cfg = artifact.artifact_config(d_model=s["d_model"], heads=s["heads"], layers=1,
-                                             d_ff=s["d_ff"]).MODEL.to_dict()
-        state, batch = None, 12
+    model_cfg, state = train_config(s, cuda, loaded)
+    batch = XE_BATCH if cuda else 12
     batches = [{k: v.to(device) for k, v in b.items()}
                for b in xe_batches(vocab, loaded, XE_STEPS_PER_CALL, batch)]
     d_model = model_cfg["ENCODER"]["D_MODEL"]
 
-    def model_on(dev, dropout):
-        def walk(node):
-            if isinstance(node, dict):
-                return {k: (dropout if k == "DROPOUT" else walk(v)) for k, v in node.items()}
-            return node
-        model = build_model(ConfigNode(walk(model_cfg)), vocab, device="cpu", seed=0)
-        if state is not None:
-            model.load_state_dict(state)
-        return model.to(dev)
-
     def fresh(dev, dropout=0.0, seed=0):
-        model = model_on(dev, dropout)
+        model = train_model(model_cfg, state, vocab, dev, dropout)
         opt, sched = optim.make_optimizer(model.parameters(), d_model, XE_WARMUP)
         return model, steps.init_xe_state(model, opt, sched, seed=seed)
 
@@ -2295,6 +2326,434 @@ def xe_phase(device, s, card: str, loaded):
                 card_cpu_grad_gap=g_gap[0], multi_rel=multi_rel, accum_rel=a_rel)
 
 
+# ---------------------------------------------------------------- phase 11
+SCST_BATCH = 60  # configs/standard_transformer_using_region.yaml's DICT_BATCH_SIZE
+SCST_BEAM = 5  # configs/tpu/standard_transformer_using_region.yaml's TRAINING_BEAM_SIZE
+SCST_ITERATIONS = 20
+SCST_RL_LR = 5e-6  # the yaml's RL_LEARNING_RATE
+SCST_REWARD_TOL = 1e-5  # the device reward against the host's (tests/test_device_reward.py)
+NATIVE_TOL = 1e-9  # the native scorers against the Python ones (tests/test_native.py)
+# the ReLU inputs (fc1 outputs) that fall on opposite sides of 0 on the
+# card and on its host's CPU: at most this many, each within
+# SCST_PIN_ATOL of the card's value.  The SCST gradient is a sum that
+# cancels over an image's beams, so one such element, differentiated on
+# another branch of the ReLU, moves its fc1 bias by ~1e-2 of the leaf's
+# max-abs and every leaf before it by ~2e-3 on the trained artifact (H100)
+SCST_MAX_PINNED = 32
+SCST_PIN_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def forward_hooks(model, suffix: str, hook_of):
+    """A forward hook ``hook_of(name)`` on each module whose name ends with
+    ``suffix``."""
+    handles = [m.register_forward_hook(hook_of(n)) for n, m in model.named_modules()
+               if n.endswith(suffix)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def input_means(means: dict):
+    """A ``forward_hooks`` hook that keeps each module's input averaged
+    over its rows, in float64 on the host."""
+    def hook_of(name):
+        def hook(mod, args, out):
+            x = args[0].detach()
+            means[name] = x.reshape(-1, x.shape[-1]).double().mean(0).cpu()
+        return hook
+    return hook_of
+
+
+def key_centred(grads: dict, means: dict) -> dict:
+    """``grads`` with each key projection's weight gradient less the outer
+    product of its bias gradient and its input's mean.  That product is 0
+    in exact arithmetic (the softmax's gradient sums to 0 over the keys,
+    so the key bias's gradient does), whatever the mean; in f32 it is the
+    rounding of those sums times the keys' common part: up to 2e-3 of the
+    leaf's max-abs on the trained artifact, on the H100, on its host's CPU
+    and on a float64 step (softmax in f32) alike."""
+    out = dict(grads)
+    for name, mean in means.items():
+        w, b = f"{name}.weight", f"{name}.bias"
+        out[w] = grads[w].double() - torch.outer(grads[b].double(), mean)
+    return out
+
+
+def recorded_fc1(outputs: dict):
+    """A ``forward_hooks`` hook that keeps each output, on the host."""
+    def hook_of(name):
+        def hook(mod, args, out):
+            outputs[name] = out.detach().cpu()
+        return hook
+    return hook_of
+
+
+def pinned_fc1(want: dict, pinned: dict):
+    """A ``forward_hooks`` hook that gives each (FFN fc1) output ``want``'s
+    value where the two lie on opposite sides of 0, so that the ReLU after
+    it takes ``want``'s branch; the gradient passes through as before.
+    Records {module: (elements pinned, their largest |change|)}."""
+    def hook_of(name):
+        def hook(mod, args, out):
+            w = want[name].to(out.device, out.dtype)
+            flip = (out.detach() > 0) != (w > 0)
+            change = torch.where(flip, w - out.detach(), torch.zeros_like(w))
+            pinned[name] = (int(flip.sum()), change.abs().max().item())
+            return out + change
+        return hook
+    return hook_of
+
+
+def f32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of float32 at each |x|."""
+    a = x.float().abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def scst_data(loaded, batch: int, n_batches: int):
+    """The artifact's test split as SCST data: each image's references
+    preprocessed and joined (the dictionary dataset's captions), all of
+    them tokenized as the df corpus (the artifact carries no train split),
+    and ``n_batches`` batches of ``batch`` images, in order, wrapping
+    around: (features, references) each."""
+    from openviic_tpu_torch.data.preprocess import preprocess_caption
+
+    tokens = [[preprocess_caption(r, None) for r in loaded["refs"][i]] for i in loaded["ids"]]
+    corpus = [t for image in tokens for t in image]
+    refs = [[" ".join(t) for t in image] for image in tokens]
+    n = len(refs)
+    batches = []
+    for k in range(n_batches):
+        idx = [(k * batch + j) % n for j in range(batch)]
+        batches.append(({"region_features": torch.from_numpy(loaded["feats"][idx])},
+                        [refs[i] for i in idx]))
+    return corpus, batches
+
+
+def scst_phase(device, s, card: str, loaded):
+    """SCST from the artifact's weights (vocab 7 094, max_len 30) on its 150
+    test images and their references, which also serve, tokenized, as the
+    df corpus (the artifact has no train split), at SCST_BATCH images x
+    SCST_BEAM beams:
+
+    1. one batch's beams sampled once at f32 (dropout 0) and their device
+       reward; the f32 SCST step with the RL Adam on the card against the
+       same step on its host's CPU: the loss within XE_CPU_LOSS_RTOL
+       relative; every gradient leaf within XE_CPU_TOL of its max-abs,
+       the CPU's ReLUs taking the card's branch where the two devices'
+       inputs lie on opposite sides of 0 (at most SCST_MAX_PINNED inputs,
+       each within SCST_PIN_ATOL of the card's) and the key projections'
+       weights compared as ``key_centred`` gives them; every updated parameter within
+       XE_CPU_TOL of its max-abs; the card's update within XE_CPU_TOL of
+       the learning rate (past the last bit of each weight) of the host's
+       Adam applied to the card's gradients;
+    2. the device reward (DeviceCiderFull) on those beams against the host
+       reward through the Python Cider and the native CIDEr, both with the
+       corpus's df (within SCST_REWARD_TOL);
+    3. on the card's host: compute_scores with OPENVIIC_NATIVE=1 and =0 on
+       the best beams' captions (every metric within NATIVE_TOL), and
+       ptb_tokenize_batch against the Python tokenizer (equal); fails when
+       no native library loads, and logs which one did;
+    4. SCST_ITERATIONS iterations of scst_iteration as the tuned config runs
+       them: bf16 sampling through the head kernel's auto gate, the device
+       reward, the f32 step (dropout 0.1) with the RL Adam at SCST_RL_LR:
+       ms per iteration (median of iterations 2 on, CUDA events) split into
+       sample, reward and step, the step's peak memory of its own, head_topk
+       launches per iteration (gated equal to the decode steps, > 0), the
+       bf16 copy refreshed once per update, finite losses, parameters moved,
+       the mean reward of the first and last 5 (not gated);
+    5. dropout-active sampling (SCST_SAMPLE_DROPOUT) with the attention,
+       resident and head kernels requested: one seed twice gives equal
+       tokens, another seed other tokens; the resident step kernel is
+       launched 0 times (train mode bypasses it; without dropout it runs),
+       head_topk once a step and beam_select_attention once a layer and
+       step;
+    6. head_topk on its inputs from the first iteration's sample of 4 and
+       from the first dropout sample of 5, and beam_select_attention on its
+       inputs from that dropout sample, at t = 0, 12 and the last step,
+       each against its plain version under the trained phase's gates.
+
+    The rehearsal runs it at tiny widths, one layer and random weights, on
+    4 images and one iteration, without the head kernel and the launch
+    gates."""
+    import importlib
+
+    from openviic_tpu_torch import native
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.evaluation import Cider, PTBTokenizer, compute_scores
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.training import optim, steps
+    from openviic_tpu_torch.training.trainer import ScstSetup, scst_iteration
+
+    # the module, not the function the package exports under its name
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    vocab = loaded["vocab"]
+    batch, iterations = (SCST_BATCH, SCST_ITERATIONS) if cuda else (4, 1)
+    beam = SCST_BEAM
+    model_cfg, state = train_config(s, cuda, loaded)
+    corpus, batches = scst_data(loaded, batch, iterations)
+    train_gts = {f"{i}": c for i, c in enumerate(corpus)}
+    feats, refs = batches[0]
+    counted = counted_wrappers()
+    n_layers = model_cfg["DECODER"]["LAYERS"]
+    # (the head kernel's plain version, a stable sort over the vocab, costs
+    # the rehearsal 0.5 s a decode: there the trained phase runs it)
+    training = ConfigNode({"RL_LEARNING_RATE": SCST_RL_LR, "TRAINING_BEAM_SIZE": beam,
+                           "DECODE_DTYPE": "bfloat16", "DECODE_HEAD_KERNEL": cuda,
+                           "DEVICE_REWARD": True})
+
+    failures = []  # every case runs; the failures raise at the end
+
+    # 1. the f32 step on the card against its host's CPU, on fixed beams
+    def setup_on(dev):
+        model = train_model(model_cfg, state, vocab, dev, 0.0)
+        return ScstSetup(model, steps.init_xe_state(model, None), corpus, training,
+                         searcher=BeamSearcher(model))
+
+    on_card, on_cpu = setup_on(device), setup_on(torch.device("cpu"))
+    old = {n: p.detach().clone() for n, p in on_cpu.model.named_parameters()}
+    outs, _ = on_card.searcher(feats, beam, out_size=beam)
+    sampled = outs.reshape(batch * beam, -1)
+    scorer = on_card.device_reward
+    reward = scorer.score(sampled, *scorer.encode_refs_on_device(refs), beam_size=beam)
+    card_fc1, pinned, means = {}, {}, {}
+    with forward_hooks(on_card.model, "pwff.fc1", recorded_fc1(card_fc1)):
+        _, card_loss = on_card.step(on_card.state, {k: v.to(device) for k, v in feats.items()},
+                                    sampled, reward.reshape(batch, beam))
+    # the CPU's ReLUs take the card's branch where the two devices' inputs
+    # lie on opposite sides of 0 (each within rounding of 0)
+    with forward_hooks(on_cpu.model, "pwff.fc1", pinned_fc1(card_fc1, pinned)), \
+            forward_hooks(on_cpu.model, "fc_k", input_means(means)):
+        _, cpu_loss = on_cpu.step(on_cpu.state, feats, sampled.cpu(),
+                                  reward.cpu().reshape(batch, beam))
+    del card_fc1
+    n_pinned = sum(n for n, _ in pinned.values())
+    pin_change = max(c for _, c in pinned.values())
+    grads = {name: {n: p.grad.detach().cpu() for n, p in s_.model.named_parameters()}
+             for name, s_ in (("card", on_card), ("cpu", on_cpu))}
+    largest = max(g.abs().max().item() for g in grads["cpu"].values())
+    # (random weights in the rehearsal earn a zero reward, and a zero loss)
+    rel = abs(card_loss.item() - cpu_loss.item()) / max(abs(cpu_loss.item()), 1e-30)
+    raw = leaf_gaps(grads["card"], grads["cpu"], largest)
+    g_gaps = leaf_gaps(key_centred(grads["card"], means), key_centred(grads["cpu"], means),
+                       largest)
+    top = sorted(g_gaps, key=g_gaps.get, reverse=True)[:4]
+    raw_k = max((n for n in raw if n.endswith("fc_k.weight")), key=raw.get)
+    new = {name: {n: p.detach().cpu() for n, p in s_.model.named_parameters()}
+           for name, s_ in (("card", on_card), ("cpu", on_cpu))}
+    p_gap = gap_of_max_abs(new["card"], new["cpu"])
+    # the update: the card's against the host's Adam on the card's gradients
+    # (the same function of the same inputs: within 1e-3 of lr and the last
+    # bit of each stored weight).  Against the CPU's own update it is held
+    # through the gradients: Adam's first step divides by |g| + eps, so a
+    # gradient within the bar may still move a weight by a share of lr
+    replay = [old[n].clone().requires_grad_(True) for n in old]
+    for p, n in zip(replay, old):
+        p.grad = grads["card"][n]
+    optim.make_rl_optimizer(replay, SCST_RL_LR).step()
+    u_gap = max(((new["card"][n] - p.detach()).abs() - f32_ulp(p.detach())).clamp(min=0).max()
+                .item() for n, p in zip(old, replay)) / SCST_RL_LR
+    ended = float((sampled[:, :-1] == vocab.eos_idx).any(dim=1).float().mean())
+    log(f"  SCST f32 step ({batch} images x {beam} beams sampled at f32, {ended:.3f} of them "
+        f"ended before the last step), card against its host's CPU: loss "
+        f"{card_loss.item():.8f} / {cpu_loss.item():.8f} (relative {rel:.2e}); {n_pinned} "
+        f"ReLU inputs on opposite sides of 0 on the two devices, given the card's value on "
+        f"the CPU (change at most {pin_change:.2e}; per FFN {pinned}); gradients within "
+        f"{g_gaps[top[0]]:.2e} of their max-abs, the widest leaves "
+        + ", ".join(f"{n} {g_gaps[n]:.2e}" for n in top)
+        + f" (the {len(means)} key projections' weights less their bias gradient times "
+        f"their input's mean; as they are, the widest {raw_k} {raw[raw_k]:.2e})"
+        + f"; updated parameters within {p_gap[0]:.2e} of their max-abs; the card's update "
+        f"against the host's Adam on the card's gradients within {u_gap:.2e} of lr past the "
+        f"last bit")
+    bad_grads = {n: g for n, g in g_gaps.items() if g > XE_CPU_TOL}
+    if (rel > XE_CPU_LOSS_RTOL or bad_grads or n_pinned > SCST_MAX_PINNED
+            or pin_change > SCST_PIN_ATOL or p_gap[0] > XE_CPU_TOL or u_gap > XE_CPU_TOL):
+        failures.append(f"SCST card against CPU: loss {rel:.2e} > {XE_CPU_LOSS_RTOL}, or "
+                        f"gradient leaves {bad_grads} > {XE_CPU_TOL}, or {n_pinned} ReLU "
+                        f"inputs pinned > {SCST_MAX_PINNED} or changed by {pin_change:.2e} > "
+                        f"{SCST_PIN_ATOL}, or parameters {p_gap} > {XE_CPU_TOL}, or the "
+                        f"update {u_gap:.2e} > {XE_CPU_TOL} of lr")
+    del replay, old, new
+
+    # 2. the device reward against the host's (Python, then native CIDEr)
+    if not native.available():
+        raise AssertionError("no native scorer library loads (committed or built from source)")
+    hosts = {"Python Cider": Cider(train_gts), "native CIDEr": native.NativeCider(gts=train_gts)}
+    reward_gaps = {}
+    for name, cider in hosts.items():
+        on_card.train_cider = cider
+        want = torch.from_numpy(on_card.host_reward(sampled, refs))
+        reward_gaps[name] = (reward.cpu() - want).abs().max().item()
+    log(f"  SCST device reward on {card} (mean {reward.mean().item():.5f}) against "
+        f"the host reward: " + ", ".join(f"{k} {v:.2e}" for k, v in reward_gaps.items())
+        + " (the df corpus is the artifact's test references: it carries no train split)")
+    if max(reward_gaps.values()) > SCST_REWARD_TOL:
+        failures.append(f"SCST device reward: {reward_gaps} > {SCST_REWARD_TOL}")
+    del on_card, on_cpu, hosts
+
+    # 3. the native scorers on the card's host
+    best = {f"{i}": [c] for i, c in enumerate(vocab.decode_caption(
+        sampled[::beam].cpu().numpy()))}
+    gts = {f"{i}": r for i, r in enumerate(refs)}
+    scores = {}
+    for flag in ("1", "0"):
+        with env_flag("OPENVIIC_NATIVE", flag):
+            scores[flag] = compute_scores(gts, best)
+    native_gap = max(float(np.max(np.abs(np.asarray(scores["1"][j][k], np.float64)
+                                         - np.asarray(scores["0"][j][k], np.float64))))
+                     for j in range(2) for k in scores["0"][0])
+    lines = [r for image in refs for r in image] + list(loaded["refs"][loaded["ids"][0]])
+    py_tok = PTBTokenizer().tokenize({i: [line] for i, line in enumerate(lines)})
+    ptb_equal = native.ptb_tokenize_batch(lines) == [py_tok[i][0] for i in range(len(lines))]
+    log(f"  native scorers on the card's host ({native.library_path()}): compute_scores with "
+        f"OPENVIIC_NATIVE=1 against =0 on {len(best)} captions, largest gap {native_gap:.2e} "
+        f"(CIDEr {scores['1'][0]['CIDEr']:.5f}, METEOR {scores['1'][0]['METEOR']:.5f}); PTB "
+        f"on {len(lines)} lines equal to the Python tokenizer: {ptb_equal}")
+    if native_gap > NATIVE_TOL or not ptb_equal:
+        failures.append(f"native scorers: gap {native_gap:.2e} > {NATIVE_TOL}, or PTB "
+                        f"differs ({ptb_equal})")
+
+    # 4. the SCST run, as the tuned config runs it
+    if cuda:
+        gc.collect()
+        sync(device)
+    model = train_model(model_cfg, state, vocab, device, 0.1)
+    setup = ScstSetup(model, steps.init_xe_state(model, None, seed=0), corpus, training)
+    before = [p.detach().clone() for p in model.parameters()]
+    events, peaks, launches, n_steps, losses, rewards = [], [], [], [], [], []
+
+    def marks(stage):
+        if cuda:
+            events[-1][stage] = torch.cuda.Event(enable_timing=True)
+            events[-1][stage].record()
+            if stage == "reward":  # the step's memory of its own, from here
+                sync(device)
+                peaks.append(torch.cuda.memory_allocated(device))
+                torch.cuda.reset_peak_memory_stats(device)
+            elif stage == "step":
+                sync(device)
+                peaks[-1] = torch.cuda.max_memory_allocated(device) - peaks[-1]
+
+    captured = {}  # the head kernel's inputs in the first iteration's sample
+    for k in range(iterations):
+        for fn in counted:
+            fn.launches = 0
+        steps0 = setup.searcher.steps
+        if cuda:
+            events.append({"start": torch.cuda.Event(enable_timing=True)})
+            events[-1]["start"].record()
+        with (capture_calls(beam_search_module, "head_topk", 1) if cuda and k == 0
+              else contextlib.nullcontext()) as kept:
+            loss, mean_reward = scst_iteration(setup, *batches[k], marks=marks)
+        if kept is not None:
+            captured["SCST sample"] = {"head_topk": kept}
+        losses.append(loss.item())
+        rewards.append(mean_reward.item())
+        n_steps.append(setup.searcher.steps - steps0)
+        launches.append({fn.__name__: fn.launches for fn in counted if fn.launches})
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(model.parameters(), before))
+    first5, last5 = float(np.mean(rewards[:5])), float(np.mean(rewards[-5:]))
+    log(f"  SCST run, {iterations} iterations of {batch} images x {beam} beams (bf16 sampling, "
+        f"head kernel by the auto gate: {setup.searcher.effective_head_kernel(feats, beam)}, "
+        f"device reward, f32 step with dropout 0.1, RL Adam at {SCST_RL_LR}): losses "
+        f"{[round(x, 5) for x in losses]}; mean reward of the first 5 {first5:.5f}, of the last "
+        f"5 {last5:.5f}; parameters moved by up to {moved:.3e}; the bf16 copy cast "
+        f"{setup.searcher.shadow.casts} times; decode steps {n_steps}")
+    # (a zero advantage, as random weights earn in the rehearsal, moves nothing)
+    if not np.isfinite(losses).all() or (any(losses) and not moved > 0):
+        failures.append("SCST run: a loss is not finite, or the parameters did not move")
+    if setup.searcher.shadow.casts != iterations:
+        failures.append(f"SCST run: the bf16 copy was cast {setup.searcher.shadow.casts} "
+                        f"times over {iterations} updates")
+    result = dict(losses=losses, rewards=rewards, card_cpu_loss_rel=rel,
+                  card_cpu_grad_gap=g_gaps[top[0]], pinned_relu_inputs=n_pinned,
+                  card_cpu_update_gap=u_gap, reward_gaps=reward_gaps, native_gap=native_gap,
+                  steps_per_iteration=n_steps)
+    if cuda:
+        want = [{"head_topk": n} for n in n_steps]
+        if launches != want or min(n_steps) <= 0:
+            failures.append(f"SCST run: launches {launches}, expected {want}")
+        spans = {"sample": ("start", "sample"), "reward": ("sample", "reward"),
+                 "step": ("reward", "step"), "iteration": ("start", "step")}
+        ms = {k: float(np.median([e[a].elapsed_time(e[b]) for e in events[1:]]))
+              for k, (a, b) in spans.items()}
+        peak = max(peaks) / 2**30
+        log(f"  SCST iteration on {card}: {ms['iteration']:.3f} ms (median of iterations "
+            f"2-{iterations}, CUDA events): sample {ms['sample']:.3f}, reward "
+            f"{ms['reward']:.3f}, step {ms['step']:.3f}; the step's peak memory of its own "
+            f"{peak:.3f} GiB; head_topk {n_steps[-1]} launches in the last iteration "
+            f"({np.mean(n_steps):.1f} a mean iteration, one per decode step)")
+        result.update(ms_per_iteration=ms["iteration"], sample_ms=ms["sample"],
+                      reward_ms=ms["reward"], step_ms=ms["step"], step_peak_gib=peak,
+                      head_topk_launches_per_iteration=float(np.mean(n_steps)),
+                      head_topk_launches=int(sum(n_steps)))
+    del setup, before
+
+    # 5. dropout-active sampling with every step kernel requested
+    def sample(searcher, seed):
+        for fn in counted:
+            fn.launches = 0
+        steps0 = searcher.steps
+        out, lp = searcher(feats, beam, out_size=beam, dropout_rng=seed)
+        return out, lp, searcher.steps - steps0, {fn.__name__: fn.launches for fn in counted
+                                                  if fn.launches}
+
+    every = BeamSearcher(model, torch.bfloat16, head_kernel=cuda, attn_kernel=True,
+                         resident_kernel=True)
+    with contextlib.ExitStack() as stack:  # the first sample's kernel inputs
+        kept = {"beam_select_attention": stack.enter_context(capture_calls(
+            attention_module, "beam_select_attention", n_layers))}
+        if cuda:
+            kept["head_topk"] = stack.enter_context(capture_calls(
+                beam_search_module, "head_topk", 1))
+        a, lp_a, steps_a, count_a = sample(every, 1)
+    captured["SCST dropout sample"] = kept
+    b, lp_b, _, _ = sample(every, 1)
+    c, lp_c, _, _ = sample(every, 2)
+    same = bool(torch.equal(a, b) and torch.equal(lp_a, lp_b))
+    differ = float((a != c).any(dim=-1).float().mean())
+    log(f"  SCST dropout sampling (head, attention and resident kernels requested): seed 1 "
+        f"twice equal {same}; seed 2 changes {differ:.3f} of the beams; launches over "
+        f"{steps_a} steps {count_a}")
+    if not same or differ == 0:
+        failures.append("SCST dropout sampling: not reproducible per seed, or not seeded")
+    if cuda:  # the launches (the rehearsal counts none)
+        resident = BeamSearcher(model, torch.bfloat16, head_kernel=True, resident_kernel=True)
+        _, _, steps_r, count_r = sample(resident, 1)
+        _, _, steps_e, count_e = sample(resident, None)  # eval mode: the resident kernel runs
+        log(f"  SCST sampling with the resident kernel alone: with dropout, over {steps_r} "
+            f"steps {count_r}; without, over {steps_e} steps {count_e}")
+        want_a = {"head_topk": steps_a, "beam_select_attention": n_layers * steps_a}
+        want_r = {"head_topk": steps_r}
+        want_e = {"head_topk": steps_e, "resident_layer_step": n_layers * steps_e}
+        if count_a != want_a or count_r != want_r or count_e != want_e:
+            failures.append(f"SCST dropout sampling launches: {count_a}, {count_r}, "
+                            f"{count_e}, expected {want_a}, {want_r}, {want_e}")
+        result.update(dropout_launches=count_a, dropout_steps=steps_a)
+
+    # 6. each kernel of the SCST path on its inputs from the samples above,
+    # at t = 0, 12 and the last step, against its plain version
+    result["kernels"] = {}
+    for what, kept in captured.items():
+        try:
+            cases = trained_kernel_cases(device, kept, what)
+        except AssertionError as exc:
+            failures.append(f"{what}: {exc}")
+            continue
+        for kernel, rows in cases.items():
+            result["kernels"].setdefault(kernel, []).extend(
+                dict(r, case=f"{what} {r['case']}") for r in rows)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2399,7 +2858,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-10 at tiny widths on the CPU")
+                        help="rehearse phases 3-11 at tiny widths on the CPU")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -2450,7 +2909,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-10.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-11.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -2475,15 +2934,23 @@ def all_phases(device, s, card: str):
     loaded = timed("load the trained artifact", lambda: load_trained_artifact(device="cpu"))
     try:
         trained = timed("trained artifact decode", lambda: trained_phase(device, s, card, loaded))
-    finally:  # XE runs whatever the decode gave; a failure of either raises
-        xe = timed("XE training", lambda: xe_phase(device, s, card, loaded))
+    finally:  # XE and SCST run whatever the decode gave; a failure of any raises
+        try:
+            xe = timed("XE training", lambda: xe_phase(device, s, card, loaded))
+        finally:
+            scst = timed("SCST", lambda: scst_phase(device, s, card, loaded))
     if device.type != "cuda":
         return []
+    scst_cases = scst.pop("kernels")
     for e in found:
         e["trained"] = trained["kernels"].get(e["name"], [])
+        e["scst_cases"] = scst_cases.get(e["name"], [])
     found[0]["xe"] = xe
+    found[0]["scst"] = scst
     found[0]["trained_paths"] = trained["paths"]
     found[1].update(paths["beam_select_captured"])
+    found[1]["scst"] = dict(dropout_launches=scst["dropout_launches"]["beam_select_attention"],
+                            dropout_steps=scst["dropout_steps"])
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -28,8 +28,14 @@ returns its pre-head hidden state and ``ops.head_topk`` computes head, lse
 and per-row top-k in one kernel), and, on the non-resident path (the JAX
 default), full log-softmax distributions through ``_select_topk`` with the
 caches reordered physically every step.  Selection math is float32
-whatever the compute dtype.  ``return_probs``, ``beam_search_multi`` and
-dropout-active sampling are not ported."""
+whatever the compute dtype.
+
+Dropout-active sampling (SCST's ``TRAINING.SCST_SAMPLE_DROPOUT``, the JAX
+``train_dropout_rng``) runs the encoder and every step in train mode, each
+on a stream of its own derived from one seed; the whole-layer step kernels
+bypass themselves there, as in the JAX package.  Otherwise the decode runs
+in eval mode whatever the model's mode.  ``return_probs`` and
+``beam_search_multi`` are not ported."""
 
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import Dict, Optional
 
 import torch
 
+from openviic_tpu_torch import rng
 from openviic_tpu_torch.models.base import make_decode_cache
 from openviic_tpu_torch.ops.head_topk import head_topk
 
@@ -183,11 +190,90 @@ def _supports_beam_resident(model) -> bool:
     )
 
 
+class ComputeShadow:
+    """A model's copy in a compute dtype (e.g. bf16) for decoding, kept in
+    step with the master.
+
+    Calling it with the master returns the copy, refreshed in place
+    (``copy_`` of every parameter and buffer) only when a master tensor
+    changed since the last call, by ``(data_ptr, _version)``: an optimizer
+    step or ``load_state_dict`` bumps the version counter, so sampling after
+    an update never reads the old weights.  An update that bypasses the
+    counter (``torch.optim``'s ``fused=True`` kernels) is not seen.  The
+    copy is rebuilt when the master is replaced, moved or reshaped.
+    ``casts`` counts the rebuilds and refreshes.  The copy's fused weight
+    pack (``DecoderLayer.fused_weights``) follows its parameters."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.model = None
+        self.casts = 0
+        self._master = None
+        self._key = None
+
+    def __call__(self, master: torch.nn.Module) -> torch.nn.Module:
+        tensors = [*master.parameters(), *master.buffers()]
+        key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
+        if self._master is master and key == self._key:
+            return self.model
+        copies = ([*self.model.parameters(), *self.model.buffers()]
+                  if self._master is master else [])
+        if len(copies) == len(tensors) and all(
+                c.device == t.device and c.shape == t.shape for c, t in zip(copies, tensors)):
+            with torch.no_grad():
+                for c, t in zip(copies, tensors):
+                    c.copy_(t)
+        else:
+            model = copy.deepcopy(master)
+            for p in model.parameters():
+                p.grad = None
+            self.model = model.to(self.dtype).requires_grad_(False)
+        self._master, self._key = master, key
+        self.casts += 1
+        return self.model
+
+
+def _running_model(model, compute_dtype, shadow: Optional[ComputeShadow]):
+    """The model the decode runs: ``model`` itself when it holds the
+    compute dtype, else its shadow in that dtype (a one-off copy without a
+    ``shadow`` to keep)."""
+    dtype = next(model.parameters()).dtype
+    if compute_dtype is None or compute_dtype == dtype:
+        return model
+    return (shadow or ComputeShadow(compute_dtype))(model)
+
+
 @torch.no_grad()
 def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                  out_size: int, early_exit: bool, compute_dtype, beam_resident: bool,
-                 head_kernel, attn_kernel: bool, resident_kernel: bool):
-    """``beam_search`` that also returns the number of decode steps run."""
+                 head_kernel, attn_kernel: bool, resident_kernel: bool,
+                 dropout_seed: Optional[int] = None, shadow: Optional[ComputeShadow] = None):
+    """``beam_search`` that also returns the number of decode steps run; it
+    decodes ``_running_model(model, compute_dtype, shadow)``.  With
+    ``dropout_seed`` that model runs in train mode, the encoder on the
+    stream ``fold_in(seed, max_len)`` and step t on ``fold_in(seed, t)``
+    (the JAX package's folds), inside a fork of the CPU and the device's
+    RNG; its mode is restored after."""
+    model = _running_model(model, compute_dtype, shadow)
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.train(dropout_seed is not None)
+    try:
+        if dropout_seed is None:
+            return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
+                           head_kernel, attn_kernel, resident_kernel, None)
+        with rng.fork(device):
+            return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
+                           head_kernel, attn_kernel, resident_kernel,
+                           lambda i: rng.reseed(rng.fold_in(dropout_seed, i), device))
+    finally:
+        model.train(was_training)
+
+
+def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_kernel,
+            attn_kernel, resident_kernel, stream):
+    """The decode loop; ``stream(i)`` (when given) seeds the dropout of the
+    encoder (i = max_len) and of step i."""
     if resident_kernel or head_kernel or attn_kernel:
         beam_resident = True  # the kernels implement the beam-resident math
     if beam_resident and not _supports_beam_resident(model):
@@ -196,10 +282,6 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
         raise ValueError(f"out_size {out_size} must lie in [1, beam_size={beam_size}]")
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
-    if compute_dtype is not None and compute_dtype != dtype:
-        # the network runs in compute_dtype; the caller's model is left as is
-        model = copy.deepcopy(model).to(compute_dtype)
-        dtype = compute_dtype
     # every floating input runs in the compute dtype, as in the JAX package
     # (beam_search.py:317-321): the ORT's pixel boxes round to bf16 too
     batch = {
@@ -214,6 +296,8 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
 
     # 1) encode once at batch size; beam-resident decode keeps the cross
     # K/V at image granularity, the default path expands them to beams
+    if stream is not None:
+        stream(max_len)  # never a step's index
     memory, memory_mask = model.encoder_forward(batch)
     b_s = memory.shape[0]
     if not beam_resident:
@@ -244,6 +328,8 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
         if beam_resident:
             # position t of every current beam lives at its own slot
             ancestry[:, :, t] = own_slot
+        if stream is not None:
+            stream(t)
         head, cache = model.decode_step(
             t, selected_words, cache, memory_mask, ancestry=ancestry,
             beam_select=beam_size if beam_resident else None,
@@ -326,15 +412,20 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                 out_size: int = 1, early_exit: bool = True,
                 compute_dtype: Optional[torch.dtype] = None,
                 beam_resident: bool = True, head_kernel=False,
-                attn_kernel: bool = False, resident_kernel: bool = False):
+                attn_kernel: bool = False, resident_kernel: bool = False,
+                train_dropout_rng=None):
     """Run batched beam search; returns (outputs, log_probs).
 
     outputs: (bs, out_size, max_len) int64 token ids, log_probs: the
     per-step word log-probs (f32) likewise, both squeezed to (bs, max_len)
     when ``out_size == 1``.  ``batch`` holds the model's input features;
     they move to the model's device.  ``compute_dtype`` (e.g.
-    ``torch.bfloat16``) runs the network in that dtype (a converted copy if
-    the model holds another); selection stays f32.
+    ``torch.bfloat16``) runs the network in that dtype (a converted copy,
+    made for this call, if the model holds another: ``BeamSearcher`` keeps
+    its copy across calls); selection stays f32.  ``train_dropout_rng`` (an
+    int seed, or a ``torch.Generator`` that gives one draw) samples with
+    dropout active, reproducibly from it; the global RNG state is left as
+    it was.
 
     The flags keep the JAX package's names and precedence.
     ``beam_resident=False`` is the JAX default path (caches reordered every
@@ -351,9 +442,10 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     ``OPENVIIC_FUSED_STEP=1`` runs each layer of the non-resident path
     through ops/fused_decoder_step.py.  Each kernel runs its plain version
     on the CPU and the CUDA kernel on a card."""
+    seed = None if train_dropout_rng is None else rng.seed_of(train_dropout_rng)
     outputs, log_probs, _ = _beam_search(
         model, batch, beam_size, out_size, early_exit, compute_dtype, beam_resident,
-        head_kernel, attn_kernel, resident_kernel,
+        head_kernel, attn_kernel, resident_kernel, seed,
     )
     return outputs, log_probs
 
@@ -387,7 +479,11 @@ class BeamSearcher:
     ``_head_kernel_wins`` (the port's own H100 thresholds); an int that is
     not a bool forces the kernel (in the JAX package it is the kernel's
     row-block size; the port's kernel chooses its own tiling, so only its
-    truth counts); ``False`` never launches it."""
+    truth counts); ``False`` never launches it.
+
+    With a ``compute_dtype`` other than the model's, the searcher decodes a
+    ``ComputeShadow`` of the model, cast once and refreshed only after the
+    model's weights change (``shadow.casts`` counts both)."""
 
     def __init__(self, model, compute_dtype=None, beam_resident: bool = True,
                  head_kernel=False, attn_kernel: bool = False,
@@ -399,6 +495,7 @@ class BeamSearcher:
         self.attn_kernel = bool(attn_kernel)
         self.resident_kernel = bool(resident_kernel)
         self.steps = 0
+        self.shadow = ComputeShadow(compute_dtype) if compute_dtype is not None else None
 
     def effective_head_kernel(self, batch, beam_size: int) -> bool:
         """Whether this call runs the head kernel (the JAX
@@ -408,11 +505,19 @@ class BeamSearcher:
             return _head_kernel_wins(b_s, beam_size)
         return bool(self.head_kernel)
 
-    def __call__(self, batch, beam_size: int, out_size: int = 1):
+    def __call__(self, batch, beam_size: int, out_size: int = 1, dropout_rng=None,
+                 language_table=None):
+        """Decode ``batch``; returns (outputs, log_probs) as ``beam_search``.
+        ``dropout_rng`` (an int seed or a ``torch.Generator``) samples with
+        dropout active (the JAX ``dropout_rng``).  ``language_table`` serves
+        the adaptive decoder, which is not ported."""
+        if language_table is not None:
+            raise NotImplementedError("language_table serves AdaptiveDecoder, not ported yet")
+        seed = None if dropout_rng is None else rng.seed_of(dropout_rng)
         outputs, log_probs, steps = _beam_search(
             self.model, batch, beam_size, out_size, True, self.compute_dtype,
             self.beam_resident, self.effective_head_kernel(batch, beam_size),
-            self.attn_kernel, self.resident_kernel,
+            self.attn_kernel, self.resident_kernel, seed, self.shadow,
         )
         self.steps += steps
         return outputs, log_probs

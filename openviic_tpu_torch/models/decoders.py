@@ -69,13 +69,18 @@ class DecoderLayer(nn.Module):
         and no option but ``beam_select``/``mask_axis`` the whole step runs
         as ``ops.resident_layer_step``; with ``OPENVIIC_FUSED_STEP=1``, no
         option and no ancestry, as ``ops.fused_layer_step``.  The self K/V
-        cache is updated in place either way."""
-        if resident_kernel and self._can_resident_step(kwargs, ancestry, is_pad_t):
+        cache is updated in place either way.  In train mode (dropout-active
+        sampling) neither whole-layer kernel runs, since neither implements
+        dropout (the JAX package's gate, ``decoders.py:83-98``); the
+        beam-select attention kernel still does, as dropout acts after the
+        attention."""
+        if (not self.training and resident_kernel
+                and self._can_resident_step(kwargs, ancestry, is_pad_t)):
             return self._resident_step(
                 queries, layer_cache, decode_index, self_attention_mask,
                 enc_attention_mask, ancestry, is_pad_t,
             )
-        if self._can_fuse_step(kwargs, ancestry):
+        if not self.training and self._can_fuse_step(kwargs, ancestry):
             return self._fused_step(
                 queries, layer_cache, decode_index, self_attention_mask, enc_attention_mask,
             )

@@ -1,3 +1,4 @@
-"""Training: the XE half of ``openviic_tpu/training`` (optimizer, schedule,
-losses and the XE / eval steps).  SCST, the device reward, checkpoints and
-the trainer lifecycle are not ported yet."""
+"""Training (the port's counterpart of ``openviic_tpu/training``): the
+optimizer and schedule, the XE, SCST and eval steps, the on-device CIDEr
+reward, and the trainer's SCST pieces.  Checkpoints and the trainer
+lifecycle are not ported yet."""

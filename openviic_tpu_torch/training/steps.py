@@ -1,14 +1,14 @@
-"""XE training and evaluation steps (the XE half of
-``openviic_tpu/training/steps.py``).
+"""XE and SCST training steps and the evaluation step (the port's
+counterpart of ``openviic_tpu/training/steps.py``).
 
 The step state is a dict: ``params`` (the model's f32 master parameters by
 name), ``optimizer``, ``scheduler`` (or None), ``step`` and ``generator``,
 an explicit ``torch.Generator`` that draws each update's dropout seed.
-The forward and backward run under ``torch.random.fork_rng`` seeded from
-it, so a run is reproducible from its seed and its state, and the global
-RNG is left as it was.  Dropout is on inside the step (``model.train()``)
-and the model's mode is restored after it.  After a step each parameter's
-``.grad`` holds that update's gradient.
+The forward and backward run under a fork of the global RNG seeded from
+it (``rng.fork``), so a run is reproducible from its seed and its state,
+and the global RNG is left as it was.  Dropout is on inside the step
+(``model.train()``) and the model's mode is restored after it.  After a
+step each parameter's ``.grad`` holds that update's gradient.
 
 Mixed precision follows the JAX package, not ``torch.autocast``: the model
 runs through ``torch.func.functional_call`` on bf16 casts of the master
@@ -20,6 +20,8 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+
+from openviic_tpu_torch import rng
 
 Batch = Dict[str, torch.Tensor]
 
@@ -81,6 +83,30 @@ def _cast_floating(batch: Batch, dtype) -> Batch:
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
 
 
+def _train_update(model, state: dict, backward):
+    """One update of ``state``: ``backward()`` (which fills the gradients
+    and returns the loss) in train mode on the dropout stream drawn from
+    the state's generator, then the optimizer's (and scheduler's) step.
+    Returns (state, the loss detached)."""
+    seed = rng.draw_seed(state["generator"])
+    device = next(model.parameters()).device
+    was_training = model.training
+    optimizer = state["optimizer"]
+    optimizer.zero_grad(set_to_none=True)
+    model.train()
+    try:
+        with rng.fork(device):
+            rng.reseed(seed, device)
+            loss = backward()
+    finally:
+        model.train(was_training)
+    optimizer.step()
+    if state.get("scheduler") is not None:
+        state["scheduler"].step()
+    state["step"] += 1
+    return state, loss.detach()
+
+
 def make_xe_step(model, label_smoothing: float = 0.0, mixed_precision: bool = False,
                  grad_accum: int = 1):
     """(state, batch) -> (state, loss): one XE update of ``model``.
@@ -112,42 +138,29 @@ def make_xe_step(model, label_smoothing: float = 0.0, mixed_precision: bool = Fa
         return mean * count, count
 
     def update(state: dict, batch: Batch):
-        seed = int(torch.randint(0, 2**62, (1,), generator=state["generator"]))
-        device = next(model.parameters()).device
-        was_training = model.training
-        optimizer = state["optimizer"]
-        optimizer.zero_grad(set_to_none=True)
-        model.train()
-        try:
-            with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-                torch.manual_seed(seed)
-                if grad_accum <= 1:
-                    total, count = loss_terms(batch)
-                    loss = total / count
-                    loss.backward()
-                else:
-                    micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
-                    if any(len(v) != grad_accum or v[0].shape != v[-1].shape
-                           for v in micro.values()):
-                        raise ValueError(f"grad_accum {grad_accum} must divide the batch")
-                    total, count = 0.0, 0
-                    for i in range(grad_accum):
-                        mb_total, mb_count = loss_terms({k: v[i] for k, v in micro.items()})
-                        mb_total.backward()
-                        total, count = total + mb_total.detach(), count + mb_count
-                    # grads of (mean * count) summed over the total count
-                    # equal the full batch's gradient
-                    for p in model.parameters():
-                        if p.grad is not None:
-                            p.grad.div_(count)
-                    loss = total / count
-        finally:
-            model.train(was_training)
-        optimizer.step()
-        if state["scheduler"] is not None:
-            state["scheduler"].step()
-        state["step"] += 1
-        return state, loss.detach()
+        def backward():
+            if grad_accum <= 1:
+                total, count = loss_terms(batch)
+                loss = total / count
+                loss.backward()
+                return loss
+            micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
+            if any(len(v) != grad_accum or v[0].shape != v[-1].shape
+                   for v in micro.values()):
+                raise ValueError(f"grad_accum {grad_accum} must divide the batch")
+            total, count = 0.0, 0
+            for i in range(grad_accum):
+                mb_total, mb_count = loss_terms({k: v[i] for k, v in micro.items()})
+                mb_total.backward()
+                total, count = total + mb_total.detach(), count + mb_count
+            # grads of (mean * count) summed over the total count equal the
+            # full batch's gradient
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(count)
+            return total / count
+
+        return _train_update(model, state, backward)
 
     return update
 
@@ -181,3 +194,61 @@ def make_eval_loss_step(model):
         return nll_loss(out, batch["shifted_right_caption_tokens"], model.vocab.padding_idx)
 
     return eval_step
+
+
+def scst_log_probs(model, batch: Batch, sampled: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced log-probs (f32) of sampled captions, zeroed strictly
+    after the first <eos> (the eos step keeps its own), as
+    ``openviic_tpu/training/steps.py::scst_log_probs``.
+
+    ``sampled``: (bs * beam, L) words the beam search emitted, step t's word
+    in column t; ``batch`` holds the features already expanded to bs * beam
+    rows.  The decoder's input at position t is the word emitted at t - 1
+    (<bos> at t = 0), the order the decode fed them.  The pick is fused:
+    ``logits[word] - lse(logits)``, without a log-softmax tensor, with the
+    max shift detached and both terms upcast to f32 (f64 logits stay f64)
+    before the subtraction (as ``fused_nll``).  The model runs in its
+    current mode."""
+    vocab = model.vocab
+    sampled = sampled.long()
+    bos = torch.full((sampled.shape[0], 1), vocab.bos_idx, dtype=torch.long,
+                     device=sampled.device)
+    inputs = torch.cat([bos, sampled[:, :-1]], dim=1)
+    logits = model(dict(batch, caption_tokens=inputs), raw_logits=True)
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    m = logits.detach().amax(dim=-1, keepdim=True).to(acc)
+    lse = m[..., 0] + torch.log(torch.exp(logits.to(acc) - m).sum(dim=-1))
+    picked = torch.gather(logits, 2, sampled[..., None])[..., 0].to(acc) - lse
+    is_eos = (sampled == vocab.eos_idx).int()
+    alive = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+    return picked * alive
+
+
+def make_scst_grad_step(model, beam_size: int):
+    """(state, batch, sampled, reward) -> (state, loss): one SCST update of
+    ``model`` (``openviic_tpu/training/steps.py::make_scst_grad_step``),
+    with the optimizer in the state (``make_rl_optimizer``).
+
+    ``batch`` is the unexpanded (bs, ...) feature batch: it is repeated
+    ``beam_size`` times along dim 0 inside the step, so the encoder runs on
+    bs * beam rows and, with dropout on, each row draws its own masks.
+    ``sampled`` (bs * beam, L) and ``reward`` (bs, beam).  The loss is
+    ``-(mean over L of the log-probs) * (reward - mean over beams of
+    reward)``, averaged: the mean runs over the full length, zeroed tail
+    included, as the reference's.  The step runs in f32 with dropout on,
+    from the state's generator."""
+
+    def update(state: dict, batch: Batch, sampled: torch.Tensor, reward: torch.Tensor):
+        bs = reward.shape[0]
+
+        def backward():
+            rows = {k: v.repeat_interleave(beam_size, dim=0) for k, v in batch.items()}
+            lp = scst_log_probs(model, rows, sampled).reshape(bs, beam_size, -1)
+            baseline = reward.mean(dim=-1, keepdim=True)
+            loss = (-lp.mean(dim=-1) * (reward - baseline)).mean()
+            loss.backward()
+            return loss
+
+        return _train_update(model, state, backward)
+
+    return update

@@ -82,12 +82,14 @@ def test_port_modules_never_import_the_jax_stack():
     assert not offenders, offenders
 
 
-# the trained-artifact decode, the scorers and XE training
+# the trained-artifact decode, the scorers, XE training, the native
+# scorers' binding and SCST
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
     "evaluation/ngram", "evaluation/porter", "evaluation/ptb_tokenizer", "evaluation/rouge",
-    "training/__init__", "training/optim", "training/steps",
+    "training/__init__", "training/optim", "training/steps", "native/__init__", "rng",
+    "training/device_reward", "training/trainer",
 )
 
 _IMPORT_ALL = """
