@@ -109,16 +109,31 @@ On the card it runs these phases, each printing its seconds:
    reward, f32 step; ms split into sample, reward and step, the step's
    peak memory, head_topk launches per decode step), and dropout-active
    sampling (seeded, and the resident step kernel bypassed);
-12. the last line: ``{"ok": true, "device": {...}}``.
+12. the trainer: ``BaseTrainer`` on the artifact's 150 images written as
+   a dataset (90 / 30 / 30 train, dev, test by id) with its vocab and
+   weights, the tuned config's TRAINING keys and PATIENCE 0: a run of 3
+   epochs (XE, the switch, SCST) and its test predictions, with each
+   epoch's seconds, the checkpoint's size and seconds, the launches of
+   head_topk (one a decode step) and beam_select_attention (one a layer
+   and step), the bf16 guard; a mid-SCST checkpoint into a fresh
+   trainer; a run resumed after its first epoch equal to the first run
+   bit for bit under deterministic algorithms (in a child process whose
+   CUDA starts with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), and a second
+   pair at LOG_EVERY 1, resumed mid-SCST, whose metrics rows match too;
+   head_topk and beam_select_attention on their inputs from the first
+   val decode, the first test prediction and the second SCST iteration,
+   against their plain versions;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound); the line before
 that is the card's name and power limit.  Any failure raises, and the
-script exits non-zero without those lines.  ``--cpu`` runs phases 3-11 at
-tiny widths with the plain versions on the CPU (the artifact's first 4
-images; XE and SCST at tiny widths) and ends with ``cpu rehearsal ok``
-instead.  The
-script writes nothing outside ``openviic_tpu_torch/_build/``.
+script exits non-zero without those lines.  ``--cpu`` runs phases 3-12 at
+tiny widths with the plain versions on the CPU (the artifact's first 2
+images; XE, SCST and the trainer at tiny widths) and ends with ``cpu
+rehearsal ok`` instead.  The script writes nothing outside
+``openviic_tpu_torch/_build/`` but the trainer phase's temporary
+directory, which it deletes.
 """
 
 from __future__ import annotations
@@ -131,6 +146,7 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import logging  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -1930,7 +1946,7 @@ def trained_phase(device, s, card: str, loaded):
     TRAINED_AGREEMENT_MIN, the bar the JAX package's own paths meet.  Each
     kernel is then held against its plain version on its own inputs
     captured at t = 0, 12 and 29 (the last step run, where the decode ends
-    earlier) and timed.  The CPU rehearsal decodes the first 4 images."""
+    earlier) and timed.  The CPU rehearsal decodes the first 2 images."""
     import importlib
 
     from openviic_tpu_torch import artifact
@@ -1944,7 +1960,7 @@ def trained_phase(device, s, card: str, loaded):
 
     cuda = device.type == "cuda"
     vocab, state, refs = loaded["vocab"], loaded["state_dict"], loaded["refs"]
-    n_images = len(loaded["ids"]) if cuda else 4
+    n_images = len(loaded["ids"]) if cuda else 2
     ids = loaded["ids"][:n_images]
     images = [{"region_features": f} for f in loaded["feats"][:n_images]]
     beam = 5
@@ -2089,7 +2105,7 @@ def trained_phase(device, s, card: str, loaded):
     cases = trained_kernel_cases(device, captured)
     # each kernel path against its eager bf16 twin (beam-resident fast
     # select, or the non-resident eager path); on the card only: the
-    # rehearsal's 4 images cannot carry a share (one flip is 25%)
+    # rehearsal's 2 images cannot carry a share (one flip is 50%)
     for name, r in results.items():
         if not cuda or name in ("eager fast select", "(c) non-resident, no step kernel"):
             continue
@@ -2754,6 +2770,533 @@ def scst_phase(device, s, card: str, loaded):
     return result
 
 
+# ---------------------------------------------------------------- phase 12
+TRAINER_SPLIT = (90, 30, 30)  # the artifact's images as train, dev and test, by id order
+TRAINER_EPOCHS = 3  # U's start(max_epochs); R runs 1 epoch, then a new trainer the rest
+TRAINER_NAME = "trainer_phase"
+# the tuned twin sets no LOG_EVERY: the trainer's default, a metrics row (and
+# the host's wait for its loss) every 50 steps; the rows are compared in a
+# second pair of runs at 1
+TRAINER_LOG_EVERY = 50
+# fields of a metrics.jsonl row that read the clock
+CLOCK_FIELDS = ("time", "train/captions_per_sec")
+
+
+def trainer_dataset(root: str, loaded, split) -> dict:
+    """Write the artifact's test images and references under ``root`` in
+    the JAX package's dataset layout: ``features/<id>.npy`` (each image's
+    f16 regions at its real count, which the dataset reads as f32) and
+    ``train.json`` / ``dev.json`` / ``test.json``, split by id order.
+    Returns {split: (images, annotations)}."""
+    from openviic_tpu_torch import artifact
+
+    ids = sorted(loaded["ids"], key=int)[: sum(split)]
+    os.makedirs(os.path.join(root, "features"))
+    with np.load(artifact.ARTIFACT_DIR / "test_features.npz") as z:
+        for i in ids:
+            np.save(os.path.join(root, "features", f"{i}.npy"), {"region_features": z[i]},
+                    allow_pickle=True)
+    counts, start = {}, 0
+    for name, n in zip(("train", "dev", "test"), split):
+        part = ids[start:start + n]
+        start += n
+        data = {"images": [{"id": int(i), "file_name": f"{i}.jpg"} for i in part],
+                "annotations": [{"image_id": int(i), "caption": c}
+                                for i in part for c in loaded["refs"][i]]}
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(data, f, ensure_ascii=False)
+        counts[name] = (len(part), len(data["annotations"]))
+    return counts
+
+
+def trainer_config(data: str, checkpoint_path: str, s, cuda: bool, log_every: int):
+    """The trainer's config: the artifact's model (at tiny widths and one
+    layer in the rehearsal) and the tuned twin's TRAINING keys
+    (``configs/tpu/standard_transformer_using_region.yaml``), the head
+    kernel forced (1) on the card, PATIENCE 0 (epoch 0 is best and
+    switches), a metrics row every ``log_every`` steps."""
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.config import ConfigNode
+
+    widths = {} if cuda else dict(d_model=s["d_model"], heads=s["heads"], layers=1,
+                                  d_ff=s["d_ff"])
+    model = artifact.artifact_config(name=TRAINER_NAME, **widths).MODEL.to_dict()
+    return ConfigNode({
+        "TRAINER": "viTrainer",
+        "DATASET": {
+            "FEATURE_BATCH_SIZE": XE_BATCH, "DICT_BATCH_SIZE": 300, "MIN_FREQ": 5,
+            "CACHE_FEATURES": 2000,
+            "VOCAB": dict(BOS_TOKEN="<bos>", EOS_TOKEN="<eos>", PAD_TOKEN="<pad>",
+                          UNK_TOKEN="<unk>", TOKENIZER=None, WORD_EMBEDDING=None,
+                          USE_MAPPING=False, PRETRAINED_LANGUAGE_MODEL=None),
+            "JSON_PATH": {k.upper(): os.path.join(data, f"{k}.json")
+                          for k in ("train", "dev", "test")},
+            "FEATURE_PATH": {"FEATURES": os.path.join(data, "features"), "SCENE_TEXT": None,
+                             "IMAGE": None},
+        },
+        "TRAINING": {
+            "CHECKPOINT_PATH": checkpoint_path, "LEARNING_RATE": 1.0,
+            "RL_LEARNING_RATE": SCST_RL_LR, "WARMUP": XE_WARMUP, "SCORE": "CIDEr",
+            "GET_SCORES": True, "TRAINING_BEAM_SIZE": SCST_BEAM, "EVALUATING_BEAM_SIZE": 3,
+            "PATIENCE": 0, "RNG_IMPL": "rbg", "MIXED_PRECISION": True,
+            "DECODE_DTYPE": "bfloat16", "STEPS_PER_CALL": XE_STEPS_PER_CALL,
+            "DECODE_HEAD_KERNEL": 1 if cuda else False, "DECODE_ATTN_KERNEL": True,
+            "LOG_EVERY": log_every,
+        },
+        "MODEL": model,
+    })
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def trainer_captures(cuda: bool, n_layers: int, captured: dict):
+    """A function of a label that gives a context in which the kernel
+    wrappers a decode calls (beam_select_attention, and head_topk on the
+    card) keep their inputs at TRAINED_STEPS and the last step
+    (``capture_calls``) under ``captured[label]``; the first time a label
+    is given only."""
+    import importlib
+
+    from openviic_tpu_torch.models import attention as attention_module
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+
+    @contextlib.contextmanager
+    def capture(label):
+        if label is None or label in captured:
+            yield
+            return
+        with contextlib.ExitStack() as stack:
+            kept = {"beam_select_attention": stack.enter_context(capture_calls(
+                attention_module, "beam_select_attention", n_layers))}
+            if cuda:
+                kept["head_topk"] = stack.enter_context(capture_calls(
+                    beam_search_module, "head_topk", 1))
+            yield
+        captured[label] = kept
+
+    return capture
+
+
+def clock_trainer(tr, device, rec: dict, capture) -> None:
+    """Record, on ``tr``'s instance, each epoch's seconds (the device
+    synchronized at each end) of train, val loss, val decode, val scoring,
+    checkpoint save and load, with its phase, mean loss and steps; the
+    kernels' inputs of the first val decode and the first test prediction
+    through ``capture`` (``trainer_captures``)."""
+    def epoch_rec():
+        return rec["epochs"].setdefault(tr.epoch, {})
+
+    def clocked(key, fn):
+        def run(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            e = epoch_rec()
+            e[key] = e.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def phase(kind, fn):
+        def run():
+            step0 = tr.state["step"]
+            loss = fn()
+            epoch_rec().update(phase=kind, loss=loss, steps=tr.state["step"] - step0)
+            return loss
+        return run
+
+    def decode_loader(real):
+        def run(loader, beam):
+            label = {id(tr.val_dict_dataloader): "trainer val decode",
+                     id(tr.test_dict_dataloader): "trainer test prediction"}.get(id(loader))
+            gen = real(loader, beam)
+            while True:
+                sync(device)
+                t0 = time.perf_counter()
+                try:
+                    with capture(label):
+                        it, items, caps = next(gen)
+                except StopIteration:
+                    break
+                sync(device)
+                e = epoch_rec()
+                e["decode"] = e.get("decode", 0.0) + time.perf_counter() - t0
+                e["decode_images"] = e.get("decode_images", 0) + len(caps)
+                yield it, items, caps
+        return run
+
+    tr.train = phase("xe", clocked("train", tr.train))
+    tr.train_scst = phase("scst", clocked("train", tr.train_scst))
+    tr.evaluate_loss = clocked("val_loss", tr.evaluate_loss)
+    tr.evaluate_metrics = clocked("val_metrics", tr.evaluate_metrics)
+    tr._decode_loader = decode_loader(tr._decode_loader)
+    tr.save_checkpoint = clocked("save", tr.save_checkpoint)
+    tr.load_checkpoint = clocked("load", tr.load_checkpoint)
+
+
+@contextlib.contextmanager
+def clocked_trainer_module(device, tr, rec: dict, iterations: list, capture):
+    """Wrap ``training.trainer``'s ``scst_iteration``: each iteration's
+    clock at its start and at the end of its sample, reward and step (the
+    device synchronized at each), and the kernels' inputs of the second
+    iteration through ``capture``; and its ``device_prefetch``: the host's
+    seconds waiting for the train loaders' next batch, by epoch
+    (``loader_wait``)."""
+    from openviic_tpu_torch.training import trainer as trainer_module
+
+    real, real_prefetch = trainer_module.scst_iteration, trainer_module.device_prefetch
+
+    def prefetch(iterable, device_, depth=2):
+        stream = real_prefetch(iterable, device_, depth)
+        train = iterable in (tr.train_dataloader, tr.train_dict_dataloader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(stream)
+            except StopIteration:
+                return
+            if train:
+                e = rec["epochs"].setdefault(tr.epoch, {})
+                e["loader_wait"] = e.get("loader_wait", 0.0) + time.perf_counter() - t0
+            yield item
+
+    def timed(setup, batch, captions, marks=None):
+        sync(device)
+        t = {"start": time.perf_counter()}
+
+        def mark(stage):
+            sync(device)
+            t[stage] = time.perf_counter()
+
+        with capture("trainer SCST iteration 2" if len(iterations) == 1 else None):
+            out = real(setup, batch, captions, marks=mark)
+        iterations.append(t)
+        return out
+
+    trainer_module.scst_iteration, trainer_module.device_prefetch = timed, prefetch
+    try:
+        yield
+    finally:
+        trainer_module.scst_iteration, trainer_module.device_prefetch = real, real_prefetch
+
+
+def metric_rows(tr) -> list:
+    """metrics.jsonl's training rows less their clock fields (the bf16
+    guard logs once a trainer, so a resumed run logs it again)."""
+    with open(os.path.join(tr.checkpoint_path, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [{k: v for k, v in r.items() if k not in CLOCK_FIELDS}
+            for r in rows if not any(k.startswith("decode_dtype_guard/") for k in r)]
+
+
+def trainer_snapshot(tr) -> dict:
+    """Parameters, optimizer moments, generator and loader counters of
+    ``tr``, on the CPU."""
+    opt = tr.state["optimizer"].state_dict()
+    return {"params": {n: p.detach().cpu().clone() for n, p in tr.model.named_parameters()},
+            "moments": {(i, k): v.detach().cpu().clone() for i, e in opt["state"].items()
+                        for k, v in e.items()},
+            "betas": opt["param_groups"][0]["betas"], "step": int(tr.state["step"]),
+            "generator": tr.state["generator"].get_state().clone(),
+            "loaders": (tr.train_dataloader.epoch, tr.train_dict_dataloader.epoch)}
+
+
+def snapshot_gaps(got: dict, want: dict) -> list:
+    """What differs between two ``trainer_snapshot``s (bit for bit)."""
+    gaps = [f"parameter {n}" for n, p in want["params"].items()
+            if not torch.equal(got["params"][n], p)]
+    if got["moments"].keys() != want["moments"].keys():
+        gaps.append("the optimizer's moments' entries")
+    else:
+        gaps += [f"moment {k}" for k, v in want["moments"].items()
+                 if not torch.equal(got["moments"][k], v)]
+    gaps += [k for k in ("betas", "step", "loaders") if got[k] != want[k]]
+    if not torch.equal(got["generator"], want["generator"]):
+        gaps.append("generator")
+    return gaps
+
+
+def trainer_phase(device, s, card: str, loaded):
+    """The trainer lifecycle (``BaseTrainer``) on the artifact's data: its
+    150 test images (the rehearsal: 8) written in the JAX package's layout
+    under a temporary directory (deleted after), split by id order into
+    TRAINER_SPLIT train, dev and test images; the artifact's ``vocab.bin``
+    copied into each run directory first, as a trainer that resumes finds
+    it, and its weights loaded into the trainer's model (the rehearsal:
+    random weights at tiny widths, one layer).  The config is
+    ``trainer_config``'s.  Under ``torch.use_deterministic_algorithms``
+    (on the card ``trainer_phase_apart`` sets the cuBLAS workspace
+    ``:4096:8`` before CUDA starts):
+
+    1. U, at LOG_EVERY TRAINER_LOG_EVERY as the tuned twin:
+       ``start(max_epochs=TRAINER_EPOCHS)`` (the rehearsal: 2): an XE
+       epoch, the switch (PATIENCE 0), at least one SCST epoch, each
+       epoch's losses finite; ``last_model``, ``best_model`` and
+       ``metrics.jsonl`` written; each epoch's seconds of train, val loss,
+       val decode + scoring and checkpoint, XE ms per step, SCST ms per
+       iteration (sample / reward / step), the val decode's captions/s,
+       checkpoint MiB and save / load seconds; the bf16 guard's token
+       disagreement, which must be in metrics.jsonl;
+    2. a fresh trainer loads U's last checkpoint (mid-SCST) and holds U's
+       parameters, RL Adam moments, generator and loader counters bit for
+       bit;
+    3. U's ``get_predictions()``: its seconds, ``test_results.json`` with
+       CIDEr; head_topk launched once a decode step of every val decode,
+       SCST sample and test prediction (the trainer searcher's steps),
+       beam_select_attention once a layer and step, no other kernel
+       (the card only: the rehearsal runs neither kernel);
+    4. R: in a fresh directory, ``start(max_epochs=1)``, then a new trainer
+       ``start(max_epochs=TRAINER_EPOCHS - 1)`` (a resume after the
+       switch): its parameters, optimizer, generator and loader counters
+       equal to U's bit for bit;
+    5. U1 and R1, as U and R at LOG_EVERY 1 (a metrics row every step),
+       R1 resumed after TRAINER_EPOCHS - 1 epochs (on the card, from a
+       mid-SCST checkpoint): R1's state and its metrics rows (less their
+       clock fields and the guard's rows) equal to U1's bit for bit;
+    6. head_topk (the card only) and beam_select_attention on their inputs
+       from U's first val decode, its first test prediction and its
+       second SCST iteration, at t = 0, 12 and the last step, against
+       their plain versions (``trained_kernel_cases``).
+
+    Prints the peak memory and returns the launch counts, the figures and
+    the kernel cases (under "kernels")."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.training import checkpoint as ckpt
+    from openviic_tpu_torch.utils import setup_logger
+
+    cuda = device.type == "cuda"
+    split = TRAINER_SPLIT if cuda else (4, 2, 2)
+    epochs = TRAINER_EPOCHS if cuda else 2
+    counted = counted_wrappers()
+    tmp = tempfile.mkdtemp(prefix="openviic_trainer_phase_")
+    failures = []
+    # the trainer logs each epoch: this phase prints its own lines (the
+    # logger is made once, so the trainer's import keeps this level)
+    trainer_logger = setup_logger()
+    level = trainer_logger.level
+    trainer_logger.setLevel(logging.WARNING)
+    try:
+        data = os.path.join(tmp, "data")
+        counts = trainer_dataset(data, loaded, split)
+        log(f"  trainer data: {counts} (images, annotations) as train, dev, test, written "
+            f"under a temporary directory")
+
+        def make(run: str, fresh: bool, log_every: int = TRAINER_LOG_EVERY):
+            cfg = trainer_config(data, os.path.join(tmp, run), s, cuda, log_every)
+            run_dir = os.path.join(cfg.TRAINING.CHECKPOINT_PATH, TRAINER_NAME)
+            os.makedirs(run_dir, exist_ok=True)
+            if not os.path.exists(os.path.join(run_dir, "vocab.bin")):
+                shutil.copyfile(artifact.ARTIFACT_DIR / "vocab.bin",
+                                os.path.join(run_dir, "vocab.bin"))
+            tr = build_trainer(cfg, device=device)
+            if fresh and cuda:
+                tr.model.load_state_dict(loaded["state_dict"])
+            return tr
+
+        def resumed(run: str, first: int, log_every: int = TRAINER_LOG_EVERY):
+            """``start(max_epochs=first)``, then a new trainer the rest."""
+            tr = make(run, fresh=True, log_every=log_every)
+            tr.start(max_epochs=first)
+            del tr
+            tr = make(run, fresh=False, log_every=log_every)
+            tr.start(max_epochs=epochs - first)
+            return tr
+
+        captured = {}
+        if cuda:
+            gc.collect()
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        with deterministic_algorithms():
+            # 1. U, uninterrupted
+            u = make("U", fresh=True)
+            n_layers = len(u.model.decoder.layers)
+            capture = trainer_captures(cuda, n_layers, captured)
+            rec, iterations = {"epochs": {}}, []
+            clock_trainer(u, device, rec, capture)
+            for fn in counted:
+                fn.launches = 0
+            steps0 = u.beam_searcher.steps
+            with clocked_trainer_module(device, u, rec, iterations, capture):
+                u.start(max_epochs=epochs)
+            u_snap = trainer_snapshot(u)
+            last = os.path.join(u.checkpoint_path, ckpt.LAST_NAME)
+            ckpt_mib = os.path.getsize(last) / 2**20
+            for e, r in sorted(rec["epochs"].items()):
+                log(f"  trainer U epoch {e} ({r.get('phase')}, {r.get('steps')} steps): loss "
+                    f"{r.get('loss', float('nan')):.5f}; seconds: train {r.get('train', 0):.3f} "
+                    f"(waiting for the loader {r.get('loader_wait', 0):.3f}), "
+                    f"val loss {r.get('val_loss', 0):.3f}, val decode + scoring "
+                    f"{r.get('val_metrics', 0):.3f} (decode {r.get('decode', 0):.3f}, "
+                    f"{r.get('decode_images', 0) / max(r.get('decode', 0), 1e-9):.1f} "
+                    f"captions/s), checkpoint save {r.get('save', 0):.3f}, load "
+                    f"{r.get('load', 0):.3f}")
+            epochs_rec = {str(e): dict(r) for e, r in rec["epochs"].items()}  # before predictions
+            phases = [r.get("phase") for _, r in sorted(rec["epochs"].items())]
+            losses = [r.get("loss") for _, r in sorted(rec["epochs"].items())]
+            xe = [r for r in rec["epochs"].values() if r.get("phase") == "xe"]
+            xe_ms = 1e3 * sum(r["train"] for r in xe) / max(sum(r["steps"] for r in xe), 1)
+            spans = {k: [it[b] - it[a] for it in iterations] for k, (a, b) in
+                     {"sample": ("start", "sample"), "reward": ("sample", "reward"),
+                      "step": ("reward", "step"), "iteration": ("start", "step")}.items()}
+            scst_ms = {k: 1e3 * float(np.mean(v)) if v else float("nan")
+                       for k, v in spans.items()}
+            guard = u.last_decode_dtype_guard
+            g = guard or dict(token_disagreement=float("nan"), seq_agreement=float("nan"),
+                              flagged=None)
+            with open(os.path.join(u.checkpoint_path, "metrics.jsonl")) as f:
+                guard_rows = [r for r in map(json.loads, f) if "decode_dtype_guard/flagged" in r]
+            log(f"  trainer U: phases by epoch {phases}; XE {xe_ms:.2f} ms a step (the epoch's "
+                f"seconds over its steps, the loader included); SCST {len(iterations)} "
+                f"iterations, {scst_ms['iteration']:.2f} ms each (sample "
+                f"{scst_ms['sample']:.2f}, reward {scst_ms['reward']:.2f}, step "
+                f"{scst_ms['step']:.2f}); checkpoint {ckpt_mib:.1f} MiB; bf16 guard: token "
+                f"disagreement {g['token_disagreement']:.4f}, sequences identical "
+                f"{g['seq_agreement']:.4f} (flagged {g['flagged']}; in metrics.jsonl: "
+                f"{len(guard_rows)} row)")
+            if (not phases or phases[0] != "xe" or "scst" not in phases
+                    or not np.all(np.isfinite(losses))):
+                failures.append(f"trainer U: phases {phases}, losses {losses}")
+            if guard is None or not guard_rows:
+                failures.append("trainer U: the bf16 guard did not run or log")
+            for name in (ckpt.LAST_NAME, ckpt.BEST_NAME, "metrics.jsonl"):
+                if not os.path.isfile(os.path.join(u.checkpoint_path, name)):
+                    failures.append(f"trainer U: no {name}")
+
+            # 2. the mid-SCST checkpoint into a fresh trainer
+            m = make("U", fresh=False)
+            sync(device)
+            t0 = time.perf_counter()
+            loaded_ckpt = m.load_checkpoint(last)
+            m._restore_loader_epochs(loaded_ckpt, loaded_ckpt["use_rl"])
+            m._ensure_scst(reset_opt=False)
+            sync(device)
+            load_s = time.perf_counter() - t0
+            mid_gaps = snapshot_gaps(trainer_snapshot(m), u_snap)
+            log(f"  trainer mid-SCST checkpoint (epoch {loaded_ckpt['epoch']}, use_rl "
+                f"{loaded_ckpt['use_rl']}) loaded into a fresh trainer in {load_s:.3f} s: "
+                f"parameters, RL Adam moments ({len(u_snap['moments'])} tensors, betas "
+                f"{u_snap['betas']}), generator and loader counters {u_snap['loaders']} equal "
+                f"bit for bit: {not mid_gaps}")
+            if mid_gaps or not loaded_ckpt["use_rl"]:
+                failures.append(f"trainer mid-SCST checkpoint: differs in {mid_gaps[:5]}")
+            del m
+
+            # 3. the test predictions, and the launches of the whole run
+            sync(device)
+            t0 = time.perf_counter()
+            u.get_predictions()
+            sync(device)
+            pred_s = time.perf_counter() - t0
+            steps = u.beam_searcher.steps - steps0
+            launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+            with open(os.path.join(u.checkpoint_path, "test_results.json")) as f:
+                results = json.load(f)
+            log(f"  trainer U get_predictions: {pred_s:.3f} s for {split[2]} images (one a "
+                f"decode), test CIDEr {results.get('CIDEr', float('nan')):.4f}; decode steps "
+                f"of the run (val decodes, SCST samples, predictions) {steps}; launches "
+                f"{launches}")
+            want = {"head_topk": steps, "beam_select_attention": n_layers * steps} if cuda else {}
+            if "CIDEr" not in results or len(results["results"]) != split[2]:
+                failures.append("trainer U: test_results.json lacks CIDEr or images")
+            if launches != want or steps <= 0:
+                failures.append(f"trainer launches {launches}, expected {want}")
+            del u
+
+            # 4. R, resumed after the switch, against U
+            r = resumed("R", 1)
+            r_gaps = snapshot_gaps(trainer_snapshot(r), u_snap)
+            log(f"  trainer R (start(max_epochs=1), then a new trainer start(max_epochs="
+                f"{epochs - 1})) against U: parameters, optimizer, generator and loader "
+                f"counters equal bit for bit: {not r_gaps}; deterministic algorithms on, "
+                f"cuBLAS workspace {os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+            if r_gaps:
+                failures.append(f"trainer R against U: differs in {r_gaps[:5]}")
+            del r
+
+            # 5. U1 and R1 at LOG_EVERY 1: the metrics rows of every step
+            u1 = make("U1", fresh=True, log_every=1)
+            u1.start(max_epochs=epochs)
+            u1_snap, u1_rows = trainer_snapshot(u1), metric_rows(u1)
+            del u1
+            r1 = resumed("R1", epochs - 1, log_every=1)
+            r1_gaps = snapshot_gaps(trainer_snapshot(r1), u1_snap)
+            rows_equal = metric_rows(r1) == u1_rows
+            log(f"  trainer R1 (start(max_epochs={epochs - 1}), then a new trainer "
+                f"start(max_epochs=1)) against U1, both at LOG_EVERY 1: state equal bit for bit: "
+                f"{not r1_gaps}; metrics rows equal: {rows_equal} ({len(u1_rows)} rows)")
+            if r1_gaps or not rows_equal or not u1_rows:
+                failures.append(f"trainer R1 against U1: differs in {r1_gaps[:5]}, rows equal "
+                                f"{rows_equal} ({len(u1_rows)} rows)")
+            del r1
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else float("nan")
+        log(f"  trainer peak memory {peak:.3f} GiB on {card}")
+
+        # 6. the kernels on U's inputs, against their plain versions
+        cases = {}
+        for what, kept in captured.items():
+            try:
+                found = trained_kernel_cases(device, kept, what)
+            except AssertionError as exc:
+                failures.append(f"{what}: {exc}")
+                continue
+            for kernel, rows in found.items():
+                cases.setdefault(kernel, []).extend(
+                    dict(r, case=f"{what} {r['case']}") for r in rows)
+        want_captured = {"trainer val decode", "trainer test prediction"}
+        if cuda:  # the rehearsal's 4 train images make one SCST iteration an epoch
+            want_captured.add("trainer SCST iteration 2")
+        if set(captured) != want_captured:
+            failures.append(f"trainer kernel inputs captured from {sorted(captured)}, expected "
+                            f"{sorted(want_captured)}")
+    finally:
+        trainer_logger.setLevel(level)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"head_topk": dict(launches=launches.get("head_topk", 0), decode_steps=steps,
+                              xe_ms_per_step=xe_ms, scst_ms=scst_ms, predictions_s=pred_s,
+                              checkpoint_mib=ckpt_mib, checkpoint_load_s=load_s,
+                              peak_gib=peak, epochs=epochs_rec, guard=guard),
+            "beam_select_attention": dict(launches=launches.get("beam_select_attention", 0),
+                                          decode_steps=steps, layers=n_layers),
+            "kernels": cases}
+
+
+def trainer_phase_apart(device, s, card: str, loaded):
+    """``trainer_phase``; on the card in a child process whose CUDA starts
+    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic cuBLAS
+    needs and which slows the XE step (``scripts/torch_trainer_costs.py``),
+    so that the other phases run without it.  The child's lines are printed
+    here; its result is its last line."""
+    if device.type != "cuda":
+        return trainer_phase(device, s, card, loaded)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trainer-phase", card],
+                          env=env, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the trainer phase failed (exit {proc.returncode}): "
+                             f"{lines[-1:] + proc.stderr.strip().splitlines()[-30:]}")
+    return json.loads(lines[-1])
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2858,7 +3401,9 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-11 at tiny widths on the CPU")
+                        help="rehearse phases 3-12 at tiny widths on the CPU")
+    parser.add_argument("--trainer-phase", metavar="CARD",
+                        help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -2887,6 +3432,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     device = torch.device("cuda:0")
+    if args.trainer_phase:
+        from openviic_tpu_torch.artifact import load_trained_artifact
+
+        result = trainer_phase(device, FLAGSHIP, args.trainer_phase,
+                               load_trained_artifact(device="cpu"))
+        print(json.dumps(result), flush=True)
+        return 0
     smi = timed("device", nvidia_smi_line)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"  nvidia-smi: {smi}; torch: {kind}, {count} device(s), torch {torch.__version__}, "
@@ -2909,7 +3461,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-11.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-12.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -2938,7 +3490,10 @@ def all_phases(device, s, card: str):
         try:
             xe = timed("XE training", lambda: xe_phase(device, s, card, loaded))
         finally:
-            scst = timed("SCST", lambda: scst_phase(device, s, card, loaded))
+            try:
+                scst = timed("SCST", lambda: scst_phase(device, s, card, loaded))
+            finally:
+                trainer = timed("trainer", lambda: trainer_phase_apart(device, s, card, loaded))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -2951,6 +3506,11 @@ def all_phases(device, s, card: str):
     found[1].update(paths["beam_select_captured"])
     found[1]["scst"] = dict(dropout_launches=scst["dropout_launches"]["beam_select_attention"],
                             dropout_steps=scst["dropout_steps"])
+    found[0]["trainer"] = trainer["head_topk"]
+    found[1]["trainer"] = trainer["beam_select_attention"]
+    trainer_cases = trainer.pop("kernels")
+    for e in found:
+        e["trainer_cases"] = trainer_cases.get(e["name"], [])
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -11,6 +11,7 @@ import torch
 
 from openviic_tpu_torch.registry import Registry
 
+META_TRAINER = Registry("TRAINER")
 META_ARCHITECTURE = Registry("ARCHITECTURE")
 META_ENCODER = Registry("ENCODER")
 META_DECODER = Registry("DECODER")
@@ -18,7 +19,9 @@ META_ATTENTION = Registry("ATTENTION")
 META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
 META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
 
-# Alias resolving a typo shipped in the reference's configs.
+# Aliases resolving names and a typo shipped in the reference's configs.
+META_TRAINER.alias("ViTrainer", "viTrainer")
+META_TRAINER.alias("EnTrainer", "enTrainer")
 META_ARCHITECTURE.alias(
     "StandardStranformerUsingRegion", "StandardTransformerUsingRegion"
 )
@@ -28,6 +31,15 @@ def _ensure_registered() -> None:
     """Import the module zoo so registration decorators have run (lazy to
     avoid a circular import: the models import the registries above)."""
     import openviic_tpu_torch.models  # noqa: F401
+
+
+def build_trainer(config, device="cuda"):
+    """The trainer named by ``config.TRAINER`` (``viTrainer``,
+    ``enTrainer``), on ``device``."""
+    _ensure_registered()
+    import openviic_tpu_torch.training.trainer  # noqa: F401  (registers the trainers)
+
+    return META_TRAINER.get(config.TRAINER)(config, device=device)
 
 
 def build_model(config, vocab, device="cuda", seed: int = 0):

@@ -1,19 +1,28 @@
-"""Batch containers: the port's copy of the part of
-``openviic_tpu/data/instance.py`` that serving uses.
+"""Batch containers: the port's copy of ``openviic_tpu/data/instance.py``.
 
-``InstanceList`` collates per-image dicts, zero-padding array fields along
-dim 0 to fixed per-key lengths (``pad_sizes``).  Padded feature rows are
-all-zero, which the padding-mask convention flags (models/masks.py)."""
+``Instance`` is one sample's fields with attribute access; ``InstanceList``
+collates samples, zero-padding array fields along dim 0 to fixed per-key
+lengths (``pad_sizes``).  Padded feature rows are all-zero, which the
+padding-mask convention flags (models/masks.py)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 
 class Instance(dict):
-    """One sample's fields."""
+    """One sample's fields, readable and writable as attributes."""
+
+    def __setattr__(self, key: str, value: Any) -> None:
+        self[key] = value
+
+    def __getattr__(self, key: str) -> Any:
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key)
 
     def get_fields(self) -> List[str]:
         return list(self.keys())
@@ -34,7 +43,8 @@ def _pad_rows(value: np.ndarray, target_len: int) -> np.ndarray:
 
 class InstanceList(dict):
     """A collated batch of Instances: array fields padded along dim 0 and
-    stacked; scalar fields become arrays; other fields become lists."""
+    stacked; scalar fields become arrays; other fields become lists.  A
+    field reads as an attribute too (None when absent)."""
 
     def __init__(self, instance_list: Optional[List[Instance]] = None,
                  pad_sizes: Optional[Dict[str, int]] = None):
@@ -52,6 +62,33 @@ class InstanceList(dict):
                 self[key] = np.asarray(values)
             else:
                 self[key] = values
+
+    def __setattr__(self, name: str, val: Any) -> None:
+        if name.startswith("_"):
+            super().__setattr__(name, val)
+        else:
+            self[name] = val
+
+    def __getattr__(self, name: str) -> Any:
+        if name.startswith("_") or name not in self:
+            return None
+        return self[name]
+
+    def get_fields(self) -> List[str]:
+        return list(self.keys())
+
+    def has(self, name: str) -> bool:
+        return name in self
+
+    @property
+    def batch_size(self) -> int:
+        """The batch's size: the first array's rows or the first list's length."""
+        for v in self.values():
+            if isinstance(v, np.ndarray):
+                return v.shape[0]
+            if isinstance(v, list):
+                return len(v)
+        return 0
 
     def arrays(self) -> Dict[str, np.ndarray]:
         """Only the numeric ndarray fields (the part that goes on device)."""

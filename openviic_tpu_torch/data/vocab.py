@@ -1,42 +1,89 @@
-"""Token vocabulary: the attributes the models and decoders consume.
+"""Token vocabulary (the port's counterpart of ``openviic_tpu/data/vocab.py``).
 
-The port's own counterpart of ``openviic_tpu/data/vocab.py``: it is built
-from an id -> token list (``itos``) or read from the JAX package's pickled
-``vocab.bin`` (``load_vocab``), and keeps that module's id conventions
-(specials ``<pad> <bos> <eos> <unk>`` first) and its ``encode_caption`` and
-``decode_caption`` semantics.  Building a vocab from caption files is not
-ported yet."""
+A vocab is built from a ``DATASET`` config (``Vocab.from_config``, the JAX
+``Vocab(config)``), from an id -> token list (``itos``), or read from a
+pickle (``load_vocab``: the JAX package's ``vocab.bin`` or the port's own).
+The JAX module's conventions are kept:
+
+ - built by scanning the train, dev **and** test caption files (the
+   reference's leakage of the test split, kept for parity);
+ - sorted by frequency, ties alphabetically; words below ``MIN_FREQ`` left
+   out;
+ - the specials from ``VOCAB.PAD_TOKEN``, ``BOS_TOKEN``, ``EOS_TOKEN`` and
+   ``UNK_TOKEN`` occupy the first ids, in that order;
+ - ``max_caption_length`` is the longest preprocessed caption + 2;
+ - ``encode_caption`` and ``decode_caption`` as there.
+
+``VOCAB.USE_MAPPING``, ``WORD_EMBEDDING`` and ``PRETRAINED_LANGUAGE_MODEL``
+need downloads and raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
 import collections
+import json
 import pickle
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from openviic_tpu_torch.data.preprocess import preprocess_caption
 
 SPECIALS = ("<pad>", "<bos>", "<eos>", "<unk>")
 
 
 class Vocab:
     """Unpickling sets the JAX package's attributes (``itos``, ``stoi``,
-    ``specials``, the special ids, ``max_caption_length``, ``freqs`` and
-    more) on an instance without calling ``__init__``; every method reads
-    only those."""
+    ``specials``, the special ids, ``max_caption_length``, ``freqs``,
+    ``tokenizer`` and more) on an instance without calling ``__init__``;
+    every method reads only those."""
 
     def __init__(self, itos: Sequence[str], max_caption_length: int,
-                 specials: Sequence[str] = SPECIALS):
+                 specials: Sequence[str] = SPECIALS, freqs=None, tokenizer=None):
         self.itos: List[str] = list(itos)
         self.stoi: Dict[str, int] = {tok: i for i, tok in enumerate(self.itos)}
         if len(self.stoi) != len(self.itos):
             raise ValueError("vocab tokens must be unique")
         self.specials = list(specials)
-        pad, bos, eos, unk = self.specials
-        self.padding_idx = self.stoi[pad]
-        self.bos_idx = self.stoi[bos]
-        self.eos_idx = self.stoi[eos]
-        self.unk_idx = self.stoi[unk]
+        (self.padding_token, self.bos_token, self.eos_token,
+         self.unk_token) = self.specials
+        self.padding_idx = self.stoi[self.padding_token]
+        self.bos_idx = self.stoi[self.bos_token]
+        self.eos_idx = self.stoi[self.eos_token]
+        self.unk_idx = self.stoi[self.unk_token]
         self.max_caption_length = int(max_caption_length)
+        self.freqs = collections.Counter() if freqs is None else freqs
+        self.tokenizer = tokenizer
+        self.mapping = None
+        self.word_embeddings = None
+
+    @classmethod
+    def from_config(cls, config) -> "Vocab":
+        """The vocab of a ``DATASET`` config: its train, dev and test
+        caption files scanned (``make_vocab``), the specials first, then
+        every word of at least ``MIN_FREQ`` occurrences by frequency, ties
+        alphabetically."""
+        voc = config.VOCAB
+        for key in ("PRETRAINED_LANGUAGE_MODEL", "WORD_EMBEDDING", "USE_MAPPING"):
+            if voc.get(key):
+                raise NotImplementedError(
+                    f"DATASET.VOCAB.{key} needs a download and is not ported")
+        specials = [voc.PAD_TOKEN, voc.BOS_TOKEN, voc.EOS_TOKEN, voc.UNK_TOKEN]
+        freqs, max_len = make_vocab(
+            [config.JSON_PATH.TRAIN, config.JSON_PATH.DEV, config.JSON_PATH.TEST],
+            voc.TOKENIZER)
+        counter = freqs.copy()
+        for tok in specials:
+            counter.pop(tok, None)
+        min_freq = max(config.MIN_FREQ, 1)
+        # by frequency, ties alphabetically (two stable sorts, as the JAX module)
+        words = sorted(counter.items(), key=lambda tup: tup[0])
+        words.sort(key=lambda tup: tup[1], reverse=True)
+        itos = list(specials)
+        for word, freq in words:
+            if freq < min_freq:
+                break
+            itos.append(word)
+        return cls(itos, max_len, specials, freqs=freqs, tokenizer=voc.TOKENIZER)
 
     def encode_caption(self, caption: List[str]) -> np.ndarray:
         """Caption tokens -> fixed-length padded id vector (int32): bos, the
@@ -66,15 +113,45 @@ class Vocab:
             captions.append(caption if join_words else caption.split())
         return captions
 
+    def extend(self, v: "Vocab", sort: bool = False) -> None:
+        """Append ``v``'s words that this vocab lacks (sorted, with ``sort``)."""
+        for w in (sorted(v.itos) if sort else v.itos):
+            if w not in self.stoi:
+                self.itos.append(w)
+                self.stoi[w] = len(self.itos) - 1
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, Vocab):
+            return NotImplemented
+        return (self.freqs == other.freqs and dict(self.stoi) == dict(other.stoi)
+                and self.itos == other.itos)
+
     def __len__(self) -> int:
         return len(self.itos)
 
 
+def make_vocab(json_paths: Sequence[str], tokenizer=None):
+    """(word frequencies, the longest caption + 2) over the annotations of
+    the caption files ``json_paths``, each caption preprocessed."""
+    freqs: collections.Counter = collections.Counter()
+    max_len = 0
+    for path in json_paths:
+        with open(path) as f:
+            annotations = json.load(f)["annotations"]
+        for ann in annotations:
+            caption = preprocess_caption(ann["caption"], tokenizer)
+            freqs.update(caption)
+            max_len = max(max_len, len(caption) + 2)
+    return freqs, max_len
+
+
 class _VocabUnpickler(pickle.Unpickler):
-    """Reads the JAX package's pickled ``Vocab`` as the port's, and refuses
-    every global besides the two containers it holds."""
+    """Reads the JAX package's pickled ``Vocab`` as the port's, and the
+    port's own, and refuses every global besides the two containers they
+    hold."""
 
     ALLOWED = {("openviic_tpu.data.vocab", "Vocab"): Vocab,
+               ("openviic_tpu_torch.data.vocab", "Vocab"): Vocab,
                ("collections", "Counter"): collections.Counter,
                ("collections", "defaultdict"): collections.defaultdict}
 
@@ -85,8 +162,8 @@ class _VocabUnpickler(pickle.Unpickler):
 
 
 def load_vocab(path) -> Vocab:
-    """The vocab pickled at ``path`` (the JAX package's ``vocab.bin``),
-    without importing the JAX package."""
+    """The vocab pickled at ``path`` (the JAX package's ``vocab.bin`` or
+    the port's own), without importing the JAX package."""
     with open(path, "rb") as f:
         vocab = _VocabUnpickler(f).load()
     if not isinstance(vocab, Vocab):

@@ -1,0 +1,42 @@
+"""Train a captioner with the port (the counterpart of the JAX package's
+``train.py``):
+
+    python -m openviic_tpu_torch.train --config-file <yaml> [--eval-only]
+        [--max-epochs N] [--cpu] [KEY VALUE ...]
+
+It builds the config's trainer on the card (``--cpu``: on the CPU), trains
+from ``last_model`` or from scratch unless ``--eval-only``, then writes the
+test split's predictions and scores (``test_results.json``).  ``KEY VALUE``
+pairs override the config (e.g. ``TRAINING.WARMUP 100``).  PyYAML is
+imported only to parse the file.  No process group is started: the port
+trains on one card."""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description="OpenViIC-TPU, PyTorch port")
+    parser.add_argument("--config-file", type=str, required=True)
+    parser.add_argument("--eval-only", action="store_true",
+                        help="skip training; only run the test-set predictions")
+    parser.add_argument("--max-epochs", type=int, default=None, help="cap training epochs")
+    parser.add_argument("--cpu", action="store_true", help="train on the CPU, not the card")
+    parser.add_argument("opts", nargs=argparse.REMAINDER,
+                        help="dotted config overrides, e.g. TRAINING.WARMUP 100")
+    args = parser.parse_args(argv)
+
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.config import get_config
+
+    config = get_config(args.config_file, args.opts or None)
+    trainer = build_trainer(config, device="cpu" if args.cpu else "cuda")
+    if not args.eval_only:
+        trainer.start(max_epochs=args.max_epochs)
+    trainer.get_predictions(get_scores=config.TRAINING.GET_SCORES)
+
+
+if __name__ == "__main__":
+    main()

@@ -48,6 +48,35 @@ def fast_forward_schedule(optimizer: torch.optim.Optimizer, scheduler, step: int
     scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]
 
 
+def optimizer_state_fits(optimizer: torch.optim.Optimizer, saved: dict) -> bool:
+    """Whether the optimizer ``state_dict`` ``saved`` fits ``optimizer``: as
+    many groups and parameters, the same hyperparameters but the learning
+    rate (the XE and RL Adams differ in their betas), and every moment of
+    its parameter's shape."""
+    groups, saved_groups = optimizer.param_groups, saved.get("param_groups", [])
+    if len(groups) != len(saved_groups):
+        return False
+    index = {}
+    for group, saved_group in zip(groups, saved_groups):
+        if len(group["params"]) != len(saved_group["params"]):
+            return False
+        for key in ("betas", "eps", "weight_decay", "amsgrad", "maximize"):
+            if key in group and _hyper(group[key]) != _hyper(saved_group.get(key)):
+                return False
+        index.update(zip(saved_group["params"], group["params"]))
+    for i, entry in saved.get("state", {}).items():
+        if i not in index:
+            return False
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in entry and tuple(entry[key].shape) != tuple(index[i].shape):
+                return False
+    return True
+
+
+def _hyper(value):
+    return tuple(float(v) for v in value) if isinstance(value, (tuple, list)) else value
+
+
 def make_rl_optimizer(params: Iterable[torch.nn.Parameter], rl_learning_rate: float):
     """Fresh Adam at a fixed learning rate for the SCST phase."""
     return torch.optim.Adam(params, lr=rl_learning_rate, betas=(0.9, 0.999), eps=ADAM_EPS)

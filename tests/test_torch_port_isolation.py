@@ -83,13 +83,14 @@ def test_port_modules_never_import_the_jax_stack():
 
 
 # the trained-artifact decode, the scorers, XE training, the native
-# scorers' binding and SCST
+# scorers' binding, SCST, the data side and the trainer lifecycle
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
     "evaluation/ngram", "evaluation/porter", "evaluation/ptb_tokenizer", "evaluation/rouge",
     "training/__init__", "training/optim", "training/steps", "native/__init__", "rng",
-    "training/device_reward", "training/trainer",
+    "training/device_reward", "training/trainer", "data/loader", "training/checkpoint",
+    "utils/__init__", "utils/logging", "utils/metrics", "train",
 )
 
 _IMPORT_ALL = """
