@@ -84,7 +84,27 @@ On the card it runs these phases, each printing its seconds:
    and step, valid ids and score parity with each flag-off twin, then the
    forced decode of (d), (e) and (g) against their twins ((g) with the
    pipeline's f32 boxes and with the bf16 boxes the beam search casts);
-9. trained artifact: the committed trained flagship
+9. serving cell: the flagship (random weights from a seed) written with
+   the port's ``save_checkpoint`` and a ``vocab.bin`` into a temporary
+   directory and loaded by ``CaptioningPipeline(config, checkpoint_dir=...)``
+   (bf16, beam 3, batch 32, head kernel forced, beam-select attention
+   kernel on); a ``CaptionServer`` on 127.0.0.1 (max_batch 32, max_wait_ms
+   25) takes 256 ``/caption_features`` requests (``.npz`` of 50 regions)
+   from 32 client threads, 8 each, then the same requests go straight into
+   its batcher: every reply must equal the pipeline's ``caption_features``
+   of its image, head_topk must launch once a decode step and
+   beam_select_attention once a layer and step in each run, and both
+   kernels are held against their plain versions on their inputs captured
+   from one served batch at t = 0, 12 and the last step; a pickled and a
+   malformed body and ``/caption`` without Pillow get a 400 (the last
+   naming Pillow), ``/healthz`` counts every request; prints requests/s
+   over HTTP and into the batcher, p50 and p99 latency and the mean batch
+   fill; then ``caption_images`` on 8 seeded 480 x 640 x 3 uint8 arrays:
+   the patch backbone (dim 1024, grid 7) and ``roi_pool`` on the card
+   against the same functions on its host's CPU (thumbnails equal,
+   features within 1e-4, roi_pool within 1e-5), the captions, and whether
+   Pillow is present;
+10. trained artifact: the committed trained flagship
    (``saved_models/realistic_d512_bench/``, vocab 7 094, max_len 30, its
    150 test images of up to 40 regions) through ``CaptioningPipeline``
    at beam 5: at f32 on the card and on its host's CPU (>= 99% identical
@@ -94,13 +114,18 @@ On the card it runs these phases, each printing its seconds:
    select, >= 95% for (a), >= 80% for (b)-(e), against their eager twins:
    the JAX package's own such paths miss 95% too) and captions/s; each of
    kernels 1-5 against its plain version on its own inputs captured from
-   that decode at t = 0, 12 and 29, timed beside its bound;
-10. XE training from the artifact's weights at batch 60 of its test
+   that decode at t = 0, 12 and 29, timed beside its bound; then its 150
+   images written as ``<id>.npy`` beside a port checkpoint of its weights
+   and its ``vocab.bin``, captioned by ``caption_directory`` at batch 32,
+   beam 5: at f32 >= 99% of the captions equal to the f32 card decode
+   above and CIDEr within 0.002; at bf16 through the head kernel its CIDEr
+   and captions/s, the background loading of the files included;
+11. XE training from the artifact's weights at batch 60 of its test
    captions: one f32 step on the card against its host's CPU, the
    multi-step call against single steps, grad_accum 2 against the full
    batch, 20 bf16 steps whose loss must fall (ms per step, peak memory),
    and the refusal of a step under ``OPENVIIC_PALLAS=1``;
-11. SCST from the artifact's weights at batch 60 x beam 5 (its test
+12. SCST from the artifact's weights at batch 60 x beam 5 (its test
    references also serve as the df corpus): the f32 step on the card
    against its host's CPU on fixed beams, the device reward against the
    host's (Python and native CIDEr), the native scorers against the Python
@@ -109,7 +134,7 @@ On the card it runs these phases, each printing its seconds:
    reward, f32 step; ms split into sample, reward and step, the step's
    peak memory, head_topk launches per decode step), and dropout-active
    sampling (seeded, and the resident step kernel bypassed);
-12. the trainer: ``BaseTrainer`` on the artifact's 150 images written as
+13. the trainer: ``BaseTrainer`` on the artifact's 150 images written as
    a dataset (90 / 30 / 30 train, dev, test by id) with its vocab and
    weights, the tuned config's TRAINING keys and PATIENCE 0: a run of 3
    epochs (XE, the switch, SCST) and its test predictions, with each
@@ -123,17 +148,18 @@ On the card it runs these phases, each printing its seconds:
    head_topk and beam_select_attention on their inputs from the first
    val decode, the first test prediction and the second SCST iteration,
    against their plain versions;
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound); the line before
 that is the card's name and power limit.  Any failure raises, and the
-script exits non-zero without those lines.  ``--cpu`` runs phases 3-12 at
+script exits non-zero without those lines.  ``--cpu`` runs phases 3-13 at
 tiny widths with the plain versions on the CPU (the artifact's first 2
-images; XE, SCST and the trainer at tiny widths) and ends with ``cpu
-rehearsal ok`` instead.  The script writes nothing outside
-``openviic_tpu_torch/_build/`` but the trainer phase's temporary
-directory, which it deletes.
+images; the serving cell at batch 8, 16 requests from 4 clients; XE,
+SCST and the trainer at tiny widths) and ends with ``cpu rehearsal ok``
+instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
+but the serving and trainer phases' temporary directories, which it
+deletes.
 """
 
 from __future__ import annotations
@@ -494,7 +520,8 @@ def serve_phase(device, s, card: str):
     from openviic_tpu_torch.serving import CaptioningPipeline
 
     config, vocab = model_config(s), make_vocab(s)
-    pipe = CaptioningPipeline(config, vocab, batch_size=s["batch"], device=device, seed=0)
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, batch_size=s["batch"], device=device,
+                                              seed=0)
     rng = np.random.default_rng(0)
     n_images = 2 * s["batch"] + 7
     feats = rng.standard_normal((n_images, s["n_regions"], s["d_feature"]), dtype=np.float32)
@@ -524,8 +551,8 @@ def serve_phase(device, s, card: str):
         f"beam {s['beam']}; the serve phase forces the kernel with head_kernel=1")
     log(f"  sample caption: {results[0][0][0]!r}")
 
-    fast = CaptioningPipeline(config, vocab, batch_size=s["batch"], head_kernel=False,
-                              device=device, seed=0)
+    fast = CaptioningPipeline.from_state_dict(config, vocab, batch_size=s["batch"],
+                                              head_kernel=False, device=device, seed=0)
     fast_captions = fast.caption_features(requests[0])
     same = np.mean([a == b for a, b in zip(results[0][0], fast_captions)])
     log(f"  captions identical to the fast-select path: {same:.4f} of {len(fast_captions)}")
@@ -1120,8 +1147,8 @@ def decode_paths_phase(device, s, served, card: str):
     base = rescore(device, requests, searcher_decode(pipe, pipe.searcher, vocab, beam),
                    served["results"], "serve")
 
-    attn_pipe = CaptioningPipeline(model_config(s, attn_kernel=True), vocab,
-                                   batch_size=s["batch"], device=device, seed=0)
+    attn_pipe = CaptioningPipeline.from_state_dict(model_config(s, attn_kernel=True), vocab,
+                                                   batch_size=s["batch"], device=device, seed=0)
     res_a, launches = run(
         "(a) DECODE_ATTN_KERNEL + head kernel", attn_pipe.searcher,
         lambda request: attn_pipe.caption_features(request, return_ids=True),
@@ -1298,8 +1325,8 @@ def attention_paths_phase(device, s, served, paths, card: str):
     for trig, flag, kernel in ((False, "OPENVIIC_PALLAS", "fused_attention"),
                                (True, "OPENVIIC_GEO_FUSED", "geo_fused_attention")):
         tag = "(g) ORT trig-on" if trig else "(f) ORT trig-off"
-        ort = CaptioningPipeline(ort_config(s, trig), vocab, batch_size=s["batch"], head_kernel=1,
-                                 device=device, seed=1)
+        ort = CaptioningPipeline.from_state_dict(ort_config(s, trig), vocab, batch_size=s["batch"],
+                                                 head_kernel=1, device=device, seed=1)
         beam_o = ort.beam_size
         decode = searcher_decode(ort, ort.searcher, vocab, beam_o)
         res_off, _ = run(f"{tag}, no flag", ort.searcher, decode, reqs=ort_requests,
@@ -1966,9 +1993,9 @@ def trained_phase(device, s, card: str, loaded):
     beam = 5
 
     def pipeline(dev, bf16=True, **flags):
-        return CaptioningPipeline(trained_config(**flags), vocab, state_dict=state,
-                                  beam_size=beam, batch_size=n_images, use_bf16=bf16,
-                                  device=dev)
+        return CaptioningPipeline.from_state_dict(trained_config(**flags), vocab,
+                                                  state_dict=state, beam_size=beam,
+                                                  batch_size=n_images, use_bf16=bf16, device=dev)
 
     def cider(captions):
         return artifact.artifact_cider(captions, ids, refs)
@@ -2117,7 +2144,446 @@ def trained_phase(device, s, card: str, loaded):
                                  f"twin {same:.4f} < {bar}")
     return dict(paths={k: {key: v for key, v in r.items() if key != "captions"}
                        for k, r in results.items()},
-                f32=dict(card_cider=c_card, cpu_cider=c_cpu, agreement=f32_same), kernels=cases)
+                f32=dict(card_cider=c_card, cpu_cider=c_cpu, agreement=f32_same), kernels=cases,
+                f32_captions=f32_card)
+
+
+# ---------------------------------------------------------------- serving cell
+# the flagship served from a checkpoint at serve.py's batch and the tuned
+# twin's EVALUATING_BEAM_SIZE; 32 clients of 8 requests each, as
+# scripts/bench_serve.py sends them
+SERVE_CELL = dict(batch=32, beam=3, requests=256, clients=32, max_wait_ms=25)
+TINY_SERVE_CELL = dict(batch=8, beam=3, requests=16, clients=4, max_wait_ms=25)
+SERVE_NAME = "serving_cell"
+SERVE_SEED = 3
+# the patch backbone on the card against its host's CPU: the thumbnails are
+# integer sums (exact in float64) and must be equal; the features are sums
+# of 192 f32 products of magnitude below 0.3, whose order of summation may
+# differ (within 192 ulps of a sum below 8: 1e-4), and roi_pool's weighted
+# means of those features within 1e-5 of each other on the same map
+EXTRACT_ATOL = 1e-4
+ROI_ATOL = 1e-5
+N_ARRAYS = 8  # caption_images' seeded 480 x 640 x 3 uint8 arrays
+PIXEL_SHAPE = (480, 640, 3)
+
+
+def serving_config(s, cell, checkpoint_path: str):
+    """The serving cell's config: the flagship's model, the head kernel
+    forced (1) and the beam-select attention kernel on, beam 3."""
+    from openviic_tpu_torch.config import ConfigNode
+
+    cfg = model_config(s, attn_kernel=True).to_dict()
+    cfg["MODEL"]["NAME"] = SERVE_NAME
+    cfg["TRAINING"].update(EVALUATING_BEAM_SIZE=cell["beam"], CHECKPOINT_PATH=checkpoint_path)
+    return ConfigNode(cfg)
+
+
+def write_run(run_dir: str, model, vocab=None, vocab_file=None) -> None:
+    """A checkpoint directory as the trainer leaves it: ``best_model.ckpt``
+    (the port's format) and ``vocab.bin`` (pickled, or copied from
+    ``vocab_file``)."""
+    import pickle
+    import shutil
+
+    from openviic_tpu_torch.training.checkpoint import BEST_NAME, save_checkpoint
+
+    os.makedirs(run_dir)
+    if vocab_file is not None:
+        shutil.copyfile(vocab_file, os.path.join(run_dir, "vocab.bin"))
+    else:
+        with open(os.path.join(run_dir, "vocab.bin"), "wb") as f:
+            pickle.dump(vocab, f)
+    save_checkpoint(os.path.join(run_dir, BEST_NAME), model,
+                    {"step": 0, "generator": torch.Generator().manual_seed(0)}, {"epoch": 0})
+
+
+@contextlib.contextmanager
+def without_pillow():
+    """``import PIL`` raises ImportError in the block, whether or not Pillow
+    is installed."""
+    saved = {k: v for k, v in sys.modules.items() if k == "PIL" or k.startswith("PIL.")}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def quiet_port_logger():
+    """The port's logger at WARNING for the block: the phase prints its own
+    lines, not a line per request or checkpoint load."""
+    from openviic_tpu_torch.utils import setup_logger
+
+    logger = setup_logger()
+    level = logger.level
+    logger.setLevel(logging.WARNING)
+    try:
+        yield
+    finally:
+        logger.setLevel(level)
+
+
+def http_post(port: int, path: str, body: bytes):
+    """(status, reply JSON) of a POST to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def http_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serving_launches(name, counted, steps, n_layers, cuda):
+    """The launch counts of a served run against the cell's decode: one
+    head_topk a step, one beam_select_attention a layer and step, nothing
+    else (none on the CPU, where the plain versions run)."""
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = dict.fromkeys(launches, 0)
+    if cuda:
+        want.update(head_topk=steps, beam_select_attention=n_layers * steps)
+    if steps <= 0 or launches != want:
+        raise AssertionError(f"{name}: launches {launches} over {steps} decode steps, "
+                             f"expected {want}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def http_phase(device, s, card: str):
+    """The serving cell (``SERVE_CELL``): the flagship at full width with
+    random weights from a seed, written with the port's ``save_checkpoint``
+    and a pickled ``vocab.bin`` into a temporary directory and loaded by
+    ``CaptioningPipeline(config, checkpoint_dir=...)``; bf16, beam 3, batch
+    32, the head kernel forced and the beam-select attention kernel on.  A
+    ``CaptionServer`` (port 0, max_batch 32, max_wait_ms 25) on 127.0.0.1
+    takes ``/caption_features`` requests (``.npz`` payloads of 50 regions,
+    made before the run) from 32 client threads, 8 each; then the same
+    requests go straight into its batcher.  Every reply must equal the
+    pipeline's own ``caption_features`` of the image; head_topk must launch
+    once a decode step and beam_select_attention once a layer and step in
+    each run; both kernels are held against their plain versions on their
+    inputs captured from one served batch at t = 0, 12 and the last step; a
+    pickled and a malformed body get a 400, and so does ``/caption``
+    without Pillow, naming it; ``/healthz`` counts every request.  Prints
+    requests/s, p50 and p99 latency and the mean batch fill."""
+    import importlib
+    import io
+    import tempfile
+    import threading
+
+    from openviic_tpu_torch.builders import build_model
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.server import CaptionServer
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    cell = SERVE_CELL if s is FLAGSHIP else TINY_SERVE_CELL
+    vocab = make_vocab(s)
+    with tempfile.TemporaryDirectory(prefix="openviic_serving_") as tmp:
+        config = serving_config(s, cell, tmp)
+        model = build_model(config.MODEL, vocab, device="cpu", seed=SERVE_SEED)
+        t0 = time.perf_counter()
+        write_run(os.path.join(tmp, SERVE_NAME), model, vocab=vocab)
+        t1 = time.perf_counter()
+        pipe = CaptioningPipeline(config, batch_size=cell["batch"], device=device)
+        sync(device)
+        t2 = time.perf_counter()
+        ckpt_mib = os.path.getsize(os.path.join(tmp, SERVE_NAME, "best_model.ckpt")) / 2 ** 20
+    log(f"  serving cell: checkpoint {ckpt_mib:.1f} MiB written in {t1 - t0:.3f} s, loaded onto "
+        f"{card} by CaptioningPipeline(config, checkpoint_dir) in {t2 - t1:.3f} s; beam "
+        f"{pipe.beam_size}, batch {pipe.batch_size}, {pipe.compute_dtype}")
+    n_layers = len(pipe.model.decoder.layers)
+    rng = np.random.default_rng(SERVE_SEED)
+    feats = rng.standard_normal((cell["requests"], s["n_regions"], s["d_feature"]),
+                                dtype=np.float32)
+    images = [{"region_features": f} for f in feats]
+    bodies = []
+    for image in images:
+        buf = io.BytesIO()
+        np.savez(buf, **image)
+        bodies.append(buf.getvalue())
+    direct, direct_ids = pipe.caption_features(images, return_ids=True)  # also the warm-up
+    check_outputs("serving cell, caption_features", s, vocab, [images], [(direct, direct_ids)])
+
+    server = CaptionServer(pipe, host="127.0.0.1", port=0, max_batch=cell["batch"],
+                           max_wait_ms=cell["max_wait_ms"])
+    server.start()
+    counted = counted_wrappers()
+    sent = 0
+    try:
+        # one round of warm-up requests; the first batch served keeps the
+        # kernels' inputs
+        captured = {}
+        real = pipe.caption_features
+
+        def capturing(feature_dicts, **kwargs):
+            if captured:
+                return real(feature_dicts, **kwargs)
+            with capture_calls(beam_search_module, "head_topk", 1) as head, \
+                    capture_calls(attention_module, "beam_select_attention", n_layers) as attn:
+                out = real(feature_dicts, **kwargs)
+            captured.update(head_topk=head, beam_select_attention=attn)
+            return out
+
+        pipe.caption_features = capturing
+        try:
+            statuses = []
+            warm = [threading.Thread(target=lambda i=i: statuses.append(http_post(
+                server.port, "/caption_features", bodies[i])[0])) for i in range(cell["clients"])]
+            for t in warm:
+                t.start()
+            for t in warm:
+                t.join(timeout=600)
+            sent += len(warm)
+        finally:
+            del pipe.caption_features
+        if statuses != [200] * len(warm) or not captured:
+            raise AssertionError(f"the warm-up requests were not served: {statuses}")
+
+        # the timed run over HTTP
+        replies, latency = [None] * len(bodies), [0.0] * len(bodies)
+        errors = []
+        per_client = cell["requests"] // cell["clients"]
+        barrier = threading.Barrier(cell["clients"] + 1)
+
+        def client(c):
+            barrier.wait()
+            for i in range(c * per_client, (c + 1) * per_client):
+                t = time.perf_counter()
+                status, reply = http_post(server.port, "/caption_features", bodies[i])
+                latency[i] = time.perf_counter() - t
+                if status != 200:
+                    errors.append((i, status, reply))
+                replies[i] = reply.get("caption")
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(cell["clients"])]
+        for t in threads:
+            t.start()
+        stats0 = server.batcher.snapshot()
+        for fn in counted:
+            fn.launches = 0
+        steps0 = pipe.searcher.steps
+        barrier.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=900)
+        http_s = time.perf_counter() - t0
+        sent += len(bodies)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"HTTP run: {len(errors)} errors, first {errors[:1]}")
+        http_launches = serving_launches("serving cell over HTTP", counted,
+                                         pipe.searcher.steps - steps0, n_layers, cuda)
+        http_steps = pipe.searcher.steps - steps0
+        stats1 = server.batcher.snapshot()
+        fill = (stats1["items"] - stats0["items"]) / (stats1["batches"] - stats0["batches"])
+        wrong = [i for i, (a, b) in enumerate(zip(replies, direct)) if a != b]
+        if wrong:
+            raise AssertionError(f"HTTP run: {len(wrong)} replies differ from caption_features "
+                                 f"of the same image, first {wrong[0]}: {replies[wrong[0]]!r} "
+                                 f"against {direct[wrong[0]]!r}")
+
+        # the same requests straight into the batcher
+        for fn in counted:
+            fn.launches = 0
+        steps0 = pipe.searcher.steps
+        stats0 = server.batcher.snapshot()
+        t0 = time.perf_counter()
+        futures = [server.batcher.submit("features", body) for body in bodies]
+        got = [f.result(timeout=900) for f in futures]
+        batcher_s = time.perf_counter() - t0
+        sent += len(bodies)
+        batcher_launches = serving_launches("serving cell into the batcher", counted,
+                                            pipe.searcher.steps - steps0, n_layers, cuda)
+        stats1 = server.batcher.snapshot()
+        batcher_fill = (stats1["items"] - stats0["items"]) / (stats1["batches"] - stats0["batches"])
+        if got != direct:
+            raise AssertionError("the batcher's captions differ from caption_features")
+
+        # refused bodies
+        pickled = io.BytesIO()
+        np.save(pickled, images[0], allow_pickle=True)
+        refusals = {"pickled body": ("/caption_features", pickled.getvalue(), ""),
+                    "malformed body": ("/caption_features", b"not an archive", ""),
+                    "/caption without Pillow": ("/caption", b"\x89PNG\r\n\x1a\n" + bytes(64),
+                                                "Pillow")}
+        for name, (path, body, word) in refusals.items():
+            with without_pillow() if "Pillow" in name else contextlib.nullcontext():
+                status, reply = http_post(server.port, path, body)
+            sent += 1
+            if status != 400 or word not in reply.get("error", ""):
+                raise AssertionError(f"{name}: {status} {reply}, expected a 400 naming {word!r}")
+            log(f"  {name}: {status} {reply['error'][:100]!r}")
+        health = http_get(server.port, "/healthz")
+        if health["batcher"]["items"] != sent or health["model"] != SERVE_NAME:
+            raise AssertionError(f"/healthz {health}: expected {sent} items")
+    finally:
+        server.stop()
+
+    cases = trained_kernel_cases(device, captured, what="served batch")
+    latency_ms = np.asarray(latency) * 1e3
+    p50, p99 = (float(np.percentile(latency_ms, q)) for q in (50, 99))
+    http = dict(requests=len(bodies), clients=cell["clients"], seconds=http_s,
+                requests_per_s=len(bodies) / http_s, p50_ms=p50, p99_ms=p99, mean_fill=fill,
+                steps=http_steps, launches=http_launches)
+    into_batcher = dict(seconds=batcher_s, requests_per_s=len(bodies) / batcher_s,
+                        mean_fill=batcher_fill, launches=batcher_launches)
+    log(f"  HTTP: {len(bodies)} /caption_features requests from {cell['clients']} clients in "
+        f"{http_s:.3f} s: {http['requests_per_s']:.1f} requests/s, latency p50 {p50:.1f} ms, "
+        f"p99 {p99:.1f} ms, mean batch fill {fill:.2f} of {cell['batch']}; {http_steps} decode "
+        f"steps, launches {http_launches}; on {card}")
+    log(f"  straight into the batcher: {into_batcher['requests_per_s']:.1f} requests/s, mean "
+        f"batch fill {batcher_fill:.2f}; launches {batcher_launches}; on {card}")
+    log(f"  /healthz: {health}; every reply equal to caption_features of its image")
+    return dict(pipe=pipe, vocab=vocab, http=http, batcher=into_batcher, health=health,
+                checkpoint_mib=ckpt_mib, load_s=t2 - t1, kernels=cases)
+
+
+def images_phase(device, s, card: str, serving):
+    """caption_images on arrays: N_ARRAYS seeded 480 x 640 x 3 uint8 images
+    through the serving cell's pipeline (the patch backbone at grid 7 and
+    the model's feature width, roi_pool over the grid cells as regions) on
+    the card.  The thumbnails must equal the same backbone's on the card's
+    host CPU; the features and roi_pool (over the grid cells, random boxes
+    and a degenerate box) must lie within EXTRACT_ATOL and ROI_ATOL of the
+    CPU's on the same inputs.  The captions must be vocab words; prints
+    whether Pillow was present."""
+    import importlib.util
+
+    from openviic_tpu_torch.data.extraction import PatchBackbone, grid_boxes, roi_pool
+
+    pipe, vocab = serving["pipe"], serving["vocab"]
+    rng = np.random.default_rng(SERVE_SEED)
+    arrays = [rng.integers(0, 256, size=PIXEL_SHAPE, dtype=np.uint8) for _ in range(N_ARRAYS)]
+    grid = 7
+    card_bb = pipe.backbone("patch", grid)
+    cpu_bb = PatchBackbone(grid, card_bb.dim, device="cpu")
+    gboxes = grid_boxes(grid)
+    corners = np.sort(rng.uniform(0, 1, size=(16, 2, 2)), axis=1).astype(np.float32)
+    boxes = np.concatenate([gboxes, corners.reshape(16, 4),
+                            np.asarray([[0.5, 0.5, 0.5, 0.5]], np.float32)])
+    worst = dict(features=0.0, roi=0.0)
+    with torch.no_grad():
+        for arr in arrays:
+            thumb = card_bb.resize(arr)
+            if not torch.equal(thumb.cpu(), cpu_bb.resize(arr)):
+                raise AssertionError("the card's thumbnail differs from its host CPU's")
+            fmap = card_bb.embed(thumb)
+            want = cpu_bb.embed(thumb.cpu())
+            worst["features"] = max(worst["features"], float((fmap.cpu() - want).abs().max()))
+            worst["roi"] = max(worst["roi"], float(
+                (roi_pool(fmap, gboxes, boxes).cpu() - roi_pool(fmap.cpu(), gboxes, boxes))
+                .abs().max()))
+    if worst["features"] > EXTRACT_ATOL or worst["roi"] > ROI_ATOL:
+        raise AssertionError(f"extraction on the card against its host CPU: {worst} (features "
+                             f"<= {EXTRACT_ATOL}, roi_pool <= {ROI_ATOL}?)")
+    sync(device)
+    t0 = time.perf_counter()
+    captions = pipe.caption_images(arrays, grid=grid)
+    seconds = time.perf_counter() - t0
+    if sorted(captions) != list(range(N_ARRAYS)):
+        raise AssertionError(f"caption_images keys {sorted(captions)}")
+    for caption in captions.values():
+        if any(tok not in vocab.stoi or tok in vocab.specials for tok in caption.split()):
+            raise AssertionError(f"caption_images: not vocab words: {caption!r}")
+    try:
+        pillow = importlib.util.find_spec("PIL") is not None
+    except ImportError:  # an import hook refuses it
+        pillow = False
+    log(f"  caption_images: {N_ARRAYS} arrays of {PIXEL_SHAPE} at grid {grid}, dim "
+        f"{card_bb.dim} ({grid * grid} cells as regions): {seconds:.3f} s with extraction on "
+        f"{card}; thumbnails equal to the host CPU's, features within {worst['features']:.3g} "
+        f"(<= {EXTRACT_ATOL}), roi_pool within {worst['roi']:.3g} (<= {ROI_ATOL}); Pillow "
+        f"{'present' if pillow else 'absent'} on this machine; sample {captions[0]!r}")
+    return dict(seconds=seconds, worst=worst, pillow=pillow)
+
+
+def directory_phase(device, s, card: str, loaded, trained):
+    """caption_directory over the trained artifact's test images, written
+    as ``<id>.npy`` (f16 regions at their real counts) beside a port
+    checkpoint of its weights and its ``vocab.bin``, loaded by
+    ``CaptioningPipeline(config, checkpoint_dir=...)`` at batch 32, beam 5:
+    at f32 at least F32_AGREEMENT_MIN of the captions must equal the
+    trained phase's f32 captions on the card, with CIDEr within
+    F32_CIDER_ATOL; at bf16 through the head kernel (forced) its CIDEr,
+    launches (one a step) and captions/s, the background loading of the
+    files included, are printed.  The rehearsal takes the trained phase's
+    2 images."""
+    import tempfile
+
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.ops.head_topk import head_topk
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    cuda = device.type == "cuda"
+    want = trained["f32_captions"]
+    ids = loaded["ids"][: len(want)]
+    refs = loaded["refs"]
+    beam = 5
+    # the rehearsal's batch is its 2 images, as the trained phase's
+    batch = SERVE_CELL["batch"] if cuda else len(ids)
+    with tempfile.TemporaryDirectory(prefix="openviic_directory_") as tmp:
+        features = os.path.join(tmp, "features")
+        os.makedirs(features)
+        with np.load(artifact.ARTIFACT_DIR / "test_features.npz") as z:
+            for i in ids:
+                np.save(os.path.join(features, f"{i}.npy"), {"region_features": z[i]},
+                        allow_pickle=True)
+        run = os.path.join(tmp, "run")
+        write_run(run, loaded["model"], vocab_file=artifact.ARTIFACT_DIR / "vocab.bin")
+
+        def pipeline(bf16, **flags):
+            return CaptioningPipeline(trained_config(**flags), checkpoint_dir=run, beam_size=beam,
+                                      batch_size=batch, use_bf16=bf16, device=device)
+
+        f32 = pipeline(False).caption_directory(features)
+        if sorted(f32) != sorted(ids):
+            raise AssertionError(f"caption_directory ids {sorted(f32)[:3]}...")
+        got = [f32[i] for i in ids]
+        same = float(np.mean([a == b for a, b in zip(got, want)]))
+        c_dir, c_trained = (artifact.artifact_cider(c, ids, refs) for c in (got, want))
+        log(f"  caption_directory at f32, {len(ids)} files, batch {batch}, beam "
+            f"{beam}: captions identical to the trained phase's f32 card captions {same:.4f}; "
+            f"CIDEr {c_dir:.4f} against {c_trained:.4f}")
+        if same < F32_AGREEMENT_MIN or abs(c_dir - c_trained) > F32_CIDER_ATOL:
+            raise AssertionError(f"caption_directory f32: {same:.4f} identical (< "
+                                 f"{F32_AGREEMENT_MIN}?), CIDEr gap {abs(c_dir - c_trained):.4f}"
+                                 f" (> {F32_CIDER_ATOL}?)")
+        # (the rehearsal leaves the head kernel's plain version out: its
+        # stable sort over the vocab costs 0.5 s a decode there)
+        bf16 = pipeline(True, head_kernel=1 if cuda else False)
+        if cuda:
+            bf16.caption_directory(features)  # warm-up
+        sync(device)
+        head_topk.launches = 0
+        steps0 = bf16.searcher.steps
+        t0 = time.perf_counter()
+        served = bf16.caption_directory(features)
+        seconds = time.perf_counter() - t0
+        steps = bf16.searcher.steps - steps0
+        if head_topk.launches != (steps if cuda else 0) or steps <= 0:
+            raise AssertionError(f"caption_directory bf16: head_topk launched "
+                                 f"{head_topk.launches} times over {steps} steps")
+    c_bf16 = artifact.artifact_cider([served[i] for i in ids], ids, refs)
+    log(f"  caption_directory at bf16, head kernel {'forced' if cuda else 'off'}: CIDEr "
+        f"{c_bf16:.4f}, {len(ids) / seconds:.1f} "
+        f"captions/s ({seconds:.3f} s for {len(ids)} files, loading included), {steps} steps, "
+        f"{head_topk.launches} head_topk launches; on {card}")
+    return dict(f32_agreement=same, f32_cider=c_dir, trained_f32_cider=c_trained,
+                bf16_cider=c_bf16, bf16_captions_per_s=len(ids) / seconds, bf16_steps=steps,
+                head_topk_launches=head_topk.launches)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3401,7 +3867,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-12 at tiny widths on the CPU")
+                        help="rehearse phases 3-13 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
@@ -3461,7 +3927,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-12.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-13.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -3481,11 +3947,19 @@ def all_phases(device, s, card: str):
     launches = timed("attention decode paths (d)-(g), forced (d), (e), (g)",
                      lambda: attention_paths_phase(device, s, served, paths, card))
     launches.update(paths, head_topk=served["launches"])
+    with quiet_port_logger():
+        serving = timed("serving cell: HTTP server and batcher",
+                        lambda: http_phase(device, s, card))
+        images = timed("serving cell: caption_images on arrays",
+                       lambda: images_phase(device, s, card, serving))
     from openviic_tpu_torch.artifact import load_trained_artifact
 
     loaded = timed("load the trained artifact", lambda: load_trained_artifact(device="cpu"))
     try:
         trained = timed("trained artifact decode", lambda: trained_phase(device, s, card, loaded))
+        with quiet_port_logger():
+            directory = timed("caption_directory of the trained artifact",
+                              lambda: directory_phase(device, s, card, loaded, trained))
     finally:  # XE and SCST run whatever the decode gave; a failure of any raises
         try:
             xe = timed("XE training", lambda: xe_phase(device, s, card, loaded))
@@ -3509,8 +3983,15 @@ def all_phases(device, s, card: str):
     found[0]["trainer"] = trainer["head_topk"]
     found[1]["trainer"] = trainer["beam_select_attention"]
     trainer_cases = trainer.pop("kernels")
+    served_cases = serving.pop("kernels")
     for e in found:
         e["trainer_cases"] = trainer_cases.get(e["name"], [])
+        e["served_cases"] = served_cases.get(e["name"], [])
+    found[0]["serving"] = dict(http=serving["http"], batcher=serving["batcher"],
+                               checkpoint_mib=serving["checkpoint_mib"], load_s=serving["load_s"],
+                               images=images, directory=directory)
+    found[1]["serving"] = {run: dict(launches=serving[run]["launches"]["beam_select_attention"])
+                           for run in ("http", "batcher")}
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

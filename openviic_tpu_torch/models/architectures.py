@@ -1,6 +1,6 @@
 """Registered captioning architectures (counterpart of
-``openviic_tpu/models/architectures.py``): ``StandardTransformerUsingRegion``
-and ``ObjectRelationTransformer``."""
+``openviic_tpu/models/architectures.py``): ``StandardTransformerUsingRegion``,
+``StandardTransformerUsingGrid`` and ``ObjectRelationTransformer``."""
 
 from __future__ import annotations
 
@@ -30,6 +30,13 @@ class StandardTransformerUsingRegion(BaseTransformer):
     def encoder_forward(self, batch: Dict[str, torch.Tensor]):
         features, padding_mask = self.vision_embedding(batch[self.feature_key])
         return self.encoder(features, padding_mask), padding_mask
+
+
+@META_ARCHITECTURE.register()
+class StandardTransformerUsingGrid(StandardTransformerUsingRegion):
+    """The same model over ``batch["grid_features"]``."""
+
+    feature_key = "grid_features"
 
 
 @META_ARCHITECTURE.register()

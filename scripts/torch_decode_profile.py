@@ -78,10 +78,10 @@ def main() -> int:
     device = torch.device("cpu" if args.cpu else "cuda:0")
     card = "the CPU" if args.cpu else chip_smoke.nvidia_smi_line()
     vocab = chip_smoke.make_vocab(s)
-    pipe = CaptioningPipeline(chip_smoke.model_config(s), vocab, batch_size=s["batch"],
-                              device=device, seed=0)
-    ort = CaptioningPipeline(chip_smoke.ort_config(s, trig=True), vocab, batch_size=s["batch"],
-                             device=device, seed=1)
+    pipe = CaptioningPipeline.from_state_dict(chip_smoke.model_config(s), vocab,
+                                              batch_size=s["batch"], device=device, seed=0)
+    ort = CaptioningPipeline.from_state_dict(chip_smoke.ort_config(s, trig=True), vocab,
+                                             batch_size=s["batch"], device=device, seed=1)
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((2 * s["batch"], s["n_regions"], s["d_feature"]),
                                 dtype=np.float32)

@@ -103,8 +103,8 @@ def main() -> int:
     from openviic_tpu_torch.serving import CaptioningPipeline
 
     s = chip_smoke.FLAGSHIP
-    pipe = CaptioningPipeline(chip_smoke.model_config(s), chip_smoke.make_vocab(s),
-                              batch_size=s["batch"], device=device, seed=0)
+    pipe = CaptioningPipeline.from_state_dict(chip_smoke.model_config(s), chip_smoke.make_vocab(s),
+                                              batch_size=s["batch"], device=device, seed=0)
     weights = pipe.model.decoder.layers[0].fused_weights(torch.bfloat16)
     L, M, h, D, F = s["max_len"], s["n_regions"], s["heads"], s["d_model"], s["d_ff"]
     img, t = s["batch"], L // 2

@@ -189,8 +189,9 @@ def test_f32_beam5_decode_equals_jax_tokens(jax_artifact, port_artifact):
                           beam_resident=True)
     want = np.asarray(outs).reshape(len(feats), -1)
     a = port_artifact
-    pipe = CaptioningPipeline(a["config"], a["vocab"], state_dict=a["state_dict"],
-                              beam_size=5, batch_size=150, use_bf16=False, device="cpu")
+    pipe = CaptioningPipeline.from_state_dict(a["config"], a["vocab"], state_dict=a["state_dict"],
+                                              beam_size=5, batch_size=150, use_bf16=False,
+                                              device="cpu")
     captions, got = pipe.caption_features([{"region_features": f} for f in a["feats"]],
                                           return_ids=True)
     assert got.shape == want.shape == (150, 30)

@@ -1,6 +1,6 @@
 """The port stands alone: neither ``openviic_tpu_torch`` nor ``chip_smoke.py``
-imports JAX, Flax, Optax, the JAX package or PyYAML at import time (the
-machine with the card has none of them).
+imports JAX, Flax, Optax, the JAX package, PyYAML or Pillow at import time
+(the machine with the card has none of them).
 
 ``chip_smoke.py --cpu`` runs in a subprocess whose imports of those
 packages raise; a static scan checks every import statement of the port."""
@@ -12,9 +12,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml")
-# PyYAML is imported inside the one function that parses a config file
-LAZY_ALLOWED = {("openviic_tpu_torch/config/loader.py", "yaml")}
+BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml", "PIL")
+# PyYAML is imported inside the one function that parses a config file,
+# Pillow inside the one that decodes an image file
+LAZY_ALLOWED = {("openviic_tpu_torch/config/loader.py", "yaml"),
+                ("openviic_tpu_torch/data/extraction.py", "PIL")}
 
 _RUNNER = """
 import runpy, sys
@@ -83,14 +85,15 @@ def test_port_modules_never_import_the_jax_stack():
 
 
 # the trained-artifact decode, the scorers, XE training, the native
-# scorers' binding, SCST, the data side and the trainer lifecycle
+# scorers' binding, SCST, the data side, the trainer lifecycle and serving
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
     "evaluation/ngram", "evaluation/porter", "evaluation/ptb_tokenizer", "evaluation/rouge",
     "training/__init__", "training/optim", "training/steps", "native/__init__", "rng",
     "training/device_reward", "training/trainer", "data/loader", "training/checkpoint",
-    "utils/__init__", "utils/logging", "utils/metrics", "train",
+    "utils/__init__", "utils/logging", "utils/metrics", "train", "serving", "server",
+    "data/extraction", "serve", "predict", "extract_features",
 )
 
 _IMPORT_ALL = """

@@ -172,8 +172,8 @@ def test_pipeline_honours_decode_attn_kernel(monkeypatch):
         "MODEL": model_config(d_feature=D_FEATURE).to_dict(),
         "TRAINING": {"EVALUATING_BEAM_SIZE": 3, "DECODE_ATTN_KERNEL": True},
     })
-    pipe = CaptioningPipeline(config, vocab, state_dict=port_model.state_dict(), batch_size=4,
-                              use_bf16=False, device="cpu")
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, state_dict=port_model.state_dict(),
+                                              batch_size=4, use_bf16=False, device="cpu")
     assert pipe.searcher.attn_kernel and not pipe.searcher.head_kernel
     attn = _Calls(monkeypatch, port_attention, "beam_select_attention")
     feats = make_features(4, n_regions=8, seed=80)

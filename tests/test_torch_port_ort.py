@@ -306,8 +306,8 @@ def test_pipeline_pads_boxes_and_decodes_like_jax(vocab):
     jax_model, jax_params, port_model, _ = make_ort_pair(vocab, trig=True, seed=1)
     config = ConfigNode({"MODEL": ort_config(True).to_dict(),
                          "TRAINING": {"EVALUATING_BEAM_SIZE": 3}})
-    pipe = CaptioningPipeline(config, vocab, state_dict=port_model.state_dict(), batch_size=4,
-                              use_bf16=False, device="cpu")
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, state_dict=port_model.state_dict(),
+                                              batch_size=4, use_bf16=False, device="cpu")
     rng = np.random.default_rng(4)
     images = []
     for i in range(3):

@@ -117,8 +117,8 @@ def test_pipeline_keeps_the_int(head_kernel):
     vocab = make_vocab()
     config = ConfigNode({"MODEL": model_config(d_feature=D_FEATURE).to_dict(),
                          "TRAINING": {"EVALUATING_BEAM_SIZE": 3, "DECODE_HEAD_KERNEL": 3}})
-    pipe = CaptioningPipeline(config, vocab, head_kernel=head_kernel, batch_size=2,
-                              device="cpu")
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, head_kernel=head_kernel,
+                                              batch_size=2, device="cpu")
     want = 3 if head_kernel is None else head_kernel  # None: the config's value
     assert pipe.searcher.head_kernel is want
 

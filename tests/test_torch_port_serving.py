@@ -29,8 +29,8 @@ def _pipeline(vocab, head_kernel, **kwargs):
         "MODEL": model_config(d_feature=D_FEATURE).to_dict(),
         "TRAINING": {"EVALUATING_BEAM_SIZE": 3, "DECODE_HEAD_KERNEL": head_kernel},
     })
-    pipe = CaptioningPipeline(config, vocab, state_dict=port_model.state_dict(),
-                              batch_size=4, device="cpu", **kwargs)
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, state_dict=port_model.state_dict(),
+                                              batch_size=4, device="cpu", **kwargs)
     return pipe, jax_model, jax_params
 
 

@@ -45,13 +45,13 @@ def make_captions(vocab: Vocab, bs: int, n_words: int = 4, seed: int = 0) -> np.
     return tokens
 
 
-def random_params(jax_model, vocab: Vocab, seed: int, eos_gain: float = 1.0):
-    """Flat {"params/a/b": array} drawn with numpy in the JAX layout.
+def random_params(jax_model, vocab: Vocab, seed: int, eos_gain: float = 1.0,
+                  feature_key: str = "region_features", d_feature: int = D_FEATURE):
+    """Flat {"params/a/b": array} drawn with numpy in the JAX layout, over
+    the parameters ``jax_model.init`` makes for ``feature_key`` features.
     ``eos_gain`` scales the head's <eos> column so that beams finish early."""
-    batch = {
-        "region_features": make_features(2),
-        "caption_tokens": make_captions(vocab, 2),
-    }
+    features = np.random.default_rng(0).normal(size=(2, 6, d_feature)).astype(np.float32)
+    batch = {feature_key: features, "caption_tokens": make_captions(vocab, 2)}
     template = jax_model.init(jax.random.PRNGKey(0), batch)
     rng = np.random.default_rng(seed)
     flat = {}
@@ -70,16 +70,68 @@ def random_params(jax_model, vocab: Vocab, seed: int, eos_gain: float = 1.0):
     return flat
 
 
-def make_pair(vocab: Vocab, seed: int = 0, eos_gain: float = 1.0):
+def make_pair(vocab: Vocab, seed: int = 0, eos_gain: float = 1.0,
+              architecture: str = "StandardTransformerUsingRegion", d_feature: int = D_FEATURE):
     """(jax_model, jax_params, port_model) at the test width, same weights;
     the port model is f32 on the CPU."""
-    config = model_config(d_feature=D_FEATURE)
+    config = model_config(architecture=architecture, d_feature=d_feature)
     jax_model = build_jax_model(config, vocab)
-    flat = random_params(jax_model, vocab, seed, eos_gain)
+    key = "grid_features" if architecture == "StandardTransformerUsingGrid" else "region_features"
+    flat = random_params(jax_model, vocab, seed, eos_gain, feature_key=key, d_feature=d_feature)
     port_model = build_port_model(ConfigNode(config.to_dict()), vocab, device="cpu")
     load_jax_params(port_model, flat)
     jax_params = traverse_util.unflatten_dict(flat, sep="/")
     return jax_model, jax_params, port_model
+
+
+def serving_config(checkpoint_path, architecture: str = "StandardTransformerUsingRegion",
+                   d_feature: int = D_FEATURE) -> dict:
+    """A serving config (``MODEL``, ``TRAINING``) as a dict at the test
+    width, its checkpoints under ``checkpoint_path``."""
+    return {
+        "MODEL": model_config(architecture=architecture, d_feature=d_feature).to_dict(),
+        "TRAINING": {"CHECKPOINT_PATH": str(checkpoint_path), "EVALUATING_BEAM_SIZE": 3},
+    }
+
+
+def write_checkpoints(root, jax_vocab, architecture: str = "StandardTransformerUsingRegion",
+                      d_feature: int = D_FEATURE, seed: int = 7, eos_gain: float = 2.0):
+    """The same weights (drawn by ``random_params`` over ``model.init``'s
+    parameters, no training) as a JAX package checkpoint under
+    ``root/jax/<NAME>`` and as the port's under ``root/port/<NAME>``, each
+    beside the JAX ``vocab.bin`` of ``jax_vocab``.  Returns (the JAX
+    config, the port's config), whose ``TRAINING.CHECKPOINT_PATH`` lead
+    there."""
+    import pickle
+
+    from openviic_tpu.config import ConfigNode as JaxConfigNode
+    from openviic_tpu.training.checkpoint import save_checkpoint as jax_save_checkpoint
+    from openviic_tpu_torch.data.vocab import load_vocab
+    from openviic_tpu_torch.training.checkpoint import save_checkpoint
+
+    configs = {}
+    for side in ("jax", "port"):
+        configs[side] = serving_config(root / side, architecture, d_feature)
+        run_dir = root / side / configs[side]["MODEL"]["NAME"]
+        run_dir.mkdir(parents=True)
+        with open(run_dir / "vocab.bin", "wb") as f:
+            pickle.dump(jax_vocab, f)
+    jax_config, port_config = JaxConfigNode(configs["jax"]), ConfigNode(configs["port"])
+    jax_model = build_jax_model(jax_config.MODEL, jax_vocab)
+    key = "grid_features" if architecture == "StandardTransformerUsingGrid" else "region_features"
+    flat = random_params(jax_model, jax_vocab, seed, eos_gain, feature_key=key,
+                         d_feature=d_feature)
+    jax_dir = root / "jax" / jax_config.MODEL.NAME
+    jax_save_checkpoint(str(jax_dir / "best_model.ckpt"),
+                        {"params": traverse_util.unflatten_dict(flat, sep="/"), "opt_state": {},
+                         "step": 0, "rng": jax.random.key(0)}, {"epoch": 0})
+    port_dir = root / "port" / port_config.MODEL.NAME
+    port_model = build_port_model(port_config.MODEL, load_vocab(port_dir / "vocab.bin"),
+                                  device="cpu")
+    load_jax_params(port_model, flat)
+    save_checkpoint(str(port_dir / "best_model.ckpt"), port_model,
+                    {"step": 0, "generator": torch.Generator().manual_seed(0)}, {"epoch": 0})
+    return jax_config, port_config
 
 
 def test_weight_carry_matches_every_key():
