@@ -148,16 +148,35 @@ On the card it runs these phases, each printing its seconds:
    head_topk and beam_select_attention on their inputs from the first
    val decode, the first test prediction and the second SCST iteration,
    against their plain versions;
-14. the last line: ``{"ok": true, "device": {...}}``.
+14. region families: AoA, augmented memory, Meshed-Memory and CAMO
+   (``configs/attention_on_attention.yaml``, ``augmented_memory_transformer``,
+   ``meshed_memory_transformer``, ``camo_transformer``: d_model 512, 8
+   heads (CAMO's encoder: 1), 3+3 layers, d_ff 2048, 40 memory slots,
+   random weights from a seed, beam 3, bf16), each serving one request of
+   320 images of 50 regions through ``CaptioningPipeline``: the tuned path
+   (head kernel forced, beam-select kernel on) against eager fast select;
+   ``resident_kernel`` and ``OPENVIIC_FUSED_STEP=1`` (one launch a layer
+   and step on augmented memory and CAMO, none on AoA, whose gate the
+   kernels bypass; on M² ``resident_kernel`` raises, as the JAX package
+   fails there); ``OPENVIIC_PALLAS=1`` (fused_attention once an encoder
+   layer, CAMO's two cross-layer calls besides); launches, valid ids,
+   score parity, captions/s and forced decodes for each; head_topk,
+   beam_select_attention, fused_attention (96 keys with the slots; one
+   head) and CAMO's resident_layer_step on their captured inputs against
+   their plain versions, timed beside their bounds; f32 decodes of 16
+   images on the card against its host's CPU (>= 99% identical); 10 bf16
+   XE steps at batch 60 whose loss must fall, ms per step, peak memory;
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
-its launches on its decode path, error, times and bound); the line before
-that is the card's name and power limit.  Any failure raises, and the
-script exits non-zero without those lines.  ``--cpu`` runs phases 3-13 at
-tiny widths with the plain versions on the CPU (the artifact's first 2
-images; the serving cell at batch 8, 16 requests from 4 clients; XE,
-SCST and the trainer at tiny widths) and ends with ``cpu rehearsal ok``
-instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
+its launches on its decode path, error, times and bound, and its launches
+and cases in the families phase); the line before that is the card's
+name and power limit.  Any failure raises, and the script exits non-zero
+without those lines.  ``--cpu`` runs phases 3-14 at tiny widths with the
+plain versions on the CPU (the artifact's first 2 images; the serving
+cell at batch 8, 16 requests from 4 clients; XE, SCST and the trainer at
+tiny widths; the families on 2 images and 6 steps) and ends with ``cpu
+rehearsal ok`` instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
 but the serving and trainer phases' temporary directories, which it
 deletes.
 """
@@ -509,9 +528,10 @@ def agreement(results, other) -> float:
     return float(np.mean([a == b for a, b in pairs]))
 
 
-def throughput(s, seconds) -> float:
-    """Captions per second over the two full-batch requests."""
-    return 2 * s["batch"] / (seconds[0] + seconds[1])
+def throughput(s, requests, seconds) -> float:
+    """Captions per second over the full-batch requests."""
+    full = [(len(r), t) for r, t in zip(requests, seconds) if len(r) == s["batch"]]
+    return sum(n for n, _ in full) / sum(t for _, t in full)
 
 
 def serve_phase(device, s, card: str):
@@ -544,7 +564,7 @@ def serve_phase(device, s, card: str):
         f"{[len(r) for r in requests]}: {[round(t, 4) for t in seconds]} s; "
         f"{steps} decode steps, {launches} head_topk launches")
     log(f"  decode throughput at batch {s['batch']}, beam {s['beam']}: "
-        f"{throughput(s, seconds):.1f} captions/s on {card}")
+        f"{throughput(s, requests, seconds):.1f} captions/s on {card}")
     auto = BeamSearcher(pipe.model, head_kernel=True).effective_head_kernel(
         pipe._batch(requests[0]), s["beam"])
     log(f"  head_kernel=True (the auto gate) resolves to {auto} at {s['batch']} images x "
@@ -1065,14 +1085,14 @@ def searcher_decode(pipe, searcher, vocab, beam):
 
 def drive(name, device, s, vocab, requests, searcher, decode, card, per_step=None,
           per_request=None):
-    """Warm up (on the card), zero every count, run the requests, read the
-    counts.  ``per_step`` and ``per_request`` map kernel names to their
-    launches per decode step and per request; every other kernel must not
-    launch.  Returns (results, launches by name)."""
+    """Warm up (on the card, on the last request), zero every count, run
+    the requests, read the counts.  ``per_step`` and ``per_request`` map
+    kernel names to their launches per decode step and per request; every
+    other kernel must not launch.  Returns (results, launches by name)."""
     cuda = device.type == "cuda"
     counted = counted_wrappers()
     if cuda:
-        decode(requests[2])
+        decode(requests[-1])
         sync(device)
     for fn in counted:
         fn.launches = 0
@@ -1089,7 +1109,7 @@ def drive(name, device, s, vocab, requests, searcher, decode, card, per_step=Non
                              f"{len(requests)} requests, expected {want}")
     check_outputs(name, s, vocab, requests, results)
     log(f"  {name}: {[round(t, 4) for t in seconds]} s per request, "
-        f"{throughput(s, seconds):.1f} captions/s on {card}; {steps} steps, launches "
+        f"{throughput(s, requests, seconds):.1f} captions/s on {card}; {steps} steps, launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     return results, launches
 
@@ -3763,6 +3783,332 @@ def trainer_phase_apart(device, s, card: str, loaded):
     return json.loads(lines[-1])
 
 
+# ---------------------------------------------------------------- phase 14
+# the single-stream region families: name -> configs/<yaml>.yaml (its tuned
+# twin is configs/tpu/<yaml>.yaml, with the same MODEL tree but NAME)
+FAMILIES = {
+    "aoa": "attention_on_attention",
+    "augmented_memory": "augmented_memory_transformer",
+    "meshed_memory": "meshed_memory_transformer",
+    "camo": "camo_transformer",
+}
+FAMILY_BEAM = 3  # the yamls' EVALUATING_BEAM_SIZE
+FAMILY_LAYERS = 3  # the yamls' 3 + 3 (CAMO's encoder unpacks exactly three)
+FAMILY_XE_STEPS = 10  # the rehearsal: 4
+# the rehearsal's cuts: 2 images, captions of 6 words (the CPU rehearsal
+# runs inside a test's time limit)
+FAMILY_REHEARSAL = dict(batch=2, max_len=6)
+FAMILY_XE_BATCH = 60  # the yamls' FEATURE_BATCH_SIZE
+FAMILY_XE_WARMUP = 10_000  # their WARMUP
+FAMILY_F32_IMAGES = 16
+FAMILY_F32_AGREEMENT_MIN = 0.99
+# the families whose decoder layers the whole-layer kernels run (plain SDPA
+# and no AoA gate); AoA's layers bypass them, M²'s raise under resident_kernel
+LAYER_KERNEL_FAMILIES = ("augmented_memory", "camo")
+
+
+def family_model(name: str, s) -> dict:
+    """The MODEL tree of ``configs/<FAMILIES[name]>.yaml`` at the widths of
+    ``s``: at FLAGSHIP's the yaml's own tree
+    (``tests/test_torch_port_families_configs.py`` holds it to that), since
+    the card's machine has no PyYAML to read it."""
+    d, h, ff = s["d_model"], s["heads"], s["d_ff"]
+    aoa = name == "aoa"
+    memory = "AugmentedMemoryScaledDotProductAttention"
+
+    def attn(arch="ScaledDotProductAttention", heads=h, stateful=False, slots=False):
+        node = {"ARCHITECTURE": arch, "HEAD": heads, "D_MODEL": d, "D_KEY": d // h,
+                "D_VALUE": d // h, "D_FF": ff, "D_FEATURE": ff, "USE_AOA": aoa,
+                "CAN_BE_STATEFUL": stateful, "DROPOUT": 0.1}
+        return dict(node, MEMORY=40) if slots else node
+
+    run_name, architecture, encoder, decoder, enc_attention = {
+        "aoa": ("aoa_region_x152++", "StandardTransformerUsingRegion", "Encoder", "Decoder",
+                attn(slots=True)),
+        "augmented_memory": ("aug_mem_region_x152++", "MeshedMemoryTransformer", "Encoder",
+                             "Decoder", attn(memory, slots=True)),
+        "meshed_memory": ("m2_region_x152++", "MeshedMemoryTransformer", "MultilevelEncoder",
+                          "MeshedDecoder", attn(memory, slots=True)),
+        "camo": ("camo_transformer_region_x152_faster_rcnn", "CamoTransformer",
+                 "CrossAttentionMultiLevelEncoder", "Decoder", attn(heads=1, slots=True)),
+    }[name]
+    dec_attention = {"SELF_ATTENTION": attn(stateful=True), "ENC_ATTENTION": attn()}
+    if architecture == "MeshedMemoryTransformer":
+        dec_attention.update(N_ENCODER_LAYERS=FAMILY_LAYERS, D_MODEL=d)
+    return {
+        "ARCHITECTURE": architecture, "NAME": run_name, "DEVICE": "tpu",
+        "VISION_EMBEDDING": {"ARCHITECTURE": "FeatureEmbedding", "D_FEATURE": s["d_feature"],
+                             "D_MODEL": d, "DROPOUT": 0.1},
+        "ENCODER": {"ARCHITECTURE": encoder, "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
+                    "SELF_ATTENTION": enc_attention},
+        "DECODER": {"ARCHITECTURE": decoder, "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
+                    "ATTENTION": dec_attention,
+                    "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
+                                       "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
+                                       "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1}},
+    }
+
+
+def family_config(name: str, s, kernels: bool = True):
+    """The family's MODEL and the pipeline's decode switches: the yamls'
+    beam; with ``kernels`` the head kernel forced and the beam-select
+    kernel on (both take bf16 only), else neither."""
+    from openviic_tpu_torch.config import ConfigNode
+
+    return ConfigNode({"MODEL": family_model(name, s),
+                       "TRAINING": {"EVALUATING_BEAM_SIZE": FAMILY_BEAM,
+                                    "DECODE_HEAD_KERNEL": 1 if kernels else False,
+                                    "DECODE_ATTN_KERNEL": kernels}})
+
+
+def family_xe_batch(gen, s, vocab, n: int, device):
+    """``n`` random images and ragged random captions (<bos> words <eos>,
+    then <pad>) as a teacher-forcing batch on ``device``."""
+    L = vocab.max_caption_length
+    feats = torch.randn((n, s["n_regions"], s["d_feature"]), generator=gen)
+    lengths = torch.randint(3, L - 1, (n, 1), generator=gen)
+    words = torch.randint(4, len(vocab), (n, L), generator=gen)
+    words[:, 0] = vocab.bos_idx
+    pos = torch.arange(L)[None, :]
+    pad = torch.tensor(vocab.padding_idx)
+    tokens = torch.where(pos <= lengths, words, pad)
+    following = torch.cat([words[:, 1:], torch.full((n, 1), vocab.padding_idx)], dim=1)
+    targets = torch.where(pos < lengths, following,
+                          torch.where(pos == lengths, torch.tensor(vocab.eos_idx), pad))
+    batch = {"region_features": feats, "caption_tokens": tokens,
+             "shifted_right_caption_tokens": targets}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def family_xe(device, s, name: str, vocab, card: str):
+    """FAMILY_XE_STEPS XE steps of the family at bf16 mixed precision,
+    dropout 0.1, on one batch of FAMILY_XE_BATCH random images and
+    captions (the rehearsal: 4 steps at batch 4), with Adam at the Noam
+    schedule's peak (fast-forwarded to step FAMILY_XE_WARMUP: at its start
+    the yamls' lr, about 4e-8, moves nothing in 10 steps): the losses must
+    be finite and fall (the mean of the last 3 below the first); ms per
+    step (CUDA events) and peak memory on the card."""
+    from openviic_tpu_torch.builders import build_model
+    from openviic_tpu_torch.training import optim, steps
+
+    cuda = device.type == "cuda"
+    batch = family_xe_batch(torch.Generator().manual_seed(21), s, vocab,
+                            FAMILY_XE_BATCH if cuda else 4, device)
+    n_steps = FAMILY_XE_STEPS if cuda else 4
+    if cuda:
+        gc.collect()
+        sync(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(family_config(name, s).MODEL, vocab, device=device, seed=5)
+    opt, sched = optim.make_optimizer(model.parameters(), s["d_model"], FAMILY_XE_WARMUP)
+    optim.fast_forward_schedule(opt, sched, FAMILY_XE_WARMUP)
+    state = steps.init_xe_state(model, opt, sched, seed=1)
+    step = steps.make_xe_step(model, mixed_precision=True)
+    losses, ms = [], []
+    for _ in range(n_steps):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        state, loss = step(state, batch)
+        if cuda:
+            end.record()
+            sync(device)
+            ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30 if cuda else None
+    del model, state, step, opt
+    if not np.isfinite(losses).all() or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{name} XE: losses {losses} not finite or not falling")
+    out = dict(losses=losses)
+    line = (f"  {name} XE, {n_steps} bf16 steps at batch {len(batch['caption_tokens'])}: "
+            f"losses {[round(x, 4) for x in losses]}")
+    if cuda:
+        out.update(step_ms=float(np.median(ms[1:])), first_ms=ms[0], peak_gib=peak)
+        line += (f"; {out['step_ms']:.3f} ms a step (median of steps 2-{FAMILY_XE_STEPS}; first "
+                 f"{ms[0]:.3f}), peak memory {peak:.3f} GiB on {card}")
+    log(line)
+    return out
+
+
+def families_phase(device, s, card: str):
+    """The four single-stream region families (``FAMILIES``: AoA,
+    augmented memory, Meshed-Memory, CAMO) at the widths of ``s`` with the
+    yamls' 3 + 3 layers, 40 memory slots and beam 3, random weights from a
+    seed, bf16, each served one request of ``s["batch"]`` images of
+    ``s["n_regions"]`` regions through ``CaptioningPipeline`` (its tuned
+    path: the head kernel forced, the beam-select kernel on):
+
+    - the tuned path against its eager twin (fast select, no kernel): one
+      head_topk a step and one beam_select_attention a layer and step;
+    - (b) ``resident_kernel`` and (c) the non-resident path with
+      ``OPENVIIC_FUSED_STEP=1`` against the same without the flag: one
+      layer kernel a layer and step for augmented memory and CAMO, none
+      for AoA (the gate bypasses them); on M² ``resident_kernel`` raises
+      (the JAX package fails there);
+    - ``OPENVIIC_PALLAS=1`` on the tuned path: fused_attention once an
+      encoder layer and request (CAMO: also its two ``self_attn`` calls),
+      against the tuned path without the flag;
+
+    (the rehearsal: FAMILY_REHEARSAL's 2 images and 6 steps), each with
+    its launches, valid ids, the mean best-beam log-prob within
+    SCORE_RTOL of its twin's, captions/s, and the forced decode of the
+    tuned path's captions through each kernel path against the eager step
+    (within FORCED_ATOL on FORCED_SHARE of the steps).  Then head_topk,
+    beam_select_attention and fused_attention (nk = padded regions + 40
+    slots; CAMO's single head) on their inputs captured from the decodes,
+    and CAMO's resident_layer_step, against their plain versions and timed
+    beside their bounds; an f32 decode of FAMILY_F32_IMAGES images on the
+    card against its host's CPU (>= FAMILY_F32_AGREEMENT_MIN identical
+    captions; the card only); and ``family_xe``.  Returns {"launches":
+    {kernel: {family: {path: n}}}, "kernels": cases, "families": figures}."""
+    import importlib
+
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.models import decoders as decoders_module
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    if not cuda:
+        s = dict(s, **FAMILY_REHEARSAL)
+    vocab = make_vocab(s)
+    rng = np.random.default_rng(14)
+    feats = rng.standard_normal((s["batch"], s["n_regions"], s["d_feature"]), dtype=np.float32)
+    request = [{"region_features": f} for f in feats]
+    requests = [request]  # drive warms each path up on it: its shapes' first use
+    launches, figures, captured = {}, {}, {}
+
+    for i, name in enumerate(FAMILIES):
+        t0 = time.perf_counter()
+        pipe = CaptioningPipeline.from_state_dict(family_config(name, s), vocab,
+                                                  batch_size=s["batch"], device=device,
+                                                  seed=30 + i)
+        model = pipe.model
+        n_dec = len(model.decoder.layers)
+        n_enc = len(model.encoder.layers) + (2 if name == "camo" else 0)
+        per_path, f32_same = {}, None
+
+        def run(path, searcher, decode, **expect):
+            results, counts = drive(f"{name} {path}", device, s, vocab, requests, searcher,
+                                    decode, card, **expect)
+            per_path[path] = {k: v for k, v in counts.items() if v}
+            return results
+
+        def searched(searcher):
+            return searcher_decode(pipe, searcher, vocab, FAMILY_BEAM)
+
+        served = lambda r: pipe.caption_features(r, return_ids=True)  # noqa: E731
+        tuned = run("tuned", pipe.searcher, served,
+                    per_step={"head_topk": 1, "beam_select_attention": n_dec})
+        tuned = rescore(device, requests, searched(pipe.searcher), tuned, f"{name} tuned")
+        eager_searcher = BeamSearcher(model, torch.bfloat16)
+        eager = run("eager", eager_searcher, searched(eager_searcher))
+        score_parity(f"{name} tuned", tuned, eager, "its eager twin")
+
+        kernel_family = name in LAYER_KERNEL_FAMILIES
+        resident = BeamSearcher(model, torch.bfloat16, head_kernel=1, resident_kernel=True)
+        if name == "meshed_memory":
+            try:
+                resident(pipe._batch(request), FAMILY_BEAM)
+            except ValueError as exc:
+                if "resident_kernel does not run MeshedDecoder" not in str(exc):
+                    raise
+                log(f"  {name} (b) resident_kernel raises, as the JAX package fails: {exc}")
+            else:
+                raise AssertionError("resident_kernel ran on MeshedDecoder")
+        else:
+            res_b = run("(b) resident_kernel", resident, searched(resident),
+                        per_step={"head_topk": 1,
+                                  "resident_layer_step": n_dec if kernel_family else 0})
+            score_parity(f"{name} (b)", res_b, eager, "its eager twin")
+            non_resident = BeamSearcher(model, torch.bfloat16, beam_resident=False)
+            res_nr = run("(c) non-resident", non_resident, searched(non_resident))
+            with env_flag("OPENVIIC_FUSED_STEP"):
+                res_c = run("(c) non-resident, OPENVIIC_FUSED_STEP=1", non_resident,
+                            searched(non_resident),
+                            per_step={"fused_layer_step": n_dec if kernel_family else 0})
+            score_parity(f"{name} (c)", res_c, res_nr, "the non-resident path without the flag")
+        with env_flag("OPENVIIC_PALLAS"):
+            res_d = run("OPENVIIC_PALLAS=1", pipe.searcher, served,
+                        per_step={"head_topk": 1, "beam_select_attention": n_dec},
+                        per_request={"fused_attention": n_enc})
+            res_d = rescore(device, requests, searched(pipe.searcher), res_d, f"{name} pallas")
+        score_parity(f"{name} OPENVIIC_PALLAS=1", res_d, tuned, "its tuned path")
+
+        # the forced decode of the tuned path's captions through each path
+        ids = torch.from_numpy(tuned[0][1]).to(device)
+        batch = pipe._batch(request)
+
+        def forced(resident_, **flags):
+            return forced_scores(model, batch, ids, vocab, resident_, **flags)
+
+        eager_step = forced(True)
+        check_forced(f"{name} attention kernel against the eager step", ids, vocab,
+                     forced(True, attn_kernel=True), eager_step)
+        if kernel_family:
+            check_forced(f"{name} resident kernel against the eager step", ids, vocab,
+                         forced(True, resident_kernel=True), eager_step)
+            eager_nr = forced(False)
+            with env_flag("OPENVIIC_FUSED_STEP"):
+                check_forced(f"{name} fused step against the eager non-resident step", ids,
+                             vocab, forced(False), eager_nr)
+        with env_flag("OPENVIIC_PALLAS"):
+            check_forced(f"{name} OPENVIIC_PALLAS=1 against the eager step", ids, vocab,
+                         forced(True), eager_step)
+
+        # kernel inputs from this family's decodes (on the card)
+        # (the rehearsal captures CAMO's, whose decodes give every kind)
+        if name == "camo" or (cuda and name != "aoa"):
+            captures = [("head_topk", beam_search_module, "head_topk", 1, 0),
+                        ("beam_select_attention", attention_module, "beam_select_attention",
+                         n_dec, 0)]
+            with contextlib.ExitStack() as stack:
+                kept = {key: stack.enter_context(capture_calls(mod, attr, every, first))
+                        for key, mod, attr, every, first in captures}
+                served(request)
+            if name == "camo":
+                with capture_calls(decoders_module, "resident_layer_step", n_dec, 0) as res_kept:
+                    resident(pipe._batch(request), FAMILY_BEAM)
+                kept["resident_layer_step"] = res_kept
+            with env_flag("OPENVIIC_PALLAS"), capture_calls(
+                    attention_module, "fused_attention", 10 ** 9, 0) as enc_kept:
+                served(request)
+            kept["fused_attention_encoder"] = enc_kept
+            captured[name] = kept
+
+        # f32: the card against its host's CPU
+        if cuda:
+            few = request[:FAMILY_F32_IMAGES]
+
+            def f32_captions(dev):
+                return CaptioningPipeline.from_state_dict(
+                    family_config(name, s, kernels=False), vocab, batch_size=len(few),
+                    use_bf16=False, device=dev, seed=30 + i).caption_features(few)
+            card_caps, cpu_caps = f32_captions(device), f32_captions("cpu")
+            f32_same = float(np.mean([a == b for a, b in zip(card_caps, cpu_caps)]))
+            log(f"  {name} f32 decode of {len(few)} images: captions identical on the card and "
+                f"its host's CPU {f32_same:.4f}")
+            if f32_same < FAMILY_F32_AGREEMENT_MIN:
+                raise AssertionError(f"{name} f32 card against CPU: {f32_same:.4f} identical < "
+                                     f"{FAMILY_F32_AGREEMENT_MIN}")
+        del pipe, model, resident
+        xe = family_xe(device, s, name, vocab, card)
+        figures[name] = dict(launches=per_path, f32_card_cpu_agreement=f32_same, xe=xe,
+                             seconds=time.perf_counter() - t0)
+        for path, counts in per_path.items():
+            for kernel, n in counts.items():
+                launches.setdefault(kernel, {}).setdefault(name, {})[path] = n
+        log(f"  {name}: {figures[name]['seconds']:.3f} s")
+
+    cases = {}
+    for name, kept in captured.items():
+        for kernel, rows in trained_kernel_cases(device, kept, what=f"{name} decode").items():
+            cases.setdefault(kernel, []).extend(dict(r, family=name) for r in rows)
+    return dict(launches=launches, kernels=cases, families=figures)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3867,7 +4213,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-13 at tiny widths on the CPU")
+                        help="rehearse phases 3-14 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
@@ -3927,7 +4273,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-13.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-14.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -3968,6 +4314,7 @@ def all_phases(device, s, card: str):
                 scst = timed("SCST", lambda: scst_phase(device, s, card, loaded))
             finally:
                 trainer = timed("trainer", lambda: trainer_phase_apart(device, s, card, loaded))
+    families = timed("region families", lambda: families_phase(device, s, card))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -3992,6 +4339,12 @@ def all_phases(device, s, card: str):
                                images=images, directory=directory)
     found[1]["serving"] = {run: dict(launches=serving[run]["launches"]["beam_select_attention"])
                            for run in ("http", "batcher")}
+    for e in found:
+        e["families"] = families["launches"].get(e["name"], {})
+        e["families_cases"] = families["kernels"].get(e["name"], [])
+    found[0]["families_xe"] = {name: f["xe"] for name, f in families["families"].items()}
+    found[0]["families_f32_card_cpu_agreement"] = {
+        name: f["f32_card_cpu_agreement"] for name, f in families["families"].items()}
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

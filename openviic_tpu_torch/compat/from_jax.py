@@ -9,6 +9,8 @@ key format of ``params_f16.npz`` and of a Flax parameter tree flattened with
   ``scale``      -> ``weight``          (LayerNorm)
   ``embedding``  -> ``weight``          (the token embedding table)
   ``bias``       -> ``bias``
+  ``m_k``, ``m_v`` -> the same name (the augmented memory's raw slots,
+                    (1, m, h * d), not transposed)
 
 The vocab head ``decoder/fc/kernel`` (D, V) becomes ``decoder.fc.weight``
 (V, D): one contiguous row per vocab id, the layout ``ops/head_topk.py``
@@ -22,7 +24,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+         "m_k": "m_k", "m_v": "m_v"}
 
 
 def torch_name(jax_key: str) -> Tuple[str, bool]:

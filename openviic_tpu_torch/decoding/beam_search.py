@@ -180,11 +180,12 @@ def _reorder_cache(cache, selected_beam):
 
 
 def _supports_beam_resident(model) -> bool:
-    """Beam-resident decode needs plain SDPA attention in the decoder."""
+    """Beam-resident decode needs plain SDPA attention in a ``Decoder`` or
+    ``MeshedDecoder`` (the JAX gate)."""
     dec = model.config.DECODER
     att = dec.ATTENTION
     return (
-        dec.ARCHITECTURE == "Decoder"
+        dec.ARCHITECTURE in ("Decoder", "MeshedDecoder")
         and att.SELF_ATTENTION.ARCHITECTURE == "ScaledDotProductAttention"
         and att.ENC_ATTENTION.ARCHITECTURE == "ScaledDotProductAttention"
     )

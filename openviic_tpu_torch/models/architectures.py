@@ -1,6 +1,8 @@
 """Registered captioning architectures (counterpart of
-``openviic_tpu/models/architectures.py``): ``StandardTransformerUsingRegion``,
-``StandardTransformerUsingGrid`` and ``ObjectRelationTransformer``."""
+``openviic_tpu/models/architectures.py``): the single-stream shells
+``StandardTransformerUsingRegion``, ``StandardTransformerUsingGrid``,
+``MeshedMemoryTransformer`` and ``CamoTransformer`` (one vision stream into
+the encoder their config names), and ``ObjectRelationTransformer``."""
 
 from __future__ import annotations
 
@@ -37,6 +39,16 @@ class StandardTransformerUsingGrid(StandardTransformerUsingRegion):
     """The same model over ``batch["grid_features"]``."""
 
     feature_key = "grid_features"
+
+
+@META_ARCHITECTURE.register()
+class MeshedMemoryTransformer(StandardTransformerUsingRegion):
+    """The shell of the Meshed-Memory and the augmented-memory configs."""
+
+
+@META_ARCHITECTURE.register()
+class CamoTransformer(StandardTransformerUsingRegion):
+    """The shell of the CAMO config."""
 
 
 @META_ARCHITECTURE.register()

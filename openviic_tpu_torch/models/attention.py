@@ -16,7 +16,16 @@ instead and, as the JAX ``_attend`` does, returns its float32 output
 uncast: the output projection then runs in f32 (Flax promotes the bf16
 weights; the port promotes them explicitly, ``promoted_linear``), and the
 residual and LayerNorm of ``MultiHeadAttention._finish`` too, which rounds
-back to the queries' dtype once."""
+back to the queries' dtype once.
+
+``AugmentedMemoryScaledDotProductAttention`` appends its learnt memory
+slots to K and V in float32, as the JAX package does (its f32 scale
+factors make the slots, and with them K and V, f32 at bf16); under
+``OPENVIIC_PALLAS`` ``_attend`` then hands the kernel q, k and v in their
+promoted dtype, as the JAX kernel casts all three to f32 itself.
+``MultiHeadAttention`` applies the Attention-on-Attention gate
+(``USE_AOA``) after its residual on every path: the cache-free forward
+and both decode paths."""
 
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import torch
 from torch import nn
 
 from openviic_tpu_torch.builders import META_ATTENTION, build_attention
-from openviic_tpu_torch.models.initializers import XavierLinear
+from openviic_tpu_torch.models.initializers import TorchLinear, XavierLinear, normal_init
 from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
 from openviic_tpu_torch.ops.fused_attention import NEG, fused_attention, pallas_enabled
 from openviic_tpu_torch.ops.geo_attention import geo_fused_attention
@@ -80,8 +89,12 @@ def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
     With ``OPENVIIC_PALLAS`` (``pallas_enabled``) the mask becomes a -1e30
     bias (in the bias's dtype, as JAX's weakly typed ``jnp.where`` adds to
     it), and ``ops.fused_attention``'s float32 output is returned uncast,
-    as in the JAX package; a fully masked row is then uniform."""
+    as in the JAX package; a fully masked row is then uniform.  q, k and v
+    of mixed dtypes (the augmented memory's f32 K/V under bf16 queries) go
+    to the kernel in their promoted dtype, since it takes one."""
     if pallas_enabled():
+        common = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        q, k, v = q.to(common), k.to(common), v.to(common)
         total = bias
         if mask is not None:
             dtype = torch.float32 if bias is None else bias.dtype
@@ -98,9 +111,9 @@ def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
     return torch.einsum("bhqk,bkhd->bqhd", att, v.float()).to(q.dtype)
 
 
-@META_ATTENTION.register()
-class ScaledDotProductAttention(nn.Module):
-    """Plain scaled dot-product multi-head attention kernel."""
+class _Projections(nn.Module):
+    """The q/k/v/o projections every attention kernel has (xavier kernels,
+    zero biases; the JAX ``_ProjectionMixin``)."""
 
     def __init__(self, config):
         super().__init__()
@@ -124,6 +137,11 @@ class ScaledDotProductAttention(nn.Module):
     def output(self, out):
         bs, nq = out.shape[:2]
         return promoted_linear(self.fc_o, out.reshape(bs, nq, self.h * self.d_v))
+
+
+@META_ATTENTION.register()
+class ScaledDotProductAttention(_Projections):
+    """Plain scaled dot-product multi-head attention kernel."""
 
     def forward(self, queries, keys, values, attention_mask=None):
         q = self.project_q(queries)
@@ -229,24 +247,69 @@ class AugmentedGeometryScaledDotProductAttention(ScaledDotProductAttention):
         return self.output(_attend(q, k, v, self.d_k, attention_mask, bias=bias))
 
 
+@META_ATTENTION.register()
+class AugmentedMemoryScaledDotProductAttention(_Projections):
+    """SDPA with ``MEMORY`` learnt slots appended to K and V (JAX
+    ``AugmentedMemoryScaledDotProductAttention``): ``m_k`` scaled by
+    sqrt(d_k) and ``m_v`` by sqrt(m), in float32, form an unmasked suffix
+    of m keys.  The f32 slots make K and V f32 at any compute dtype (the
+    projected rows enter exactly), as in the JAX package.  Like the JAX
+    class it has no decode path: the shipped configs use it in encoders."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.m = config.MEMORY
+        self.m_k = nn.Parameter(torch.empty(1, self.m, self.h * self.d_k))
+        self.m_v = nn.Parameter(torch.empty(1, self.m, self.h * self.d_v))
+
+    def reset_with(self, generator: torch.Generator) -> None:
+        normal_init(self.m_k, 1.0 / self.d_k, generator)
+        normal_init(self.m_v, 1.0 / self.m, generator)
+
+    def forward(self, queries, keys, values, attention_mask=None):
+        bs, nk = keys.shape[:2]
+
+        def scaled(slots, n):  # sqrt(n) * slots, an f32 product as in JAX
+            dtype = torch.promote_types(slots.dtype, torch.float32)
+            root = torch.sqrt(torch.tensor(float(n), dtype=dtype, device=slots.device))
+            return (root * slots.to(dtype)).expand(bs, -1, -1)
+        k = torch.cat([self.fc_k(keys), scaled(self.m_k, self.d_k)], dim=1)
+        v = torch.cat([self.fc_v(values), scaled(self.m_v, self.m)], dim=1)
+        k = k.reshape(bs, nk + self.m, self.h, self.d_k)
+        v = v.reshape(bs, nk + self.m, self.h, self.d_v)
+        if attention_mask is not None:  # the slots are never masked
+            slots = attention_mask.new_zeros(attention_mask.shape[:-1] + (self.m,))
+            attention_mask = torch.cat([attention_mask, slots], dim=-1)
+        return self.output(_attend(self.project_q(queries), k, v, self.d_k, attention_mask))
+
+
 class MultiHeadAttention(nn.Module):
-    """Attention kernel + dropout + post-LN residual (AoA gating is not
-    ported).  ``forward`` is the cache-free path; ``decode_self`` and
-    ``decode_cross`` are the two cached decode paths of the JAX
-    ``__call__(cache=...)``."""
+    """Attention kernel + dropout + post-LN residual, then with ``USE_AOA``
+    the Attention-on-Attention gate: informative(x) * sigmoid(gated(x)) of
+    x = [queries, out], two linears of fan-in 2 d_model.  ``forward`` is
+    the cache-free path; ``decode_self`` and ``decode_cross`` are the two
+    cached decode paths of the JAX ``__call__(cache=...)``; all three end
+    in ``_finish``."""
 
     def __init__(self, config):
         super().__init__()
-        if config.USE_AOA:
-            raise NotImplementedError("AoA gating is not ported yet")
+        self.use_aoa = bool(config.USE_AOA)
+        if self.use_aoa:
+            self.informative_attention = TorchLinear(2 * config.D_MODEL, config.D_MODEL)
+            self.gated_attention = TorchLinear(2 * config.D_MODEL, config.D_MODEL)
         self.attention = build_attention(config)
         self.dropout = nn.Dropout(config.DROPOUT)
         self.layer_norm = nn.LayerNorm(config.D_MODEL, eps=1e-5)
 
     def _finish(self, queries, out):
         """Post-LN residual, rounded to the queries' dtype once (JAX
-        ``_finish``'s ``.astype``); see ``residual_layer_norm``."""
-        return residual_layer_norm(self.layer_norm, queries, self.dropout(out))
+        ``_finish``'s ``.astype``; see ``residual_layer_norm``), then the
+        AoA gate."""
+        out = residual_layer_norm(self.layer_norm, queries, self.dropout(out))
+        if self.use_aoa:
+            x = torch.cat([queries, out], dim=-1)
+            out = self.informative_attention(x) * torch.sigmoid(self.gated_attention(x))
+        return out
 
     def forward(self, queries, keys, values, attention_mask=None, **kwargs):
         """``kwargs`` go to the attention (the geometry of the Object

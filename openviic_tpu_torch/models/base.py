@@ -16,8 +16,9 @@ from openviic_tpu_torch.models.decoders import DecodeCache
 def make_decode_cache(decoder_config, vocab, batch_size: int,
                       dtype=torch.float32, device="cpu") -> DecodeCache:
     """A zero DecodeCache from config shapes (no parameters needed); the
-    cross-attention entries are filled by ``prepare_cache``."""
-    if decoder_config.ARCHITECTURE != "Decoder":
+    cross-attention entries are filled by ``prepare_cache``.  ``Decoder``
+    and ``MeshedDecoder`` share its layout."""
+    if decoder_config.ARCHITECTURE not in ("Decoder", "MeshedDecoder"):
         raise NotImplementedError(
             f"decode cache for {decoder_config.ARCHITECTURE} is not ported yet"
         )

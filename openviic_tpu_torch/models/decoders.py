@@ -1,5 +1,6 @@
-"""Caption decoder (counterpart of ``openviic_tpu/models/decoders.py``:
-``DecoderLayer``, ``_DecoderBase``, ``Decoder``).
+"""Caption decoders (counterpart of ``openviic_tpu/models/decoders.py``:
+``DecoderLayer``, ``MeshedDecoderLayer``, ``_DecoderBase``, ``Decoder``,
+``MeshedDecoder``).
 
 Teacher-forced and step decoding share the weights.  Step decoding threads
 an explicit DecodeCache dict: per layer ``{"self": {"k", "v"}, "cross":
@@ -16,7 +17,13 @@ A layer's decode step can also run as one kernel, as in the JAX package:
 ``resident_kernel`` on the beam-resident path (``ops.resident_layer_step``)
 and ``OPENVIIC_FUSED_STEP=1`` on the non-resident path
 (``ops.fused_layer_step``); both read the layer's weight pack
-(``DecoderLayer.fused_weights``), built once per dtype.
+(``DecoderLayer.fused_weights``), built once per dtype.  Neither runs a
+layer with the Attention-on-Attention gate, which they do not implement.
+
+The Meshed-Memory decoder's layers cross-attend each of the encoder's N
+levels (memory (bs, N, n, d)) with one shared ``enc_attn`` and fuse them
+through sigmoid gates.  It has no whole-layer kernel; ``resident_kernel``
+on it raises, where the JAX package fails (see ``MeshedDecoderLayer.step``).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from torch import nn
 from openviic_tpu_torch.builders import META_DECODER, build_text_embedding
 from openviic_tpu_torch.models.attention import MultiHeadAttention
 from openviic_tpu_torch.models.ffn import make_pwff
-from openviic_tpu_torch.models.initializers import TorchLinear
+from openviic_tpu_torch.models.initializers import TorchLinear, XavierLinear
 from openviic_tpu_torch.models.masks import (
     generate_padding_mask,
     generate_sequential_mask,
@@ -39,6 +46,18 @@ from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step, fused_st
 from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
 
 DecodeCache = Dict[str, Any]
+
+
+def _decode_self(self_attn, queries, layer_cache, decode_index, self_attention_mask,
+                 ancestry, options):
+    """A layer's self-attention decode step with the decoder's attention
+    ``options`` (``beam_select``, ``mask_axis``, ``attn_kernel``)."""
+    return self_attn.decode_self(
+        queries, layer_cache["self"], decode_index, self_attention_mask,
+        ancestry=ancestry, beam_select=options.get("beam_select"),
+        mask_axis=options.get("mask_axis", "q"),
+        attn_kernel=options.get("attn_kernel", False),
+    )
 
 
 class DecoderLayer(nn.Module):
@@ -84,24 +103,20 @@ class DecoderLayer(nn.Module):
             return self._fused_step(
                 queries, layer_cache, decode_index, self_attention_mask, enc_attention_mask,
             )
-        beam_select = kwargs.get("beam_select")
-        self_att = self.self_attn.decode_self(
-            queries, layer_cache["self"], decode_index, self_attention_mask,
-            ancestry=ancestry, beam_select=beam_select,
-            mask_axis=kwargs.get("mask_axis", "q"),
-            attn_kernel=kwargs.get("attn_kernel", False),
-        )
+        self_att = _decode_self(self.self_attn, queries, layer_cache, decode_index,
+                                self_attention_mask, ancestry, kwargs)
         enc_att = self.enc_attn.decode_cross(
             self_att, layer_cache["cross"], enc_attention_mask,
-            beam_select=beam_select,
+            beam_select=kwargs.get("beam_select"),
         )
         return self.pwff(enc_att)
 
-    def _sdpa(self) -> bool:
-        return (
-            type(self.self_attn.attention).__name__ == "ScaledDotProductAttention"
-            and type(self.enc_attn.attention).__name__ == "ScaledDotProductAttention"
-        )
+    def _kernel_layer(self) -> bool:
+        """Whether the whole-layer kernels implement this layer: plain SDPA
+        in both attentions and no AoA gate (the JAX gates,
+        ``decoders.py:120-127``, ``:160-167``)."""
+        return all(type(mha.attention).__name__ == "ScaledDotProductAttention"
+                   and not mha.use_aoa for mha in (self.self_attn, self.enc_attn))
 
     # -- beam-resident whole-layer step (ops/resident_layer_step.py) -----
     def _can_resident_step(self, kwargs, ancestry, is_pad_t) -> bool:
@@ -113,7 +128,7 @@ class DecoderLayer(nn.Module):
             and is_pad_t is not None
             and kwargs.get("beam_select") is not None
             and set(kwargs) <= {"beam_select", "mask_axis"}
-            and self._sdpa()
+            and self._kernel_layer()
         )
 
     def _resident_step(self, queries, layer_cache, decode_index, self_attention_mask,
@@ -130,7 +145,8 @@ class DecoderLayer(nn.Module):
 
     # -- non-resident whole-layer step (OPENVIIC_FUSED_STEP=1) -----------
     def _can_fuse_step(self, kwargs, ancestry) -> bool:
-        return fused_step_enabled() and not kwargs and ancestry is None and self._sdpa()
+        return (fused_step_enabled() and not kwargs and ancestry is None
+                and self._kernel_layer())
 
     def _fused_step(self, queries, layer_cache, decode_index, self_attention_mask,
                     enc_attention_mask):
@@ -183,6 +199,67 @@ class DecoderLayer(nn.Module):
             pack = {k: v.detach().to(dtype).contiguous() for k, v in pack.items()}
         self._fused_pack = (key, pack)
         return pack
+
+
+# the JAX package's failure that ``resident_kernel`` meets on this decoder
+MESHED_RESIDENT_KERNEL = (
+    "resident_kernel does not run MeshedDecoder: in the JAX package its layers take the "
+    "flag as an attention option, which turns off the grouped cross-attention, and the "
+    "step fails (ValueError: Size of label 'b' for operand 1 does not match previous terms)")
+
+
+class MeshedDecoderLayer(nn.Module):
+    """Self-attention, one cross-attention per encoder level through the
+    shared ``enc_attn``, fused as sum_j sigmoid(fc_alpha_j([self, cross_j]))
+    * cross_j / sqrt(N), then the FFN (JAX ``MeshedDecoderLayer``)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(config.SELF_ATTENTION)
+        self.enc_attn = MultiHeadAttention(config.ENC_ATTENTION)
+        self.pwff = make_pwff(config.ENC_ATTENTION)
+        self.n_levels = config.N_ENCODER_LAYERS
+        for j in range(self.n_levels):  # the JAX names, fc_alpha_<j>
+            setattr(self, f"fc_alpha_{j}", XavierLinear(2 * config.D_MODEL, config.D_MODEL))
+
+    def _fuse(self, self_att, enc_atts):
+        out = 0.0
+        for j, enc_att in enumerate(enc_atts):
+            fc_alpha = getattr(self, f"fc_alpha_{j}")
+            alpha = torch.sigmoid(fc_alpha(torch.cat([self_att, enc_att], dim=-1)))
+            out = out + alpha * enc_att
+        # the JAX divisor: sqrt(N) in f32, then in the activations' dtype
+        return out / torch.tensor(float(self.n_levels)).sqrt().to(out.dtype)
+
+    def forward(self, queries, keys, values, self_padding_mask,
+                self_attention_mask, enc_attention_mask):
+        self_att = self.self_attn(queries, queries, queries, self_attention_mask)
+        enc_atts = [self.enc_attn(self_att, keys[:, j], values[:, j], enc_attention_mask)
+                    for j in range(self.n_levels)]
+        ff = self.pwff(self._fuse(self_att, enc_atts))
+        return ff.masked_fill(self_padding_mask[:, 0, 0, :, None], 0.0)
+
+    def prepare_cache(self, memory) -> DecodeCache:
+        """Each level's cross K/V, stacked to (rows, N, n, h, d)."""
+        levels = [self.enc_attn.precompute_cache(memory[:, j]) for j in range(self.n_levels)]
+        return {"cross": {key: torch.stack([lv[key] for lv in levels], dim=1)
+                          for key in ("k", "v")}}
+
+    def step(self, queries, layer_cache, decode_index, self_attention_mask,
+             enc_attention_mask, ancestry=None, **kwargs):
+        """One decode step: the self-attention through ``decode_self`` (the
+        beam-select kernel under ``attn_kernel``), each level through
+        ``decode_cross`` (grouped at image granularity in beam-resident
+        mode).  The self K/V cache is updated in place."""
+        if kwargs.get("resident_kernel"):
+            raise ValueError(MESHED_RESIDENT_KERNEL)
+        self_att = _decode_self(self.self_attn, queries, layer_cache, decode_index,
+                                self_attention_mask, ancestry, kwargs)
+        cross = layer_cache["cross"]
+        enc_atts = [self.enc_attn.decode_cross(
+            self_att, {"k": cross["k"][:, j], "v": cross["v"][:, j]}, enc_attention_mask,
+            beam_select=kwargs.get("beam_select")) for j in range(self.n_levels)]
+        return self.pwff(self._fuse(self_att, enc_atts))
 
 
 class _DecoderBase(nn.Module):
@@ -304,3 +381,10 @@ class Decoder(_DecoderBase):
     """Generic N-layer masked decoder."""
 
     layer_cls = DecoderLayer
+
+
+@META_DECODER.register()
+class MeshedDecoder(_DecoderBase):
+    """The Meshed-Memory decoder over the stacked encoder levels."""
+
+    layer_cls = MeshedDecoderLayer

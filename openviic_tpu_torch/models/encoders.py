@@ -1,8 +1,10 @@
 """Encoder stacks (counterparts of ``openviic_tpu/models/encoders.py``):
 ``Encoder`` (LayerNorm + DETR sinusoid positions, then N self-attention +
-FFN layers whose padded query rows are zeroed) and ``GeometricEncoder``
-(the same, with the Object Relation Transformer's per-head geometric
-attention bias from the region boxes)."""
+FFN layers whose padded query rows are zeroed), ``MultilevelEncoder`` (the
+same, returning every layer's output for the Meshed-Memory decoder),
+``GeometricEncoder`` (the Object Relation Transformer's per-head geometric
+attention bias from the region boxes) and CAMO's
+``CrossAttentionMultiLevelEncoder``."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from openviic_tpu_torch.builders import META_ENCODER
 from openviic_tpu_torch.models.attention import MultiHeadAttention, promoted_linear
 from openviic_tpu_torch.models.ffn import make_pwff
 from openviic_tpu_torch.models.geometry import box_relational_embedding
-from openviic_tpu_torch.models.initializers import PerHeadXavierLinear
+from openviic_tpu_torch.models.initializers import PerHeadXavierLinear, TorchLinear
 from openviic_tpu_torch.models.positional import sinusoid_positional_embedding
 from openviic_tpu_torch.ops.geo_attention import geo_fused_enabled
 
@@ -41,13 +43,53 @@ class Encoder(nn.Module):
             EncoderLayer(config.SELF_ATTENTION) for _ in range(config.LAYERS)
         )
 
-    def forward(self, features, padding_mask, **layer_kwargs):
-        """``layer_kwargs`` go to every layer's attention."""
+    def layer_outputs(self, features, padding_mask, **layer_kwargs):
+        """Every layer's output, in order; ``layer_kwargs`` go to every
+        layer's attention."""
         pos = sinusoid_positional_embedding(features, self.d_model)
         out = (self.layer_norm(features) + pos).to(features.dtype)
+        outs = []
         for layer in self.layers:
             out = layer(out, out, out, padding_mask, padding_mask, **layer_kwargs)
-        return out
+            outs.append(out)
+        return outs
+
+    def forward(self, features, padding_mask, **layer_kwargs):
+        return self.layer_outputs(features, padding_mask, **layer_kwargs)[-1]
+
+
+@META_ENCODER.register()
+class MultilevelEncoder(Encoder):
+    """The Meshed-Memory encoder: every layer's output, stacked to (bs, N,
+    n, d) for ``MeshedDecoder``."""
+
+    def forward(self, features, padding_mask):
+        return torch.stack(self.layer_outputs(features, padding_mask), dim=1)
+
+
+@META_ENCODER.register()
+class CrossAttentionMultiLevelEncoder(Encoder):
+    """CAMO: three layers, then one shared ``self_attn`` lets layer 2 attend
+    to layer 1 and layer 3 to the updated layer 2 (each added at weight
+    0.1), and an MLP of the three original outputs (``mlp1`` over their
+    concatenation, ``mlp2``, each followed by a leaky ReLU of slope 0.01)
+    is added to layer 3's at weight 0.2.  The three-layer unpack is the
+    JAX package's (and the reference's): other depths raise."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.self_attn = MultiHeadAttention(config.SELF_ATTENTION)
+        self.mlp1 = TorchLinear(3 * config.D_MODEL, config.D_MODEL)
+        self.mlp2 = TorchLinear(config.D_MODEL, config.D_MODEL)
+
+    def forward(self, features, padding_mask):
+        outs = self.layer_outputs(features, padding_mask)
+        out1, out2, out3 = outs
+        out2 = 0.1 * self.self_attn(out2, out1, out1, attention_mask=padding_mask) + out2
+        out3 = 0.1 * self.self_attn(out3, out2, out2, attention_mask=padding_mask) + out3
+        out = nn.functional.leaky_relu(self.mlp1(torch.cat(outs, dim=-1)))
+        out = nn.functional.leaky_relu(self.mlp2(out))
+        return out3 + 0.2 * out
 
 
 @META_ENCODER.register()

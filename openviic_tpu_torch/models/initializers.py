@@ -7,7 +7,11 @@ and zero biases; every other linear uses torch's ``nn.Linear`` default
 (U(+-1/sqrt(fan_in)) for kernel and bias).  The classes below differ from
 ``nn.Linear`` only in ``reset_with``; ``initialize`` walks a model and calls
 it.  Embeddings are N(0, 1) with the pad row zeroed; LayerNorms are ones and
-zeros."""
+zeros.  A module with raw parameters of its own draws them in its
+``reset_with`` (the augmented memory's slots: ``normal_init``, the JAX
+``normal_stddev``).  The AoA gate's and CAMO's fusion linears are
+``TorchLinear``: their bias bound 1/sqrt(fan_in) with fan-in 2 and 3
+d_model is the JAX package's ``torch_linear_bias`` of those widths."""
 
 from __future__ import annotations
 
@@ -44,6 +48,11 @@ class TorchLinear(nn.Linear):
         self.weight.uniform_(-bound, bound, generator=generator)
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=generator)
+
+
+def normal_init(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """N(0, std**2) in place (the JAX ``normal_stddev(std)``)."""
+    param.normal_(0.0, std, generator=generator)
 
 
 class PaddedEmbedding(nn.Embedding):

@@ -1,8 +1,10 @@
 """Name -> class registry (the port's copy of ``openviic_tpu/registry.py``).
 
 Decorator or call registration, a duplicate-name check, lookup by the
-``ARCHITECTURE:`` strings of the config files, and explicit aliases for
-names misspelled in shipped reference configs."""
+``ARCHITECTURE:`` strings of the config files, explicit aliases for names
+misspelled in shipped reference configs, and the names of the JAX
+package's classes that the port does not build yet, which raise
+``NotImplementedError`` with the ROADMAP item that ports them."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ class Registry:
         self._name = name
         self._obj_map: Dict[str, Any] = {}
         self._aliases: Dict[str, str] = {}
+        self._not_ported: Dict[str, str] = {}
 
     def _do_register(self, name: str, obj: Any) -> None:
         if name in self._obj_map:
@@ -38,8 +41,14 @@ class Registry:
     def alias(self, alias_name: str, target: str) -> None:
         self._aliases[alias_name] = target
 
+    def not_ported(self, name: str, roadmap_item: str) -> None:
+        self._not_ported[name] = roadmap_item
+
     def get(self, name: str) -> Any:
         resolved = self._aliases.get(name, name)
+        if resolved in self._not_ported:
+            raise NotImplementedError(f"{resolved} is not ported yet "
+                                      f"(ROADMAP A.{self._not_ported[resolved]})")
         ret = self._obj_map.get(resolved)
         if ret is None:
             raise KeyError(

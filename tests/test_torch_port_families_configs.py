@@ -1,0 +1,97 @@
+"""Every shipped model config in the port: each yaml under ``configs/`` and
+``configs/tpu/`` builds at its own widths with the JAX package's parameter
+tree (every leaf carried through ``compat.from_jax`` at its shape), or, for
+the families still to port, raises ``NotImplementedError`` naming their
+ROADMAP item.  The two configs that misspell their architecture
+(``dlct-transformer.yaml``, ``rstnet.yaml``: ``StandardStranformerUsingRegion``)
+build as the standard transformer in both packages, through the same
+alias.  And ``chip_smoke.py``'s in-code trees of the four region families
+(the card's machine has no PyYAML) equal their yamls' ``MODEL``."""
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+from flax import traverse_util
+
+from openviic_tpu.builders import build_model as build_jax_model
+from openviic_tpu.config import get_config as jax_get_config
+from openviic_tpu_torch.builders import build_model as build_port_model
+from openviic_tpu_torch.compat.from_jax import state_dict_from_jax
+from openviic_tpu_torch.config import get_config
+from tests.test_torch_port_support import make_vocab
+
+ROOT = Path(__file__).resolve().parents[1]
+YAMLS = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "configs").glob("**/*.yaml"))
+# the families still to port: their ROADMAP items (A.5.4 DLCT, A.5.6 RSTNet)
+NOT_PORTED = {"dlct_fixed.yaml": "A.5.4", "rstnet_fixed.yaml": "A.5.6"}
+
+
+def _model(path):
+    return get_config(str(ROOT / path)).MODEL
+
+
+def _jax_shapes(path, vocab):
+    """The JAX package's parameter shapes for the yaml's model, traced
+    without computing, as a flat {"params/a/b": zeros} of those shapes."""
+    config = jax_get_config(str(ROOT / path)).MODEL
+    model = build_jax_model(config, vocab)
+    vis = config.VISION_EMBEDDING
+    batch = {"caption_tokens": np.zeros((1, vocab.max_caption_length), np.int32)}
+    key = "grid_features" if config.ARCHITECTURE == "StandardTransformerUsingGrid" \
+        else "region_features"
+    batch[key] = np.zeros((1, 8, vis.D_FEATURE), np.float32)
+    if config.ARCHITECTURE == "ObjectRelationTransformer":
+        batch["region_boxes"] = np.zeros((1, 8, 4), np.float32)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), batch)
+    return {k: np.zeros(v.shape, np.float32)
+            for k, v in traverse_util.flatten_dict(shapes, sep="/").items()}
+
+
+def test_every_yaml_is_covered():
+    assert len(YAMLS) == 21
+    assert {Path(p).name for p in YAMLS} >= set(NOT_PORTED)
+
+
+@pytest.mark.parametrize("path", YAMLS)
+def test_yaml_builds_in_the_port_at_its_widths(path):
+    vocab = make_vocab(size=40)
+    name = Path(path).name
+    if name in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {NOT_PORTED[name]}"):
+            build_port_model(_model(path), vocab, device="cpu")
+        return
+    tuned_twin = Path(path).parent.name == "tpu"
+    if tuned_twin:  # the same MODEL tree as its parity config but NAME
+        parity = _model(str(Path("configs") / name)).to_dict()
+        tuned = _model(path).to_dict()
+        assert {k: v for k, v in tuned.items() if k != "NAME"} == \
+            {k: v for k, v in parity.items() if k != "NAME"}
+        return
+    model = build_port_model(_model(path), vocab, device="cpu")
+    # every JAX leaf carries onto a port parameter of its shape, and back
+    state = state_dict_from_jax(_jax_shapes(path, vocab), model)
+    assert set(state) == set(model.state_dict())
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_configs", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    before = sys.dont_write_bytecode
+    spec.loader.exec_module(module)  # the script sets dont_write_bytecode for itself
+    sys.dont_write_bytecode = before
+    return module
+
+
+@pytest.mark.parametrize("family", ["aoa", "augmented_memory", "meshed_memory", "camo"])
+def test_chip_smoke_trees_equal_the_yamls(family):
+    chip_smoke = _chip_smoke()
+    yaml = chip_smoke.FAMILIES[family]
+    got = chip_smoke.family_model(family, chip_smoke.FLAGSHIP)
+    assert got == _model(f"configs/{yaml}.yaml").to_dict()
+    tuned = _model(f"configs/tpu/{yaml}.yaml").to_dict()  # its NAME ends in _tpu
+    assert {k: v for k, v in got.items() if k != "NAME"} == \
+        {k: v for k, v in tuned.items() if k != "NAME"}
