@@ -166,17 +166,29 @@ On the card it runs these phases, each printing its seconds:
    their plain versions, timed beside their bounds; f32 decodes of 16
    images on the card against its host's CPU (>= 99% identical); 10 bf16
    XE steps at batch 60 whose loss must fall, ms per step, peak memory;
-15. the last line: ``{"ok": true, "device": {...}}``.
+15. two-stream families: DLCT (``configs/dlct_fixed.yaml``: 50 regions of
+   1024-d features with boxes and a 7 x 7 grid of 2048-d features, both
+   bucket-padded to 56 rows, so the decoder's memory is 112 rows; 3
+   encoder levels, 3+3 layers, beam 3, bf16) through the tuned path,
+   eager fast select, ``resident_kernel``, the non-resident path with and
+   without ``OPENVIIC_FUSED_STEP=1`` and ``OPENVIIC_PALLAS=1`` (12
+   fused_attention launches a request), with launches, score parity,
+   captions/s and forced decodes; the kernels on its captured inputs
+   (fused_attention on the unpadded region-to-all call, 50 queries
+   against 99 keys), the MMA tile at its cross shapes, both layer steps
+   at M = 99, 112 and 200; f32 card against CPU on 16 images; 10 bf16 XE
+   steps; ``UnifiedTransformer`` at d_model 512 on its 4-wide streams;
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families phase); the line before that is the card's
-name and power limit.  Any failure raises, and the script exits non-zero
-without those lines.  ``--cpu`` runs phases 3-14 at tiny widths with the
-plain versions on the CPU (the artifact's first 2 images; the serving
-cell at batch 8, 16 requests from 4 clients; XE, SCST and the trainer at
-tiny widths; the families on 2 images and 6 steps) and ends with ``cpu
-rehearsal ok`` instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
+and cases in the families and two-stream phases); the line before that is
+the card's name and power limit.  Any failure raises, and the script
+exits non-zero without those lines.  ``--cpu`` runs phases 3-15 at tiny
+widths with the plain versions on the CPU (the artifact's first 2
+images; the serving cell at batch 8, 16 requests from 4 clients; XE,
+SCST and the trainer at tiny widths; the families on 2 images and 6
+steps) and ends with ``cpu rehearsal ok`` instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
 but the serving and trainer phases' temporary directories, which it
 deletes.
 """
@@ -943,6 +955,13 @@ def layer_step_bound(resident: bool, t, weights, N, smask, cmask, anc=None):
     return bound(flops, PEAK_BF16_FLOPS, nbytes) + (nbytes, flops)
 
 
+# The layer steps' times at the flagship shape (N = 1600, t = 12, M = 50)
+# before their attention took any encoder length: PERF.md section 6 rows 3
+# and 4 (CUDA-graph device times on an H100 80GB HBM3 at 700 W), printed
+# beside this run's.
+EARLIER_STEP_MS = {"resident_layer_step": 0.2386, "fused_layer_step": 0.3281}
+
+
 def layer_step_phase(device, s, layer, resident: bool):
     """ops.resident_layer_step (resident) or ops.fused_layer_step against its
     plain version, with the flagship's layer-0 weights: the main shape at a
@@ -1035,7 +1054,8 @@ def layer_step_phase(device, s, layer, resident: bool):
     else:
         bound_ms, bound_by, nbytes, flops = layer_step_bound(False, t, weights, N, c["smask"],
                                                              ins[4])
-    log(f"  {name} at N={N} t={t}: kernel {ms:.4f} ms (launched from Python: "
+    log(f"  {name} at N={N} t={t}: kernel {ms:.4f} ms (PERF.md's before the M-independent "
+        f"attention: {EARLIER_STEP_MS[name]} ms; launched from Python: "
         f"{costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), plain "
         f"{plain_ms:.4f} ms, eager DecoderLayer.step {eager_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -3822,6 +3842,8 @@ def family_model(name: str, s) -> dict:
                 "CAN_BE_STATEFUL": stateful, "DROPOUT": 0.1}
         return dict(node, MEMORY=40) if slots else node
 
+    if name == "dlct":
+        return dlct_model(s, attn)
     run_name, architecture, encoder, decoder, enc_attention = {
         "aoa": ("aoa_region_x152++", "StandardTransformerUsingRegion", "Encoder", "Decoder",
                 attn(slots=True)),
@@ -3849,6 +3871,30 @@ def family_model(name: str, s) -> dict:
     }
 
 
+def dlct_model(s, attn) -> dict:
+    """``configs/dlct_fixed.yaml``'s MODEL at the widths of ``s``: regions
+    of ``d_feature``, grids of twice that (1024 and 2048 at FLAGSHIP), its
+    three encoder levels of four geometric attentions, 8 encoder heads."""
+    d = s["d_model"]
+    geometric = attn("AugmentedGeometryScaledDotProductAttention")
+    return {
+        "ARCHITECTURE": "DLCTTransformer", "NAME": "dlct_region_grid_x152++", "DEVICE": "tpu",
+        "VISION_EMBEDDING": {"ARCHITECTURE": "GeometricDualFeatureEmbedding",
+                             "D_REGION_FEATURE": s["d_feature"],
+                             "D_GRID_FEATURE": 2 * s["d_feature"], "D_MODEL": d,
+                             "DROPOUT": 0.1},
+        "ENCODER": {"ARCHITECTURE": "DualCollaborativeLevelEncoder", "D_MODEL": d,
+                    "LAYERS": FAMILY_LAYERS, "HEAD": s["heads"], "TRIGNOMETRIC_EMBEDDING": True,
+                    "SELF_ATTENTION": geometric, "CROSS_ATTENTION": dict(geometric)},
+        "DECODER": {"ARCHITECTURE": "Decoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
+                    "ATTENTION": {"SELF_ATTENTION": attn(stateful=True),
+                                  "ENC_ATTENTION": attn()},
+                    "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
+                                       "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
+                                       "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1}},
+    }
+
+
 def family_config(name: str, s, kernels: bool = True):
     """The family's MODEL and the pipeline's decode switches: the yamls'
     beam; with ``kernels`` the head kernel forced and the beam-select
@@ -3861,11 +3907,16 @@ def family_config(name: str, s, kernels: bool = True):
                                     "DECODE_ATTN_KERNEL": kernels}})
 
 
-def family_xe_batch(gen, s, vocab, n: int, device):
-    """``n`` random images and ragged random captions (<bos> words <eos>,
-    then <pad>) as a teacher-forcing batch on ``device``."""
+def family_xe_batch(gen, s, vocab, n: int, device, name: str = ""):
+    """``n`` random images (DLCT's four streams, ``two_stream_inputs``) and
+    ragged random captions (<bos> words <eos>, then <pad>) as a
+    teacher-forcing batch on ``device``."""
     L = vocab.max_caption_length
-    feats = torch.randn((n, s["n_regions"], s["d_feature"]), generator=gen)
+    if name == "dlct":
+        streams = two_stream_inputs(gen, s, n)
+    else:
+        streams = {"region_features": torch.randn((n, s["n_regions"], s["d_feature"]),
+                                                  generator=gen)}
     lengths = torch.randint(3, L - 1, (n, 1), generator=gen)
     words = torch.randint(4, len(vocab), (n, L), generator=gen)
     words[:, 0] = vocab.bos_idx
@@ -3875,8 +3926,7 @@ def family_xe_batch(gen, s, vocab, n: int, device):
     following = torch.cat([words[:, 1:], torch.full((n, 1), vocab.padding_idx)], dim=1)
     targets = torch.where(pos < lengths, following,
                           torch.where(pos == lengths, torch.tensor(vocab.eos_idx), pad))
-    batch = {"region_features": feats, "caption_tokens": tokens,
-             "shifted_right_caption_tokens": targets}
+    batch = dict(streams, caption_tokens=tokens, shifted_right_caption_tokens=targets)
     return {k: v.to(device) for k, v in batch.items()}
 
 
@@ -3893,7 +3943,7 @@ def family_xe(device, s, name: str, vocab, card: str):
 
     cuda = device.type == "cuda"
     batch = family_xe_batch(torch.Generator().manual_seed(21), s, vocab,
-                            FAMILY_XE_BATCH if cuda else 4, device)
+                            FAMILY_XE_BATCH if cuda else 4, device, name)
     n_steps = FAMILY_XE_STEPS if cuda else 4
     if cuda:
         gc.collect()
@@ -4109,6 +4159,325 @@ def families_phase(device, s, card: str):
     return dict(launches=launches, kernels=cases, families=figures)
 
 
+# ---------------------------------------------------------------- phase 15
+# the two-stream families: name -> configs/<yaml>.yaml (its tuned twin the
+# same MODEL tree but NAME)
+TWO_STREAM_FAMILIES = {"dlct": "dlct_fixed"}
+GRID_SIDE = 7  # the grid of grid features (a 7 x 7 feature map)
+TWO_STREAM_MS = (99, 112, 200)  # the layer steps' encoder lengths: 50 + 49, bucket-padded, long
+MMA_CHECK_NQ, MMA_CHECK_NK = (49, 50, 56), (99, 112)
+
+
+def two_stream_inputs(gen, s, n: int) -> dict:
+    """DLCT's four streams for ``n`` random images, f32 on the CPU:
+    ``s["n_regions"]`` regions of ``d_feature`` with random normalized
+    boxes, and a 7 x 7 grid of ``2 * d_feature`` features whose boxes are
+    its cells' (``get_grids_position``)."""
+    from openviic_tpu_torch.models.geometry import get_grids_position
+
+    lo = torch.rand((n, s["n_regions"], 2), generator=gen) * 0.7
+    hi = torch.clamp(lo + 0.05 + torch.rand((n, s["n_regions"], 2), generator=gen) * 0.45,
+                     max=1.0)
+    cells = GRID_SIDE * GRID_SIDE
+    return {
+        "region_features": torch.randn((n, s["n_regions"], s["d_feature"]), generator=gen),
+        "region_boxes": torch.cat([lo, hi], dim=-1),
+        "grid_features": torch.randn((n, cells, 2 * s["d_feature"]), generator=gen),
+        "grid_boxes": torch.from_numpy(get_grids_position(n, cells, (GRID_SIDE, GRID_SIDE))),
+    }
+
+
+def as_request(streams: dict) -> list:
+    """Per-image feature dicts (numpy) of a batch of streams."""
+    n = next(iter(streams.values())).shape[0]
+    return [{k: v[i].numpy() for k, v in streams.items()} for i in range(n)]
+
+
+def long_memory_steps(device, s, layer):
+    """Both layer steps at the encoder lengths TWO_STREAM_MS (99: DLCT's 50
+    regions and 49 grid cells; 112: both bucket-padded to 56; 200: past the
+    kernels' old shared-memory ceiling), the main shape at a mid-decode
+    step, against their plain versions (``check_resident_step``,
+    ``check_fused_step``), each timed beside its bound on the card.
+    Returns {kernel: [rows]}."""
+    from openviic_tpu_torch.ops.fused_decoder_step import (
+        fused_layer_step, fused_layer_step_reference)
+    from openviic_tpu_torch.ops.layer_step import occupancy
+    from openviic_tpu_torch.ops.resident_layer_step import (
+        resident_layer_step, resident_layer_step_reference)
+
+    weights = layer.fused_weights(torch.bfloat16)
+    beam, L, D, h = s["beam"], s["max_len"], s["d_model"], s["heads"]
+    F = weights["w1"].shape[1]
+    cuda = device.type == "cuda"
+    rows = {}
+    for M in TWO_STREAM_MS:
+        gen = torch.Generator().manual_seed(M)
+        img, t = s["batch"], L // 2
+        c = step_case(gen, img, dict(s, n_regions=M), t, device)
+        N = img * beam
+        for resident in (True, False):
+            name = "resident_layer_step" if resident else "fused_layer_step"
+            if resident:
+                args = (c["x"][:, None], c["k"], c["v"], c["ck"], c["cv"], c["anc"],
+                        c["smask"].reshape(N, 1, 1, L), c["cmask"].reshape(img, 1, 1, M),
+                        c["is_pad"])
+                err, detail = check_resident_step(f"{name} M={M}", args, t, weights, h, device)
+                kernel = lambda: resident_layer_step(*args, t, weights, h)  # noqa: E731
+                plain = lambda: resident_layer_step_reference(*args, t, weights, h)  # noqa: E731
+                bound_ms, bound_by, _, _ = layer_step_bound(True, t, weights, N, c["smask"],
+                                                            c["cmask"], anc=c["anc"])
+            else:
+                expand = lambda a: a.reshape(img, M, D).repeat_interleave(beam, dim=0)  # noqa
+                k0, v0 = c["k"].reshape(N, L, D), c["v"].reshape(N, L, D)
+                ins = (c["x"], expand(c["ck"]), expand(c["cv"]), c["smask"],
+                       c["cmask"].repeat_interleave(beam, dim=0))
+                err, detail = check_fused_step(f"{name} M={M}", ins, k0, v0, t, weights, h,
+                                               device)
+                kk, vk = k0.clone(), v0.clone()
+                kernel = lambda: fused_layer_step(ins[0], kk, vk, *ins[1:], t, weights, h)  # noqa
+                plain = lambda: fused_layer_step_reference(  # noqa: E731
+                    ins[0], kk, vk, *ins[1:], t, weights, h)
+                bound_ms, bound_by, _, _ = layer_step_bound(False, t, weights, N, c["smask"],
+                                                            ins[4])
+            r = dict(case=f"M={M} N={N} t={t}", max_abs_err=err)
+            line = f"  {name} at M={M} (N={N}, t={t}): {detail}"
+            if cuda:
+                smem = occupancy(resident, N, D, F, L, M, h)["smem_bytes"]
+                r.update(ms=time_cuda(kernel, 20, graph=True),
+                         plain_ms=time_cuda(plain, 5, graph=True), bound_ms=bound_ms,
+                         bound_by=bound_by, smem_bytes=smem)
+                line += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                         f"{bound_ms:.4f} ms ({bound_by}), {smem} B shared")
+            log(line)
+            rows.setdefault(name, []).append(r)
+        del c
+    return rows
+
+
+def mma_tile_checks(device, s):
+    """fused_attention's MMA tile (bf16 q/k/v, tensor cores) at DLCT's
+    cross-attention shapes: nq MMA_CHECK_NQ (49 grid cells, 50 regions,
+    either bucket-padded to 56) against nk MMA_CHECK_NK (99, 112 keys),
+    with a full (B, h, nq, nk) f32 bias whose key padding is -1e30, against
+    the plain version.  Returns the worst |error|."""
+    from openviic_tpu_torch.ops.fused_attention import MMA
+
+    gen = torch.Generator().manual_seed(15)
+    h, d = s["heads"], s["d_model"] // s["heads"]
+    worst = 0.0
+    for nq in MMA_CHECK_NQ:
+        for nk in MMA_CHECK_NK:
+            B = 16
+            q, k, v = (torch.randn((B, n, h, d), generator=gen).to(device, torch.bfloat16)
+                       for n in (nq, nk, nk))
+            bias = torch.randn((B, h, nq, nk), generator=gen) * 2.0
+            bias[..., nk - 5:] = -1e30  # the padded keys
+            err, _ = check_fused_attention(f"MMA tile nq={nq} nk={nk}", q, k, v,
+                                           bias.to(device), device,
+                                           tile=MMA if device.type == "cuda" else None)
+            worst = max(worst, err)
+    log(f"  fused_attention MMA tile at nq {MMA_CHECK_NQ} x nk {MMA_CHECK_NK} with the full "
+        f"bias: max |err| {worst:.3g} (bar {FUSED_ATOL})")
+    return worst
+
+
+def unified_request(device, s, card: str):
+    """``UnifiedTransformer`` at d_model 512 on its one shape, every stream
+    4 wide (the vision embedding's D_FEATURE 4): one request of
+    ``s["batch"]`` images through ``CaptioningPipeline``'s tuned path, ids
+    valid and captions of vocab words."""
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    config = model_config(s, attn_kernel=True)
+    model = config.MODEL.to_dict()
+    model["ARCHITECTURE"] = "UnifiedTransformer"
+    model["VISION_EMBEDDING"]["D_FEATURE"] = 4
+    config = type(config)({"MODEL": model, "TRAINING": config.TRAINING.to_dict()})
+    vocab = make_vocab(s)
+    streams = two_stream_inputs(torch.Generator().manual_seed(16), dict(s, d_feature=4), s["batch"])
+    streams["grid_features"] = streams["grid_features"][..., :4]
+    request = as_request(streams)
+    pipe = CaptioningPipeline.from_state_dict(config, vocab, batch_size=s["batch"], device=device,
+                                              seed=40)
+    results, seconds = run_requests(device, [request],
+                                    lambda r: pipe.caption_features(r, return_ids=True))
+    check_outputs("UnifiedTransformer", s, vocab, [request], results)
+    rows = " + ".join(str(v.shape[0]) for v in request[0].values())
+    log(f"  UnifiedTransformer (4-wide streams, {len(request)} images of {rows} rows): one "
+        f"request {seconds[0]:.3f} s on {card}, ids valid")
+    return seconds[0]
+
+
+def two_stream_phase(device, s, card: str):
+    """DLCT (``configs/dlct_fixed.yaml``'s MODEL at the widths of ``s``:
+    d_model 512, 8 heads, 3 encoder levels of 4 geometric attentions, 3
+    decoder layers, d_ff 2048; random weights from a seed; bf16; beam 3)
+    serving one request of ``s["batch"]`` images of ``s["n_regions"]``
+    1024-d regions with boxes and a 7 x 7 grid of 2048-d features with its
+    cells' boxes (the pipeline bucket-pads both to 56 rows: M = 112),
+    through ``CaptioningPipeline`` (its tuned path: the head kernel forced,
+    the beam-select kernel on):
+
+    - the tuned path against eager fast select: one head_topk a step and
+      one beam_select_attention a layer and step;
+    - (b) ``resident_kernel`` and (c) the non-resident path with and without
+      ``OPENVIIC_FUSED_STEP=1``: one layer kernel a layer and step;
+    - ``OPENVIIC_PALLAS=1`` on the tuned path: fused_attention 12 times a
+      request (region self, grid self, region to all, grid to all, at each
+      of the three levels);
+
+    (the rehearsal: FAMILY_REHEARSAL's 2 images and 6 steps), each with its
+    launches, valid ids, the mean best-beam log-prob within SCORE_RTOL of
+    its reference path's, captions/s, and the forced decode of the tuned
+    path's captions through each kernel path against the eager step.
+    Then head_topk and beam_select_attention on their inputs captured from
+    the tuned decode, resident_layer_step and fused_layer_step on theirs
+    from paths (b) and (c) (M = 112), fused_attention on the region-to-all
+    call of an unpadded request ((320, 50, 8, 64) against 99 keys, the full
+    bias), each against its plain version and timed beside its bound; the
+    MMA tile at DLCT's cross shapes (``mma_tile_checks``); both layer
+    steps at M = 99, 112 and 200 (``long_memory_steps``); an f32 decode of
+    FAMILY_F32_IMAGES images on the card against its host's CPU (>=
+    FAMILY_F32_AGREEMENT_MIN identical; the card only); ``family_xe`` on
+    the four streams; and ``UnifiedTransformer`` at d_model 512 with 4-wide
+    streams (``unified_request``).  Returns {"launches": {kernel: {path:
+    n}}, "kernels": cases, "figures": ...}."""
+    import importlib
+
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.models import decoders as decoders_module
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    if not cuda:
+        s = dict(s, **FAMILY_REHEARSAL)
+    vocab = make_vocab(s)
+    name = "dlct"
+    streams = two_stream_inputs(torch.Generator().manual_seed(15), s, s["batch"])
+    request = as_request(streams)
+    requests = [request]
+    pipe = CaptioningPipeline.from_state_dict(family_config(name, s), vocab,
+                                              batch_size=s["batch"], device=device, seed=35)
+    model = pipe.model
+    n_dec = len(model.decoder.layers)
+    n_enc = 4 * len(model.encoder.region)  # four attentions a level
+    per_path = {}
+
+    def run(path, searcher, decode, **expect):
+        results, counts = drive(f"{name} {path}", device, s, vocab, requests, searcher, decode,
+                                card, **expect)
+        per_path[path] = {k: v for k, v in counts.items() if v}
+        return results
+
+    def searched(searcher):
+        return searcher_decode(pipe, searcher, vocab, FAMILY_BEAM)
+
+    served = lambda r: pipe.caption_features(r, return_ids=True)  # noqa: E731
+    tuned = run("tuned", pipe.searcher, served,
+                      per_step={"head_topk": 1, "beam_select_attention": n_dec})
+    tuned = rescore(device, requests, searched(pipe.searcher), tuned, f"{name} tuned")
+    eager_searcher = BeamSearcher(model, torch.bfloat16)
+    eager = run("eager", eager_searcher, searched(eager_searcher))
+    agree = {"tuned": score_parity(f"{name} tuned", tuned, eager, "its eager twin")}
+    resident = BeamSearcher(model, torch.bfloat16, head_kernel=1, resident_kernel=True)
+    res_b = run("(b) resident_kernel", resident, searched(resident),
+                      per_step={"head_topk": 1, "resident_layer_step": n_dec})
+    agree["(b)"] = score_parity(f"{name} (b)", res_b, eager, "its eager twin")
+    non_resident = BeamSearcher(model, torch.bfloat16, beam_resident=False)
+    res_nr = run("(c) non-resident", non_resident, searched(non_resident))
+    with env_flag("OPENVIIC_FUSED_STEP"):
+        res_c = run("(c) non-resident, OPENVIIC_FUSED_STEP=1", non_resident,
+                          searched(non_resident), per_step={"fused_layer_step": n_dec})
+    agree["(c)"] = score_parity(f"{name} (c)", res_c, res_nr,
+                                "the non-resident path without the flag")
+    with env_flag("OPENVIIC_PALLAS"):
+        res_d = run("OPENVIIC_PALLAS=1", pipe.searcher, served,
+                          per_step={"head_topk": 1, "beam_select_attention": n_dec},
+                          per_request={"fused_attention": n_enc})
+        res_d = rescore(device, requests, searched(pipe.searcher), res_d, f"{name} pallas")
+    agree["OPENVIIC_PALLAS=1"] = score_parity(f"{name} OPENVIIC_PALLAS=1", res_d, tuned,
+                                              "its tuned path")
+
+    # the forced decode of the tuned path's captions through each path
+    ids = torch.from_numpy(tuned[0][1]).to(device)
+    batch = pipe._batch(request)
+
+    def forced(resident_, **flags):
+        return forced_scores(model, batch, ids, vocab, resident_, **flags)
+
+    eager_step = forced(True)
+    check_forced(f"{name} attention kernel against the eager step", ids, vocab,
+                 forced(True, attn_kernel=True), eager_step)
+    check_forced(f"{name} resident kernel against the eager step", ids, vocab,
+                 forced(True, resident_kernel=True), eager_step)
+    eager_nr = forced(False)
+    with env_flag("OPENVIIC_FUSED_STEP"):
+        check_forced(f"{name} fused step against the eager non-resident step", ids, vocab,
+                     forced(False), eager_nr)
+    with env_flag("OPENVIIC_PALLAS"):
+        check_forced(f"{name} OPENVIIC_PALLAS=1 against the eager step", ids, vocab,
+                     forced(True), eager_step)
+
+    # the kernels' inputs from these decodes (the cross memory at M = 112)
+    captures = [("head_topk", beam_search_module, "head_topk", 1, 0),
+                ("beam_select_attention", attention_module, "beam_select_attention", n_dec, 0)]
+    with contextlib.ExitStack() as stack:
+        kept = {key: stack.enter_context(capture_calls(mod, attr, every, first))
+                for key, mod, attr, every, first in captures}
+        served(request)
+    with capture_calls(decoders_module, "resident_layer_step", n_dec, 0) as res_kept:
+        resident(batch, FAMILY_BEAM)
+    kept["resident_layer_step"] = res_kept
+    with env_flag("OPENVIIC_FUSED_STEP"), capture_calls(decoders_module, "fused_layer_step",
+                                                        n_dec, 0) as fused_kept:
+        non_resident(batch, FAMILY_BEAM)
+    kept["fused_layer_step"] = fused_kept
+    # fused_attention on the first region-to-all call (the encoder's third)
+    # of the request unpadded: 50 region queries against 50 + 49 keys
+    unpadded = {k: v.to(device, torch.bfloat16) for k, v in streams.items()}
+    with env_flag("OPENVIIC_PALLAS"), torch.no_grad(), capture_calls(
+            attention_module, "fused_attention", 10 ** 9, 2) as r2g_kept:
+        model.encoder_forward(unpadded)
+    kept["fused_attention_encoder"] = r2g_kept
+    cases = trained_kernel_cases(device, kept, what=f"{name} decode")
+    cases.setdefault("fused_attention", []).append(
+        dict(case="MMA tile at DLCT's cross shapes", max_abs_err=mma_tile_checks(device, s)))
+    for kernel, rows in long_memory_steps(device, s, model.decoder.layers[0]).items():
+        cases.setdefault(kernel, []).extend(rows)
+
+    # f32: the card against its host's CPU
+    f32_same = None
+    if cuda:
+        few = request[:FAMILY_F32_IMAGES]
+
+        def f32_captions(dev):
+            return CaptioningPipeline.from_state_dict(
+                family_config(name, s, kernels=False), vocab, batch_size=len(few),
+                use_bf16=False, device=dev, seed=35).caption_features(few)
+        card_caps, cpu_caps = f32_captions(device), f32_captions("cpu")
+        f32_same = float(np.mean([a == b for a, b in zip(card_caps, cpu_caps)]))
+        log(f"  {name} f32 decode of {len(few)} images: captions identical on the card and its "
+            f"host's CPU {f32_same:.4f}")
+        if f32_same < FAMILY_F32_AGREEMENT_MIN:
+            raise AssertionError(f"{name} f32 card against CPU: {f32_same:.4f} identical < "
+                                 f"{FAMILY_F32_AGREEMENT_MIN}")
+    del pipe, model, resident, non_resident, kept
+    xe = family_xe(device, s, name, vocab, card)
+    unified_s = unified_request(device, s, card)
+    launches = {}
+    for path, counts in per_path.items():
+        for kernel, n in counts.items():
+            launches.setdefault(kernel, {})[path] = n
+    figures = dict(launches=per_path, agreement=agree, f32_card_cpu_agreement=f32_same, xe=xe,
+                   unified_request_s=unified_s, seconds=time.perf_counter() - t0)
+    log(f"  {name}: {figures['seconds']:.3f} s")
+    return dict(launches=launches, kernels=cases, figures=figures)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4182,6 +4551,8 @@ def occupancy_lines(s):
     from openviic_tpu_torch.ops.head_topk import occupancy as head_occupancy
     from openviic_tpu_torch.ops.layer_step import occupancy
 
+    from openviic_tpu_torch.ops.layer_step import library
+
     N = s["batch"] * s["beam"]
     lines = []
     for resident in (True, False):
@@ -4190,6 +4561,13 @@ def occupancy_lines(s):
         name = "resident_layer_step" if resident else "fused_layer_step"
         lines.append(f"{name} occupancy at N = {N}: "
                      + ", ".join(f"{k} {v}" for k, v in occ.items()))
+        smem = {M: library().openviic_layer_step_smem(int(resident), s["d_model"], s["d_ff"],
+                                                      s["max_len"], M)
+                for M in (s["n_regions"], *TWO_STREAM_MS, 1000)}
+        if len(set(smem.values())) != 1:
+            raise AssertionError(f"{name}: shared memory grows with M: {smem}")
+        lines.append(f"{name} shared memory per block at M = {', '.join(map(str, smem))}: "
+                     f"{next(iter(smem.values()))} B at every one")
     for k in (s["beam"], 16, 128):
         occ = head_occupancy(s["d_model"], k)
         lines.append(f"head_topk partial kernel at D = {s['d_model']}, k = {k}: "
@@ -4213,7 +4591,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-14 at tiny widths on the CPU")
+                        help="rehearse phases 3-15 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
@@ -4273,7 +4651,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-14.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-15.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -4315,6 +4693,7 @@ def all_phases(device, s, card: str):
             finally:
                 trainer = timed("trainer", lambda: trainer_phase_apart(device, s, card, loaded))
     families = timed("region families", lambda: families_phase(device, s, card))
+    two_stream = timed("two-stream families", lambda: two_stream_phase(device, s, card))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -4345,6 +4724,10 @@ def all_phases(device, s, card: str):
     found[0]["families_xe"] = {name: f["xe"] for name, f in families["families"].items()}
     found[0]["families_f32_card_cpu_agreement"] = {
         name: f["f32_card_cpu_agreement"] for name, f in families["families"].items()}
+    for e in found:
+        e["two_stream"] = two_stream["launches"].get(e["name"], {})
+        e["two_stream_cases"] = two_stream["kernels"].get(e["name"], [])
+    found[0]["two_stream_figures"] = two_stream["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

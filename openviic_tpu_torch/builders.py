@@ -28,11 +28,6 @@ META_ARCHITECTURE.alias(
 
 # The JAX package's classes still to port, by ROADMAP item.
 for _registry, _name, _item in (
-    (META_ARCHITECTURE, "DLCTTransformer", "5.4"),
-    (META_ENCODER, "DualCollaborativeLevelEncoder", "5.4"),
-    (META_VISION_EMBEDDING, "DualFeatureEmbedding", "5.4"),
-    (META_VISION_EMBEDDING, "GeometricDualFeatureEmbedding", "5.4"),
-    (META_ARCHITECTURE, "UnifiedTransformer", "5.5"),
     (META_DECODER, "AdaptiveDecoder", "5.6"),
     (META_ATTENTION, "AdaptiveScaledDotProductAttention", "5.6"),
     (META_TEXT_EMBEDDING, "LSTMTextEmbedding", "5.7"),

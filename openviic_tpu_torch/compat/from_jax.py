@@ -5,6 +5,11 @@ key format of ``params_f16.npz`` and of a Flax parameter tree flattened with
 "/" (an optional leading ``params/`` is dropped).  Names map one to one:
 
   ``layer_<i>``  -> ``layers.<i>``      (an ``nn.ModuleList`` entry)
+  ``region_<i>``, ``grid_<i>``, ``region2grid_<i>``, ``grid2region_<i>``
+                 -> ``region.<i>`` ...  (DLCT's four stacks; its
+                    ``region_proj``, ``grid_proj``, ``fc_gs``,
+                    ``layer_norm_region`` and ``layer_norm_grid`` keep
+                    their names)
   ``kernel``     -> ``weight``, transposed from (in, out) to (out, in)
   ``scale``      -> ``weight``          (LayerNorm)
   ``embedding``  -> ``weight``          (the token embedding table)
@@ -36,7 +41,8 @@ def torch_name(jax_key: str) -> Tuple[str, bool]:
     *modules, leaf = parts
     if leaf not in _LEAF:
         raise KeyError(f"unknown JAX parameter leaf {leaf!r} in {jax_key!r}")
-    modules = [re.sub(r"^layer_(\d+)$", r"layers.\1", m) for m in modules]
+    modules = [re.sub(r"^(region|grid|region2grid|grid2region)_(\d+)$", r"\1.\2",
+                      re.sub(r"^layer_(\d+)$", r"layers.\1", m)) for m in modules]
     return ".".join(modules + [_LEAF[leaf]]), leaf == "kernel"
 
 

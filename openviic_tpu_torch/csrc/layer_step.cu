@@ -69,7 +69,16 @@
 // loads of up to 32 positions before it reduces any score, then the V
 // loads of a batch together; masked positions skip their K loads (score
 // -1e30 exactly, as the additive mask gives), and V loads of weight 0 are
-// skipped.  Shapes whose heads or widths do not split in two run with
+// skipped.  The positions stream through a per-warp scratch of ATT_CHUNK
+// scores, so shared memory does not grow with the encoder length M (the
+// self mask and ancestry rows, BM x L, are staged whole as before): where
+// one chunk holds every position the scores are taken once, as before;
+// past it a first pass over the chunks finds the final max and a second
+// takes the scores again (K read twice) with the weights and the PV
+// product, so every weight is exp(s - final max), rounded where the JAX
+// kernel rounds it, never rescaled as an online softmax would.  The cross
+// mask is read from device memory where the scores are taken, never
+// staged.  Shapes whose heads or widths do not split in two run with
 // clusters of one CTA (16-row tiles).
 //
 // resident:: specifics.  The A operand is one bf16 plane (the JAX _mm
@@ -181,6 +190,8 @@ constexpr int STAGE_BYTES = 4 * BOX_BYTES;  // 32 rows x 256 columns, or 64 x 12
 constexpr int R = 8;                     // rounds of positions whose loads issue together
 constexpr int MAX_CLUSTER = 2;
 constexpr int FFN_CHUNK = 128;           // fused: hidden columns per FFN chunk
+constexpr int ATT_CHUNK = 128;           // attention positions per pass of a warp's scores
+static_assert(ATT_CHUNK % 32 == 0, "each lane keeps its positions' order across chunks");
 // CTAs per cluster of both kernels where the shape splits evenly.  The
 // port builds with 2; a measurement build may pass
 // -DOPENVIIC_RESIDENT_CLUSTER=1 (named for the kernel that took it first)
@@ -685,10 +696,11 @@ __device__ __forceinline__ float dot8_bf16(const uint4& k, const uint4& q) {
 
 // Byte offsets of the dynamic shared memory of a CTA of BM rows.
 struct Layout {
-  int ring, xs, xa, work, recv, sc, src, cdead, ln, bars, total;
+  int ring, xs, xa, work, recv, sc, src, ln, bars, total;
 };
 
-__host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int M) {
+// (M does not enter: the attention streams the encoder rows in chunks)
+__host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int) {
   const int Dc = D / C, Fc = F / C;
   const int qkv = BM * Dc * (2 + 2 + 4), hidden = BM * (Fc + 8) * 2;
   Layout l;
@@ -697,10 +709,9 @@ __host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int
   l.xa = l.xs + BM * Dc * 4;                             // BM x (D + 8) bf16: A operand, all columns
   l.work = l.xa + align16(BM * (D + 8) * 2);             // own q, k (bf16), v (f32); or own hidden
   l.recv = l.work + align16(qkv > hidden ? qkv : hidden);  // BM x Dc f32: the peer's partial sums
-  l.sc = l.recv + (C > 1 ? BM * Dc * 4 : 0);             // CWARPS x max(L, M) f32
-  l.src = l.sc + align16(CWARPS * (L > M ? L : M) * 4);  // BM x L int
-  l.cdead = l.src + align16(BM * L * 4);                 // BM x M bytes
-  l.ln = l.cdead + align16(BM * M);                      // 2 x C x BM f32: LayerNorm partial sums
+  l.sc = l.recv + (C > 1 ? BM * Dc * 4 : 0);             // CWARPS x ATT_CHUNK f32
+  l.src = l.sc + CWARPS * ATT_CHUNK * 4;                 // BM x L int
+  l.ln = l.src + align16(BM * L * 4);                    // 2 x C x BM f32: LayerNorm partial sums
   l.bars = l.ln + 2 * C * BM * 4;                        // full, empty (STAGES each), 2 exchange
   l.total = l.bars + (2 * STAGES + 2) * 8;
   return l;
@@ -797,13 +808,19 @@ __device__ void gemm_split(const Params& p, const Split& s, const bf16* A, int l
 // rounded to bf16 as the JAX _mm rounds it).  q (BM, Dc) bf16: q * scale,
 // rounded, own heads.  Self-attention: kn (BM, Dc) bf16 and vn (BM, Dc) f32
 // are this step's K/V, own heads; src (BM, L) the cache row of each
-// position, ~row where the position is masked.  Cross-attention: cdead
-// (BM, M) 1 where the region is masked.  d/8 lanes hold one position's 8
-// elements (one 16-byte load); a warp issues the K loads of up to 8 rounds
-// of positions before it reduces a score, then the V loads of a batch.
+// position, ~row where the position is masked.  Cross-attention: the
+// image's row of the cross mask (1 where the region is masked), read from
+// device memory.  d/8 lanes hold one position's 8 elements (one 16-byte
+// load); a warp issues the K loads of up to 8 rounds of positions before it
+// reduces a score, then the V loads of a batch.  The positions pass through
+// the warp's ATT_CHUNK scores (see the design note at the top): where they
+// take more than one chunk, a first pass over the chunks finds the final
+// max, and the second takes each chunk's scores again; the weights are
+// exp(s - final max) rounded to bf16 either way, as the JAX kernel's two
+// passes make them, and each lane sums its positions in one order.
 template <bool SELF>
 __device__ void attention(const Params& p, const Split& s, const bf16* q, const bf16* kn,
-                          const float* vn, const int* src, const uint8_t* cdead, float* scratch,
+                          const float* vn, const int* src, float* scratch,
                           bf16* const* xa_all, int row0, int rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = p.D, d = D / p.h, Dc = s.Dc;
@@ -812,7 +829,8 @@ __device__ void attention(const Params& p, const Split& s, const bf16* q, const 
   const int grp = lane / G;
   const int c = (lane % G) * 8;
   const int S = SELF ? p.L : p.M;
-  float* sc = scratch + warp * (p.L > p.M ? p.L : p.M);
+  const bool chunked = S > ATT_CHUNK;
+  float* sc = scratch + warp * ATT_CHUNK;
   const bf16* kbase = SELF ? p.k_cache : p.cross_k;
   const bf16* vbase = SELF ? p.v_cache : p.cross_v;
   const uint64_t stream = evict_first_policy();  // the caches pass through L2 once
@@ -825,16 +843,16 @@ __device__ void attention(const Params& p, const Split& s, const bf16* q, const 
     const int hoff = head * d + c;  // in the caches and in xa
     const int loff = r * Dc + lh * d + c;  // in this CTA's own q, k, v
     const uint4 qv = *reinterpret_cast<const uint4*>(q + loff);
+    const uint8_t* cmask = SELF ? nullptr : p.cmask + (size_t)img * p.M;
     // the cache (or cross) row of position j, and whether j is masked
-    auto where = [&](int j, bool& dead) -> int {
+    auto row_of = [&](int j) -> int {
       if (SELF) {
         const int code = src[r * p.L + j];
-        dead = code < 0;
-        return dead ? ~code : code;
+        return code < 0 ? ~code : code;
       }
-      dead = cdead[r * p.M + j] != 0;
       return img;
     };
+    auto dead_at = [&](int j) -> bool { return SELF ? src[r * p.L + j] < 0 : cmask[j] != 0; };
 
     // this step's column (self-attention), from the unrounded qkv
     float s_new = NEG;
@@ -844,72 +862,89 @@ __device__ void attention(const Params& p, const Split& s, const bf16* q, const 
       s_new = p.is_pad[n] ? part + NEG : part;
     }
 
-    // scores: a batch's K loads are all issued before the first reduction
-    for (int j0 = 0; j0 < S; j0 += P * R) {
-      uint4 raw[R];
-      bool live[R];
+    // the scores of positions cb .. cb + len - 1 into sc[0 .. len): a
+    // batch's K loads are all issued before the first reduction
+    auto scores = [&](int cb, int len) {
+      for (int j0 = 0; j0 < len; j0 += P * R) {
+        uint4 raw[R];
+        bool live[R];
 #pragma unroll
-      for (int u = 0; u < R; ++u) {
-        const int j = j0 + u * P + grp;
-        bool dead = true;
-        const int row = j < S ? where(j, dead) : 0;
-        live[u] = j < S && !dead;
-        raw[u] = live[u] ? load_stream(kbase + ((size_t)row * S + j) * D + hoff, stream)
-                         : make_uint4(0u, 0u, 0u, 0u);
+        for (int u = 0; u < R; ++u) {
+          const int j = j0 + u * P + grp;
+          live[u] = j < len && !dead_at(cb + j);
+          raw[u] = live[u]
+                       ? load_stream(kbase + ((size_t)row_of(cb + j) * S + cb + j) * D + hoff, stream)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          float part = dot8_bf16(raw[u], qv);
+          for (int o = G / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+          const int j = j0 + u * P + grp;
+          if (j < len && lane % G == 0) sc[j] = live[u] ? part : NEG;
+        }
       }
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        float part = dot8_bf16(raw[u], qv);
-        for (int o = G / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        const int j = j0 + u * P + grp;
-        if (j < S && lane % G == 0) sc[j] = live[u] ? part : NEG;
+      __syncwarp();
+    };
+
+    // the final max first where the positions take more than one chunk
+    float m = s_new;
+    if (chunked) {
+      for (int cb = 0; cb < S; cb += ATT_CHUNK) {
+        const int len = min(ATT_CHUNK, S - cb);
+        scores(cb, len);
+        for (int j = lane; j < len; j += 32) m = fmaxf(m, sc[j]);
+        __syncwarp();  // the next chunk overwrites the scores
       }
     }
-    __syncwarp();
 
-    // the final max, then exp(s - m) with it (two passes, as the JAX kernel)
-    float m = s_new;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, sc[j]);
-    m = warp_max(m);
+    // exp(s - m) with the final max (two passes, as the JAX kernel), the
+    // weights rounded to bf16, into PV chunk by chunk
     float part = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(sc[j] - m);
-      sc[j] = e;
-      part += e;
+    float acc[8];
+    float vv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    for (int cb = 0; cb < S; cb += ATT_CHUNK) {
+      const int len = min(ATT_CHUNK, S - cb);
+      scores(cb, len);
+      if (cb == 0) {
+        for (int j = lane; j < len; j += 32) m = fmaxf(m, sc[j]);
+        m = warp_max(m);
+        if (SELF && grp == 0) {  // this step's column (unrounded v_new) first
+          const float w = round_bf16(expf(s_new - m));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = w * vn[loff + e];
+        }
+      }
+      for (int j = lane; j < len; j += 32) {
+        const float e = expf(sc[j] - m);
+        sc[j] = e;
+        part += e;
+      }
+      __syncwarp();
+      for (int j0 = 0; j0 < len; j0 += P * R) {
+        uint4 raw[R];
+        float w[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int j = j0 + u * P + grp;
+          w[u] = j < len ? round_bf16(sc[j]) : 0.f;
+          raw[u] = w[u] != 0.f
+                       ? load_stream(vbase + ((size_t)row_of(cb + j) * S + cb + j) * D + hoff, stream)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          unpack8(raw[u], vv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += w[u] * vv[e];
+        }
+      }
+      __syncwarp();  // the next chunk (or pair) overwrites the scores
     }
     const float e_new = SELF ? expf(s_new - m) : 0.f;
     const float denom = e_new + warp_sum(part);
-    __syncwarp();
-
-    float acc[8];
-    float vv[8];
-    if (SELF && grp == 0) {
-      const float w = round_bf16(e_new);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = w * vn[loff + e];
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-    }
-    for (int j0 = 0; j0 < S; j0 += P * R) {
-      uint4 raw[R];
-      float w[R];
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        const int j = j0 + u * P + grp;
-        bool dead;
-        const int row = j < S ? where(j, dead) : 0;
-        w[u] = j < S ? round_bf16(sc[j]) : 0.f;
-        raw[u] = w[u] != 0.f ? load_stream(vbase + ((size_t)row * S + j) * D + hoff, stream)
-                             : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        unpack8(raw[u], vv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] += w[u] * vv[e];
-      }
-    }
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       for (int o = G; o < 32; o <<= 1) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
@@ -923,7 +958,6 @@ __device__ void attention(const Params& p, const Split& s, const bf16* q, const 
             *reinterpret_cast<const uint4*>(out);
       }
     }
-    __syncwarp();  // the next pair overwrites the scores
   }
 }
 
@@ -938,7 +972,7 @@ struct Design : Plan {
                                  const Layout& lay, uint32_t full, uint32_t empty, uint32_t xbars,
                                  int row0, int rows) {
     constexpr int BM = 16 * MT;
-    const int D = p.D, L = p.L, M = p.M, Dc = s.Dc, Fc = s.Fc;
+    const int D = p.D, L = p.L, Dc = s.Dc, Fc = s.Fc;
     const int tid = threadIdx.x;
     namespace cg = cooperative_groups;
     const cg::cluster_group cluster = cg::this_cluster();
@@ -951,7 +985,6 @@ struct Design : Plan {
     float* vo = reinterpret_cast<float*>(ko + BM * Dc);    // (BM, Dc) own v_new
     float* scratch = reinterpret_cast<float*>(smem + lay.sc);
     int* src = reinterpret_cast<int*>(smem + lay.src);
-    uint8_t* cdead = smem + lay.cdead;
     bf16* xa_all[MAX_CLUSTER];
     float* recv_all[MAX_CLUSTER];
     float* ln_all[MAX_CLUSTER];
@@ -967,7 +1000,7 @@ struct Design : Plan {
 
     // x: all columns rounded (the A operand), own columns in f32 (the
     // residual), zero past the tile's rows; the source row of every self
-    // position with its mask folded in; the cross masks
+    // position with its mask folded in
     for (int e = tid; e < BM * D; e += CTHREADS) {
       const int r = e / D, c = e - (e / D) * D;
       const float v = r < rows ? __bfloat162float(p.x[(size_t)(row0 + r) * D + c]) : 0.f;
@@ -981,10 +1014,6 @@ struct Design : Plan {
       const int from = (n / p.beam) * p.beam + (int)p.anc[(size_t)n * L + j];
       const bool dead = j == p.t || p.smask[(size_t)from * L + j] != 0;  // column t is stale
       src[e] = dead ? ~from : from;
-    }
-    for (int e = tid; e < rows * M; e += CTHREADS) {
-      const int r = e / M, j = e - (e / M) * M;
-      cdead[e] = p.cmask[(size_t)((row0 + r) / p.beam) * M + j];
     }
     consumer_sync();
     phase_mark(1);  // inputs staged
@@ -1003,7 +1032,7 @@ struct Design : Plan {
       for (int i = 0; i < 8; ++i) v8[i] = __float2bfloat16_rn(vo[r * Dc + c + i]);
       *reinterpret_cast<uint4*>(p.out_v + at) = *reinterpret_cast<const uint4*>(v8);
     }
-    attention<true>(p, s, qo, ko, vo, src, cdead, scratch, xa_all, row0, rows);
+    attention<true>(p, s, qo, ko, vo, src, scratch, xa_all, row0, rows);
     ex.step(s);
     phase_mark(3);  // self-attention
     gemm<Plan, MT, 1>(p, s, 1, xa, D + 8, 0, ring, full, empty, slice, Residual{xs, Dc, rows});
@@ -1016,7 +1045,7 @@ struct Design : Plan {
                       Query{qo, Dc, rows, p.scale});
     ex.step(s);
     phase_mark(5);  // wqc product
-    attention<false>(p, s, qo, nullptr, nullptr, src, cdead, scratch, xa_all, row0, rows);
+    attention<false>(p, s, qo, nullptr, nullptr, src, scratch, xa_all, row0, rows);
     ex.step(s);
     phase_mark(6);  // cross-attention
     gemm<Plan, MT, 1>(p, s, 3, xa, D + 8, 0, ring, full, empty, slice, Residual{xs, Dc, rows});
@@ -1062,10 +1091,11 @@ namespace fused {
 
 // Byte offsets of the dynamic shared memory of a CTA of BM rows.
 struct Layout {
-  int ring, xa, xs, work, parts, sc, smask, cmask, ln, bars, total;
+  int ring, xa, xs, work, parts, sc, smask, ln, bars, total;
 };
 
-__host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int M) {
+// (M does not enter: the attention streams the encoder rows in chunks)
+__host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int) {
   const int Dc = D / C;
   const int own = BM * Dc * 4, chunk = 3 * BM * (FFN_CHUNK + 8) * 2;
   Layout l;
@@ -1076,10 +1106,9 @@ __host__ __device__ inline Layout layout(int BM, int C, int D, int F, int L, int
   l.xs = l.xa + align16(3 * BM * (D + 8) * 2);      // BM x Dc f32: own q; then own residual
   l.work = l.xs + own;                              // own v_new f32; own q2 f32; hidden chunk
   l.parts = l.work + align16(own > chunk ? own : chunk);  // BM x Dc/8 f32: q . k_new by 8 columns
-  l.sc = l.parts + BM * (Dc / 8) * 4;               // CWARPS x max(L, M) f32
-  l.smask = l.sc + align16(CWARPS * (L > M ? L : M) * 4);  // BM x L bytes
-  l.cmask = l.smask + align16(BM * L);              // BM x M bytes
-  l.ln = l.cmask + align16(BM * M);                 // 2 x C x BM f32: LayerNorm partial sums
+  l.sc = l.parts + BM * (Dc / 8) * 4;               // CWARPS x ATT_CHUNK f32
+  l.smask = l.sc + CWARPS * ATT_CHUNK * 4;          // BM x L bytes
+  l.ln = l.smask + align16(BM * L);                 // 2 x C x BM f32: LayerNorm partial sums
   l.bars = l.ln + 2 * C * BM * 4;                   // full, empty (STAGES each), 2 exchange
   l.total = l.bars + (2 * STAGES + 2) * 8;
   return l;
@@ -1183,7 +1212,12 @@ struct Hidden {
 // operand.  q (BM, Dc) f32, own heads, unscaled.  Self-attention: position t
 // is this step's K/V (its score from `parts`, the q . k_new sums by 8
 // columns; v_new from vn (BM, Dc) f32), the others row n's cache rows;
-// cross-attention: row n's cross K/V rows.  mask (BM, S) 1 = masked.
+// cross-attention: row n's cross K/V rows.  mask: the tile's first row of
+// the mask, (BM, S) 1 = masked (the staged self mask, or the cross mask in
+// device memory).  The positions pass through the warp's ATT_CHUNK scores
+// in chunks (see the design note at the top): in one chunk the weights are
+// normalised before PV, as the JAX kernel does; over several, PV sums
+// exp(s - m) and the result is divided once.
 template <bool SELF>
 __device__ void attention(const Params& p, const Split& s, const float* q, const float* vn,
                           const float* parts, const uint8_t* mask, float* scratch,
@@ -1196,7 +1230,8 @@ __device__ void attention(const Params& p, const Split& s, const float* q, const
   const int c = (lane % G) * 8;
   const int S = SELF ? p.L : p.M;
   const int t = SELF ? p.t : -1;
-  float* sc = scratch + warp * (p.L > p.M ? p.L : p.M);
+  const bool chunked = S > ATT_CHUNK;
+  float* sc = scratch + warp * ATT_CHUNK;
   const bf16* kbase = SELF ? p.k_cache : p.cross_k;
   const bf16* vbase = SELF ? p.v_cache : p.cross_v;
   const uint64_t stream = evict_first_policy();  // the caches pass through L2 once
@@ -1207,7 +1242,7 @@ __device__ void attention(const Params& p, const Split& s, const float* q, const
     const size_t base = (size_t)(row0 + r) * S;  // row n's first cache (or cross) row
     const int hoff = head * d + c;                // in the caches and in xa
     const int loff = r * Dc + lh * d + c;         // in this CTA's own q, v
-    const uint8_t* mrow = mask + r * S;
+    const uint8_t* mrow = mask + (size_t)r * S;
     float qv[8];
     const float4 q0 = *reinterpret_cast<const float4*>(q + loff);
     const float4 q1 = *reinterpret_cast<const float4*>(q + loff + 4);
@@ -1221,73 +1256,99 @@ __device__ void attention(const Params& p, const Split& s, const float* q, const
       s_t = mrow[t] ? NEG : dot * p.scale;
     }
 
-    // scores: a batch's K loads are all issued before the first reduction
-    for (int j0 = 0; j0 < S; j0 += P * R) {
-      uint4 raw[R];
-      bool live[R];
+    // the scores of positions cb .. cb + len - 1 into sc[0 .. len): a
+    // batch's K loads are all issued before the first reduction
+    auto scores = [&](int cb, int len) {
+      for (int j0 = 0; j0 < len; j0 += P * R) {
+        uint4 raw[R];
+        bool live[R];
 #pragma unroll
-      for (int u = 0; u < R; ++u) {
-        const int j = j0 + u * P + grp;
-        live[u] = j < S && j != t && mrow[j] == 0;
-        raw[u] = live[u] ? load_stream(kbase + (base + j) * D + hoff, stream)
-                         : make_uint4(0u, 0u, 0u, 0u);
+        for (int u = 0; u < R; ++u) {
+          const int j = j0 + u * P + grp, a = cb + j;
+          live[u] = j < len && a != t && mrow[a] == 0;
+          raw[u] = live[u] ? load_stream(kbase + (base + a) * D + hoff, stream)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          float kv[8];
+          unpack8(raw[u], kv);
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part += kv[e] * qv[e];
+          for (int o = G / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+          const int j = j0 + u * P + grp;
+          if (j < len && lane % G == 0) {
+            sc[j] = cb + j == t ? s_t : live[u] ? part * p.scale : NEG;
+          }
+        }
       }
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        float kv[8];
-        unpack8(raw[u], kv);
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) part += kv[e] * qv[e];
-        for (int o = G / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        const int j = j0 + u * P + grp;
-        if (j < S && lane % G == 0) sc[j] = j == t ? s_t : live[u] ? part * p.scale : NEG;
+      __syncwarp();
+    };
+
+    // the final max first where the positions take more than one chunk
+    float m = -CUDART_INF_F;
+    if (chunked) {
+      for (int cb = 0; cb < S; cb += ATT_CHUNK) {
+        const int len = min(ATT_CHUNK, S - cb);
+        scores(cb, len);
+        for (int j = lane; j < len; j += 32) m = fmaxf(m, sc[j]);
+        __syncwarp();  // the next chunk overwrites the scores
       }
     }
-    __syncwarp();
 
     // softmax with the final max and the 1e-30 guard, as the JAX kernel
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, sc[j]);
-    m = warp_max(m);
-    float part = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(sc[j] - m);
-      sc[j] = e;
-      part += e;
-    }
-    const float denom = fmaxf(warp_sum(part), 1e-30f);
-    __syncwarp();
-
+    float part = 0.f, denom = 1.f;
     float acc[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-    for (int j0 = 0; j0 < S; j0 += P * R) {
-      uint4 raw[R];
-      float w[R];
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        const int j = j0 + u * P + grp;
-        w[u] = j < S ? sc[j] / denom : 0.f;
-        raw[u] = w[u] != 0.f && j != t ? load_stream(vbase + (base + j) * D + hoff, stream)
-                                       : make_uint4(0u, 0u, 0u, 0u);
+    for (int cb = 0; cb < S; cb += ATT_CHUNK) {
+      const int len = min(ATT_CHUNK, S - cb);
+      scores(cb, len);
+      if (cb == 0) {
+        for (int j = lane; j < len; j += 32) m = fmaxf(m, sc[j]);
+        m = warp_max(m);
       }
+      for (int j = lane; j < len; j += 32) {
+        const float e = expf(sc[j] - m);
+        sc[j] = e;
+        part += e;
+      }
+      if (!chunked) denom = fmaxf(warp_sum(part), 1e-30f);
+      __syncwarp();
+      for (int j0 = 0; j0 < len; j0 += P * R) {
+        uint4 raw[R];
+        float w[R];
 #pragma unroll
-      for (int u = 0; u < R; ++u) {
-        float vv[8];
-        if (SELF && j0 + u * P + grp == t) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) vv[e] = vn[loff + e];
-        } else {
-          unpack8(raw[u], vv);
+        for (int u = 0; u < R; ++u) {
+          const int j = j0 + u * P + grp, a = cb + j;
+          w[u] = j < len ? sc[j] / denom : 0.f;
+          raw[u] = w[u] != 0.f && a != t ? load_stream(vbase + (base + a) * D + hoff, stream)
+                                         : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] += w[u] * vv[e];
+        for (int u = 0; u < R; ++u) {
+          float vv[8];
+          if (SELF && cb + j0 + u * P + grp == t) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) vv[e] = vn[loff + e];
+          } else {
+            unpack8(raw[u], vv);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += w[u] * vv[e];
+        }
       }
+      __syncwarp();  // the next chunk (or pair) overwrites the scores
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       for (int o = G; o < 32; o <<= 1) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    }
+    if (chunked) {
+      denom = fmaxf(warp_sum(part), 1e-30f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = acc[e] / denom;
     }
     if (grp == 0) {
       uint32_t t3[3][4];
@@ -1303,7 +1364,6 @@ __device__ void attention(const Params& p, const Split& s, const float* q, const
         }
       }
     }
-    __syncwarp();  // the next pair overwrites the scores
   }
 }
 
@@ -1331,7 +1391,6 @@ struct Design : Plan {
     float* parts = reinterpret_cast<float*>(smem + lay.parts);
     float* scratch = reinterpret_cast<float*>(smem + lay.sc);
     uint8_t* smask = smem + lay.smask;
-    uint8_t* cmask = smem + lay.cmask;
     bf16* xa_all[MAX_CLUSTER];
     float* ln_all[MAX_CLUSTER];
     for (int t = 0; t < s.C; ++t) {
@@ -1342,7 +1401,7 @@ struct Design : Plan {
     Exchange ex{xbars, 0};
     phase_mark(0);
 
-    // x (bf16, so one plane is exact) zero past the tile's rows; the masks
+    // x (bf16, so one plane is exact) zero past the tile's rows; the self mask
     for (int e = tid; e < BM * (D / 8); e += CTHREADS) {
       const int r = e / (D / 8), c = (e - r * (D / 8)) * 8;
       *reinterpret_cast<uint4*>(xa + r * (D + 8) + c) =
@@ -1350,7 +1409,6 @@ struct Design : Plan {
                    : make_uint4(0u, 0u, 0u, 0u);
     }
     for (int e = tid; e < rows * L; e += CTHREADS) smask[e] = p.smask[(size_t)row0 * L + e];
-    for (int e = tid; e < rows * M; e += CTHREADS) cmask[e] = p.cmask[(size_t)row0 * M + e];
     consumer_sync();
     phase_mark(1);  // inputs staged
 
@@ -1373,7 +1431,8 @@ struct Design : Plan {
                       Query{work, Dc, rows});
     ex.step(s);
     phase_mark(5);  // wqc product
-    attention<false>(p, s, work, nullptr, nullptr, cmask, scratch, xa_all, plane, row0, rows);
+    attention<false>(p, s, work, nullptr, nullptr, p.cmask + (size_t)row0 * M, scratch, xa_all,
+                     plane, row0, rows);
     ex.step(s);
     phase_mark(6);  // cross-attention
     gemm<Plan, MT, 3>(p, s, 3, xa, D + 8, plane, ring, full, empty, slice,

@@ -94,7 +94,7 @@ class PatchBackbone:
     cells through a fixed projection, drawn with numpy as the JAX module
     draws it (``self.proj`` is bit-equal to its)."""
 
-    def __init__(self, grid: int, dim: int = 512, device="cpu"):
+    def __init__(self, grid: int, dim: int = 512, device="cuda"):
         self.grid = grid
         self.dim = dim
         self.device = torch.device(device)
@@ -159,8 +159,9 @@ def roi_pool(fmap, gboxes, boxes) -> torch.Tensor:
     return torch.where(overlaps[:, None], weights @ fmap, fmap[nearest])
 
 
-def make_backbone(spec: str, grid: int, dim: int = 512, device="cpu"):
-    """Backbone from a spec string: "patch" (on ``device``) or "hf:<model>"."""
+def make_backbone(spec: str, grid: int, dim: int = 512, device="cuda"):
+    """Backbone from a spec string: "patch" (on ``device``, the card unless
+    the caller asks for the CPU) or "hf:<model>"."""
     if spec == "patch":
         return PatchBackbone(grid, dim, device=device)
     if spec.startswith("hf:"):

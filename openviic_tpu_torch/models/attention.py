@@ -129,9 +129,11 @@ class _Projections(nn.Module):
         return self.fc_q(queries).reshape(bs, nq, self.h, self.d_k)
 
     def project_kv(self, x):
+        """K and V of ``x`` in the promoted dtype of ``x`` and the weights
+        (DLCT's cross-attentions read an f32 stream at bf16 weights)."""
         bs, n = x.shape[:2]
-        k = self.fc_k(x).reshape(bs, n, self.h, self.d_k)
-        v = self.fc_v(x).reshape(bs, n, self.h, self.d_v)
+        k = promoted_linear(self.fc_k, x).reshape(bs, n, self.h, self.d_k)
+        v = promoted_linear(self.fc_v, x).reshape(bs, n, self.h, self.d_v)
         return k, v
 
     def output(self, out):

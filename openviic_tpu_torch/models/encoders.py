@@ -3,8 +3,9 @@
 FFN layers whose padded query rows are zeroed), ``MultilevelEncoder`` (the
 same, returning every layer's output for the Meshed-Memory decoder),
 ``GeometricEncoder`` (the Object Relation Transformer's per-head geometric
-attention bias from the region boxes) and CAMO's
-``CrossAttentionMultiLevelEncoder``."""
+attention bias from the region boxes), CAMO's
+``CrossAttentionMultiLevelEncoder`` and DLCT's
+``DualCollaborativeLevelEncoder``."""
 
 from __future__ import annotations
 
@@ -18,6 +19,13 @@ from openviic_tpu_torch.models.geometry import box_relational_embedding
 from openviic_tpu_torch.models.initializers import PerHeadXavierLinear, TorchLinear
 from openviic_tpu_torch.models.positional import sinusoid_positional_embedding
 from openviic_tpu_torch.ops.geo_attention import geo_fused_enabled
+
+
+def relu_geometry(fc_gs: nn.Linear, boxes: torch.Tensor, d_g: int, trig: bool) -> torch.Tensor:
+    """Per-head geometry weights relu(fc_gs(box_relational_embedding(boxes)))
+    of (bs, n, 4) boxes, as (bs, h, n, n)."""
+    emb = box_relational_embedding(boxes, dim_g=d_g, trignometric_embedding=trig)
+    return torch.relu(promoted_linear(fc_gs, emb).permute(0, 3, 1, 2))
 
 
 class EncoderLayer(nn.Module):
@@ -111,10 +119,7 @@ class GeometricEncoder(Encoder):
 
     def geometry_weights(self, boxes: torch.Tensor) -> torch.Tensor:
         """(bs, n, 4) boxes -> (bs, h, n, n) non-negative weights."""
-        emb = box_relational_embedding(
-            boxes, dim_g=self.d_g, trignometric_embedding=self.trignometric_embedding
-        )
-        return torch.relu(promoted_linear(self.fc_gs, emb).permute(0, 3, 1, 2))
+        return relu_geometry(self.fc_gs, boxes, self.d_g, self.trignometric_embedding)
 
     def forward(self, features, boxes, padding_mask):
         if geo_fused_enabled() and self.trignometric_embedding and self.d_g % 8 == 0:
@@ -123,3 +128,67 @@ class GeometricEncoder(Encoder):
             })
         return super().forward(features, padding_mask,
                                relative_geometry_weights=self.geometry_weights(boxes))
+
+
+@META_ENCODER.register()
+class DualCollaborativeLevelEncoder(nn.Module):
+    """DLCT: a region stack and a grid stack side by side, each layer of
+    each followed by a locally constrained cross-attention over [regions |
+    grids].  One ``fc_gs`` maps the box-relation embedding of all n_r + n_g
+    boxes to per-head geometry weights relu(.) (bs, h, n, n), sliced per
+    attention: regions to regions, grids to grids, regions to all, grids
+    to all.  Both streams start as their LayerNorm plus the normalized
+    sinusoid positions; in every layer the concatenated stream gets the
+    positions of its own length added before the cross-attentions, whose
+    masks are the visibility masks ``region2all`` and ``grid2all`` while
+    their padded query rows are zeroed by the plain padding masks.  Returns
+    the concatenated stream (bs, n_r + n_g, d) and its padding mask (bs, 1,
+    1, n_r + n_g).  The layers are ``region``, ``grid``, ``region2grid``
+    and ``grid2region`` (the JAX ``region_<i>`` ...)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.d_model = config.D_MODEL
+        self.trignometric_embedding = config.TRIGNOMETRIC_EMBEDDING
+        self.n_heads = config.HEAD
+        self.d_g = config.D_MODEL // self.n_heads if self.trignometric_embedding else 4
+        self.fc_gs = PerHeadXavierLinear(self.d_g, self.n_heads)
+        self.layer_norm_region = nn.LayerNorm(config.D_MODEL, eps=1e-5)
+        self.layer_norm_grid = nn.LayerNorm(config.D_MODEL, eps=1e-5)
+
+        def stack(attention):
+            return nn.ModuleList(EncoderLayer(attention) for _ in range(config.LAYERS))
+        self.region = stack(config.SELF_ATTENTION)
+        self.grid = stack(config.SELF_ATTENTION)
+        self.region2grid = stack(config.CROSS_ATTENTION)
+        self.grid2region = stack(config.CROSS_ATTENTION)
+
+    def _pos(self, x):
+        return sinusoid_positional_embedding(x, self.d_model, normalize=True)
+
+    def forward(self, region_features, region_boxes, region_padding_mask, region2all_mask,
+                grid_features, grid_boxes, grid_padding_mask, grid2all_mask):
+        n_r = region_features.shape[1]
+        g = relu_geometry(self.fc_gs, torch.cat([region_boxes, grid_boxes], dim=1), self.d_g,
+                          self.trignometric_embedding)  # (bs, h, n, n)
+        regions = (self.layer_norm_region(region_features)
+                   + self._pos(region_features)).to(region_features.dtype)
+        grids = (self.layer_norm_grid(grid_features)
+                 + self._pos(grid_features)).to(grid_features.dtype)
+        for l_region, l_grid, l_r2g, l_g2r in zip(self.region, self.grid, self.region2grid,
+                                                  self.grid2region):
+            regions = l_region(regions, regions, regions, region_padding_mask,
+                               region_padding_mask,
+                               relative_geometry_weights=g[:, :, :n_r, :n_r])
+            grids = l_grid(grids, grids, grids, grid_padding_mask, grid_padding_mask,
+                           relative_geometry_weights=g[:, :, n_r:, n_r:])
+            combined = torch.cat([regions, grids], dim=1)
+            # float32 from here, as the JAX sum of a bf16 stream and the f32
+            # positions promotes
+            combined = combined + self._pos(combined)
+            regions = l_r2g(regions, combined, combined, region_padding_mask, region2all_mask,
+                            relative_geometry_weights=g[:, :, :n_r, :])
+            grids = l_g2r(grids, combined, combined, grid_padding_mask, grid2all_mask,
+                          relative_geometry_weights=g[:, :, n_r:, :])
+        return (torch.cat([regions, grids], dim=1),
+                torch.cat([region_padding_mask, grid_padding_mask], dim=-1))

@@ -3,6 +3,8 @@ pure functions, no parameters."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -23,12 +25,25 @@ def sinusoid_encoding_table(max_len: int, d_model: int,
 
 
 def sinusoid_positional_embedding(x: torch.Tensor, num_pos_feats: int,
-                                  temperature: float = 10000.0) -> torch.Tensor:
+                                  mask: torch.Tensor | None = None,
+                                  temperature: float = 10000.0, normalize: bool = False,
+                                  scale: float | None = None) -> torch.Tensor:
     """DETR-style 1D positional embedding over the sequence axis of a
-    (bs, seq, d) tensor, without a mask: positions 1..seq.  Float32."""
+    (bs, seq, d) tensor, float32.  Positions are the running count of
+    unmasked entries (1..seq without ``mask``; ``mask`` (bs, seq) is True
+    where masked).  ``normalize`` divides them by the last one (plus 1e-6)
+    and multiplies by ``scale`` (default 2 pi), the DLCT encoder's
+    variant."""
+    if scale is None:
+        scale = 2.0 * math.pi
     bs, n = x.shape[:2]
-    embed = torch.arange(1, n + 1, dtype=torch.float32, device=x.device)
-    embed = embed[None, :].expand(bs, n)
+    if mask is None:
+        embed = torch.arange(1, n + 1, dtype=torch.float32, device=x.device)
+        embed = embed[None, :].expand(bs, n)
+    else:
+        embed = torch.cumsum((~mask).float(), dim=1)
+    if normalize:
+        embed = embed / (embed[:, -1:] + 1e-6) * scale
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=x.device)
     dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_pos_feats)
     pos = embed[:, :, None] / dim_t

@@ -37,7 +37,7 @@ def test_grid_boxes_are_bit_equal(g):
 
 @pytest.mark.parametrize("grid, dim", [(3, 11), (7, 1024)])
 def test_projection_is_bit_equal(grid, dim):
-    got = extraction.PatchBackbone(grid, dim)
+    got = extraction.PatchBackbone(grid, dim, device="cpu")
     np.testing.assert_array_equal(got.proj, jax_extraction.PatchBackbone(grid, dim).proj)
     assert got._proj.dtype == torch.float32 and got._proj.shape == (192, dim)
 
@@ -88,7 +88,7 @@ def test_resize_is_pils_bit_for_bit(h, w, g):
     rng = np.random.default_rng(h * w + g)
     arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
     want = np.asarray(Image.fromarray(arr).resize((8 * g, 8 * g), Image.BILINEAR))
-    got = extraction.PatchBackbone(g, 8).resize(arr)
+    got = extraction.PatchBackbone(g, 8, device="cpu").resize(arr)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -98,7 +98,7 @@ def test_backbone_matches_jax(h, w, g):
     arr = np.random.default_rng(g).integers(0, 256, size=(h, w, 3), dtype=np.uint8)
     image = Image.fromarray(arr)
     want = jax_extraction.PatchBackbone(g, 64)(image)
-    backbone = extraction.PatchBackbone(g, 64)
+    backbone = extraction.PatchBackbone(g, 64, device="cpu")
     got = backbone(arr)
     assert got.dtype == torch.float32 and got.shape == want.shape == (g * g, 64)
     np.testing.assert_allclose(got.numpy(), want, atol=FEATURE_ATOL, rtol=0)
@@ -109,7 +109,7 @@ def test_pil_images_of_other_modes_are_converted():
     arr = np.random.default_rng(1).integers(0, 256, size=(40, 40), dtype=np.uint8)
     for image in (Image.fromarray(arr, "L"), Image.fromarray(arr, "L").convert("RGBA")):
         want = jax_extraction.PatchBackbone(3, 16)(image)
-        got = extraction.PatchBackbone(3, 16)(image)
+        got = extraction.PatchBackbone(3, 16, device="cpu")(image)
         np.testing.assert_allclose(got.numpy(), want, atol=FEATURE_ATOL, rtol=0)
     with pytest.raises(ValueError, match="uint8"):
         extraction.rgb_array(arr)
@@ -123,7 +123,8 @@ def test_extract_feature_dict_matches_jax(with_boxes):
         if with_boxes else None
     want = jax_extraction.extract_feature_dict(
         Image.fromarray(arr), jax_extraction.PatchBackbone(5, 11), gboxes, boxes)
-    got = extraction.extract_feature_dict(arr, extraction.PatchBackbone(5, 11), gboxes, boxes)
+    got = extraction.extract_feature_dict(arr, extraction.PatchBackbone(5, 11, device="cpu"),
+                                           gboxes, boxes)
     assert sorted(got) == sorted(want)
     for key in want:
         assert isinstance(got[key], np.ndarray) and got[key].dtype == want[key].dtype
@@ -132,7 +133,8 @@ def test_extract_feature_dict_matches_jax(with_boxes):
 
 
 def test_backbone_specs():
-    assert isinstance(extraction.make_backbone("patch", 3, 11), extraction.PatchBackbone)
+    assert isinstance(extraction.make_backbone("patch", 3, 11, device="cpu"),
+                      extraction.PatchBackbone)
     with pytest.raises(NotImplementedError, match="transformers"):
         extraction.make_backbone("hf:google/vit-base-patch16-224-in21k", 7)
     with pytest.raises(ValueError, match="unknown backbone"):

@@ -1,12 +1,13 @@
 """Every shipped model config in the port: each yaml under ``configs/`` and
 ``configs/tpu/`` builds at its own widths with the JAX package's parameter
-tree (every leaf carried through ``compat.from_jax`` at its shape), or, for
-the families still to port, raises ``NotImplementedError`` naming their
-ROADMAP item.  The two configs that misspell their architecture
+tree (every leaf carried through ``compat.from_jax`` at its shape; DLCT's
+traced over its four streams), or, for the family still to port (RSTNet),
+raises ``NotImplementedError`` naming its ROADMAP item.  The two configs that misspell their architecture
 (``dlct-transformer.yaml``, ``rstnet.yaml``: ``StandardStranformerUsingRegion``)
 build as the standard transformer in both packages, through the same
 alias.  And ``chip_smoke.py``'s in-code trees of the four region families
-(the card's machine has no PyYAML) equal their yamls' ``MODEL``."""
+and of DLCT (the card's machine has no PyYAML) equal their yamls'
+``MODEL``."""
 
 import importlib.util
 import sys
@@ -26,8 +27,8 @@ from tests.test_torch_port_support import make_vocab
 
 ROOT = Path(__file__).resolve().parents[1]
 YAMLS = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "configs").glob("**/*.yaml"))
-# the families still to port: their ROADMAP items (A.5.4 DLCT, A.5.6 RSTNet)
-NOT_PORTED = {"dlct_fixed.yaml": "A.5.4", "rstnet_fixed.yaml": "A.5.6"}
+# the family still to port: its ROADMAP item (A.5.6 RSTNet)
+NOT_PORTED = {"rstnet_fixed.yaml": "A.5.6"}
 
 
 def _model(path):
@@ -41,9 +42,15 @@ def _jax_shapes(path, vocab):
     model = build_jax_model(config, vocab)
     vis = config.VISION_EMBEDDING
     batch = {"caption_tokens": np.zeros((1, vocab.max_caption_length), np.int32)}
-    key = "grid_features" if config.ARCHITECTURE == "StandardTransformerUsingGrid" \
-        else "region_features"
-    batch[key] = np.zeros((1, 8, vis.D_FEATURE), np.float32)
+    if config.ARCHITECTURE == "DLCTTransformer":  # regions and a 7 x 7 grid, with boxes
+        batch.update(region_features=np.zeros((1, 8, vis.D_REGION_FEATURE), np.float32),
+                     region_boxes=np.zeros((1, 8, 4), np.float32),
+                     grid_features=np.zeros((1, 49, vis.D_GRID_FEATURE), np.float32),
+                     grid_boxes=np.zeros((1, 49, 4), np.float32))
+    else:
+        key = "grid_features" if config.ARCHITECTURE == "StandardTransformerUsingGrid" \
+            else "region_features"
+        batch[key] = np.zeros((1, 8, vis.D_FEATURE), np.float32)
     if config.ARCHITECTURE == "ObjectRelationTransformer":
         batch["region_boxes"] = np.zeros((1, 8, 4), np.float32)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), batch)
@@ -86,10 +93,10 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("family", ["aoa", "augmented_memory", "meshed_memory", "camo"])
+@pytest.mark.parametrize("family", ["aoa", "augmented_memory", "meshed_memory", "camo", "dlct"])
 def test_chip_smoke_trees_equal_the_yamls(family):
     chip_smoke = _chip_smoke()
-    yaml = chip_smoke.FAMILIES[family]
+    yaml = {**chip_smoke.FAMILIES, **chip_smoke.TWO_STREAM_FAMILIES}[family]
     got = chip_smoke.family_model(family, chip_smoke.FLAGSHIP)
     assert got == _model(f"configs/{yaml}.yaml").to_dict()
     tuned = _model(f"configs/tpu/{yaml}.yaml").to_dict()  # its NAME ends in _tpu

@@ -62,7 +62,7 @@ def _png(arr):
 
 def _direct(server, arr):
     """The pipeline's own caption of an image's patch features."""
-    fd = extract_feature_dict(arr, PatchBackbone(3, GRID_DIM), grid_boxes(3))
+    fd = extract_feature_dict(arr, PatchBackbone(3, GRID_DIM, device="cpu"), grid_boxes(3))
     return server.pipeline.caption_features([fd])[0]
 
 

@@ -47,14 +47,17 @@ def make_captions(vocab: Vocab, bs: int, n_words: int = 4, seed: int = 0) -> np.
 
 def random_params(jax_model, vocab: Vocab, seed: int, eos_gain: float = 1.0,
                   feature_key: str = "region_features", d_feature: int = D_FEATURE,
-                  shapes_only: bool = False):
+                  shapes_only: bool = False, batch=None):
     """Flat {"params/a/b": array} drawn with numpy in the JAX layout, over
-    the parameters ``jax_model.init`` makes for ``feature_key`` features.
+    the parameters ``jax_model.init`` makes for ``feature_key`` features
+    (or for the streams of ``batch``, a dict of 2-image arrays).
     ``eos_gain`` scales the head's <eos> column so that beams finish early.
     ``shapes_only`` traces the init without running it (much faster; the
     leaves then come in sorted order, so the same seed draws other weights)."""
-    features = np.random.default_rng(0).normal(size=(2, 6, d_feature)).astype(np.float32)
-    batch = {feature_key: features, "caption_tokens": make_captions(vocab, 2)}
+    if batch is None:
+        features = np.random.default_rng(0).normal(size=(2, 6, d_feature)).astype(np.float32)
+        batch = {feature_key: features}
+    batch = dict(batch, caption_tokens=make_captions(vocab, 2))
     init = jax.eval_shape if shapes_only else (lambda fn, *args: fn(*args))
     template = init(jax_model.init, jax.random.PRNGKey(0), batch)
     rng = np.random.default_rng(seed)
