@@ -178,19 +178,47 @@ On the card it runs these phases, each printing its seconds:
    against 99 keys), the MMA tile at its cross shapes, both layer steps
    at M = 99, 112 and 200; f32 card against CPU on 16 images; 10 bf16 XE
    steps; ``UnifiedTransformer`` at d_model 512 on its 4-wide streams;
-16. the last line: ``{"ok": true, "device": {...}}``.
+16. RSTNet (``configs/rstnet_fixed.yaml``: the flagship's encoder, 3
+   decoder layers and the adaptive one, the frozen PhoBERT-architecture
+   language model of hidden 768, 4 layers of 8 heads, over 64 001 ids,
+   about 115 M parameters; random weights from a seed; beam 3, bf16), one
+   request of 320 images of 50 regions through ``CaptioningPipeline``,
+   which builds the (10 000, 512) signal table once from the f32 weights:
+   the table's build time and every row against the language model run on
+   its id (f32, 1e-5); the table path against the per-step language model
+   (ids identical at f32 on 16 images, score parity at bf16, captions/s
+   each); ``resident_kernel`` with ``head_kernel=1``, ``attn_kernel`` and
+   ``OPENVIIC_FUSED_STEP=1``: no launch of any kernel and the eager path's
+   ids; ``OPENVIIC_PALLAS=1`` with the table and without (fused_attention
+   once an encoder layer, twice a standard layer and step, once a table
+   build, once more a step for the per-step language model), score parity
+   and the forced decode against the flag-off twin; fused_attention on the
+   table's 1 x 1 call (the <pad> row fully masked) and a standard layer's
+   step cross call against its plain version, timed beside its bound and
+   SDPA's; f32 card against CPU on 16 images; 10 bf16 XE steps (the
+   backbone bit-unchanged, out of Adam's state); SCST iterations with the
+   table rebuilt each one (ms for table, sample, reward, step) and one
+   sampled with dropout through the per-step language model; a
+   ``BaseTrainer`` run through XE, the switch and SCST on phase 13's
+   artifact images with its split checkpoint (``frozen_params.ckpt``
+   written once, the per-epoch file's MiB beside an unsplit save's) and
+   ``CaptioningPipeline(checkpoint_dir=...)`` captioning from the split
+   files;
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families and two-stream phases); the line before that is
+and cases in the families, two-stream and RSTNet phases, 0 where a
+kernel does not run); the line before that is
 the card's name and power limit.  Any failure raises, and the script
-exits non-zero without those lines.  ``--cpu`` runs phases 3-15 at tiny
-widths with the plain versions on the CPU (the artifact's first 2
-images; the serving cell at batch 8, 16 requests from 4 clients; XE,
-SCST and the trainer at tiny widths; the families on 2 images and 6
-steps) and ends with ``cpu rehearsal ok`` instead.  The script writes nothing outside ``openviic_tpu_torch/_build/``
-but the serving and trainer phases' temporary directories, which it
-deletes.
+exits non-zero without those lines.  ``--cpu`` runs phases 3-16 at tiny
+widths with the plain versions on the CPU (the artifact's first image;
+the serving cell at batch 8, 8 requests from 2 clients; XE,
+SCST and the trainer at tiny widths; the families and RSTNet on 2
+images and 6 steps, RSTNet's trainer on 4 images whose references are
+cut to 6 words) and ends with ``cpu rehearsal ok`` instead.  The script
+writes nothing outside ``openviic_tpu_torch/_build/`` but the serving and
+trainer phases' temporary directories, which it deletes.
 """
 
 from __future__ import annotations
@@ -219,10 +247,13 @@ PEAK_HBM_BYTES = 3.35e12
 # MUFU results per SM per clock, 132 SMs, the 1.98 GHz boost clock
 PEAK_SFU_OPS = 132 * 16 * 1.98e9
 
+# lm_hidden, lm_vocab: RSTNet's language model (its HIDDEN_SIZE, VOCAB_SIZE)
 FLAGSHIP = dict(d_model=512, heads=8, layers=3, d_ff=2048, d_feature=1024,
-                n_regions=50, vocab=10_000, max_len=25, beam=5, batch=320, ort_beam=3)
+                n_regions=50, vocab=10_000, max_len=25, beam=5, batch=320, ort_beam=3,
+                lm_hidden=768, lm_vocab=64_001)
 TINY = dict(d_model=32, heads=2, layers=2, d_ff=64, d_feature=24,
-            n_regions=7, vocab=300, max_len=12, beam=5, batch=8, ort_beam=3)
+            n_regions=7, vocab=300, max_len=12, beam=5, batch=8, ort_beam=3,
+            lm_hidden=32, lm_vocab=320)
 AGREEMENT_MIN = 0.95
 LSE_ATOL = 1e-3
 # the unit roundoff of an f32 sum that truncates (a tensor core's may):
@@ -1093,10 +1124,11 @@ def env_flag(name: str, value: str = "1"):
             os.environ[name] = before
 
 
-def searcher_decode(pipe, searcher, vocab, beam):
-    """decode(request) -> (captions, ids, best-beam total log-probs)."""
+def searcher_decode(pipe, searcher, vocab, beam, **options):
+    """decode(request) -> (captions, ids, best-beam total log-probs);
+    ``options`` go to the searcher (RSTNet's ``language_table``)."""
     def decode(request):
-        outputs, log_probs = searcher(pipe._batch(request), beam)
+        outputs, log_probs = searcher(pipe._batch(request), beam, **options)
         ids = outputs[: len(request)].cpu().numpy()
         totals = log_probs[: len(request)].sum(-1).cpu().numpy()
         return vocab.decode_caption(ids), ids, totals
@@ -1224,10 +1256,11 @@ def decode_paths_phase(device, s, served, card: str):
 
 # ---------------------------------------------------------------- phase 7
 @torch.no_grad()
-def forced_scores(model, batch, ids, vocab, resident: bool, **flags):
+def forced_scores(model, batch, ids, vocab, resident: bool, language_table=None, **flags):
     """Per-step log-probs of the tokens ``ids`` (one full batch of images,
     max_len) fed back one step at a time, beam 1, through
-    ``model.decode_step``, beam-resident or not."""
+    ``model.decode_step``, beam-resident or not (RSTNet's steps through
+    ``language_table`` where given)."""
     from openviic_tpu_torch.models.base import make_decode_cache
 
     L = vocab.max_caption_length
@@ -1237,6 +1270,8 @@ def forced_scores(model, batch, ids, vocab, resident: bool, **flags):
     cache = make_decode_cache(model.config.DECODER, vocab, b_s, dtype=torch.bfloat16,
                               device=ids.device)
     cache = model.prepare_cache(cache, memory)
+    if language_table is not None:
+        cache["language_table"] = language_table.to(torch.bfloat16)
     ancestry = torch.zeros((b_s, 1, L), dtype=torch.long, device=ids.device) if resident else None
     per_step = []
     for t in range(L):
@@ -1903,13 +1938,15 @@ def trained_kernel_cases(device, captured, what="trained decode"):
             log(f"  FAILED: {exc}")
             failures.append(exc)
 
-    def row(kernel, label, err, fn, plain, bound_ms, bound_by, **extra):
+    def row(kernel, label, err, fn, plain, bound_ms, bound_by, library=None, **extra):
         r = dict(case=label, max_abs_err=err, **extra)
         if cuda:
             r.update(ms=time_cuda(fn, 20, graph=True), plain_ms=time_cuda(plain, 5, graph=True),
-                     bound_ms=bound_ms, bound_by=bound_by)
-            log(f"  {kernel} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=None if library is None else time_cuda(library, 20, graph=True))
+            lib = "" if library is None else f", library {r['library_ms']:.4f} ms"
+            log(f"  {kernel} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+                f"{lib}, bound {bound_ms:.4f} ms ({bound_by})")
         rows.setdefault(kernel, []).append(r)
 
     def steps_of(key):
@@ -1974,8 +2011,9 @@ def trained_kernel_cases(device, captured, what="trained decode"):
                 lambda: fused_layer_step_reference(x, kk, vk, ck, cv, smask, cmask, t_arg,
                                                    weights, h), bound_ms, bound_by)
 
-    attention_calls = [("encoder", captured["fused_attention_encoder"][0])
-                       ] if "fused_attention_encoder" in captured else []
+    attention_calls = [(label, captured[key][0]) for key, label in (
+        ("fused_attention_encoder", "encoder"),
+        ("fused_attention_table", "language-model table 1 x 1")) if key in captured]
     for part in ("self", "cross"):
         attention_calls += [(f"step {part} t={t}", call)
                             for t, call in steps_of(f"fused_attention_{part}")]
@@ -1987,9 +2025,15 @@ def trained_kernel_cases(device, captured, what="trained decode"):
             log(f"  fused_attention, {what} {label}: q {tuple(q.shape)}, nk {k.shape[1]}: "
                 f"max |err| {err:.3g}")
             bound_ms, bound_by = attention_bound(q, k, v, bias)[:2]
+            qf, kf, vf = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+
+            def library(qf=qf, kf=kf, vf=vf, bias=bias, scale=scale):  # SDPA f32, timed only
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qf, kf, vf, attn_mask=bias, scale=scale)
             row("fused_attention", f"{label} q {tuple(q.shape)} nk {k.shape[1]}", err,
                 lambda: fused_attention(q, k, v, bias=bias, sm_scale=scale),
-                lambda: fused_attention_reference(q, k, v, bias, scale), bound_ms, bound_by)
+                lambda: fused_attention_reference(q, k, v, bias, scale), bound_ms, bound_by,
+                library=library)
     if failures:
         raise failures[0]
     return rows
@@ -2013,7 +2057,7 @@ def trained_phase(device, s, card: str, loaded):
     TRAINED_AGREEMENT_MIN, the bar the JAX package's own paths meet.  Each
     kernel is then held against its plain version on its own inputs
     captured at t = 0, 12 and 29 (the last step run, where the decode ends
-    earlier) and timed.  The CPU rehearsal decodes the first 2 images."""
+    earlier) and timed.  The CPU rehearsal decodes the first image."""
     import importlib
 
     from openviic_tpu_torch import artifact
@@ -2027,7 +2071,7 @@ def trained_phase(device, s, card: str, loaded):
 
     cuda = device.type == "cuda"
     vocab, state, refs = loaded["vocab"], loaded["state_dict"], loaded["refs"]
-    n_images = len(loaded["ids"]) if cuda else 2
+    n_images = len(loaded["ids"]) if cuda else 1
     ids = loaded["ids"][:n_images]
     images = [{"region_features": f} for f in loaded["feats"][:n_images]]
     beam = 5
@@ -2172,7 +2216,7 @@ def trained_phase(device, s, card: str, loaded):
     cases = trained_kernel_cases(device, captured)
     # each kernel path against its eager bf16 twin (beam-resident fast
     # select, or the non-resident eager path); on the card only: the
-    # rehearsal's 2 images cannot carry a share (one flip is 50%)
+    # rehearsal's one image cannot carry a share
     for name, r in results.items():
         if not cuda or name in ("eager fast select", "(c) non-resident, no step kernel"):
             continue
@@ -2193,7 +2237,7 @@ def trained_phase(device, s, card: str, loaded):
 # twin's EVALUATING_BEAM_SIZE; 32 clients of 8 requests each, as
 # scripts/bench_serve.py sends them
 SERVE_CELL = dict(batch=32, beam=3, requests=256, clients=32, max_wait_ms=25)
-TINY_SERVE_CELL = dict(batch=8, beam=3, requests=16, clients=4, max_wait_ms=25)
+TINY_SERVE_CELL = dict(batch=8, beam=3, requests=8, clients=2, max_wait_ms=25)
 SERVE_NAME = "serving_cell"
 SERVE_SEED = 3
 # the patch backbone on the card against its host's CPU: the thumbnails are
@@ -2560,7 +2604,7 @@ def directory_phase(device, s, card: str, loaded, trained):
     F32_CIDER_ATOL; at bf16 through the head kernel (forced) its CIDEr,
     launches (one a step) and captions/s, the background loading of the
     files included, are printed.  The rehearsal takes the trained phase's
-    2 images."""
+    image."""
     import tempfile
 
     from openviic_tpu_torch import artifact
@@ -2572,7 +2616,7 @@ def directory_phase(device, s, card: str, loaded, trained):
     ids = loaded["ids"][: len(want)]
     refs = loaded["refs"]
     beam = 5
-    # the rehearsal's batch is its 2 images, as the trained phase's
+    # the rehearsal's batch is its image, as the trained phase's
     batch = SERVE_CELL["batch"] if cuda else len(ids)
     with tempfile.TemporaryDirectory(prefix="openviic_directory_") as tmp:
         features = os.path.join(tmp, "features")
@@ -2601,8 +2645,8 @@ def directory_phase(device, s, card: str, loaded, trained):
             raise AssertionError(f"caption_directory f32: {same:.4f} identical (< "
                                  f"{F32_AGREEMENT_MIN}?), CIDEr gap {abs(c_dir - c_trained):.4f}"
                                  f" (> {F32_CIDER_ATOL}?)")
-        # (the rehearsal leaves the head kernel's plain version out: its
-        # stable sort over the vocab costs 0.5 s a decode there)
+        # (the rehearsal leaves the head kernel's plain version out here:
+        # the trained phase runs it at this width)
         bf16 = pipeline(True, head_kernel=1 if cuda else False)
         if cuda:
             bf16.caption_directory(features)  # warm-up
@@ -3023,8 +3067,8 @@ def scst_phase(device, s, card: str, loaded):
     feats, refs = batches[0]
     counted = counted_wrappers()
     n_layers = model_cfg["DECODER"]["LAYERS"]
-    # (the head kernel's plain version, a stable sort over the vocab, costs
-    # the rehearsal 0.5 s a decode: there the trained phase runs it)
+    # (the rehearsal leaves the head kernel's plain version out here: the
+    # trained phase runs it at the artifact's width)
     training = ConfigNode({"RL_LEARNING_RATE": SCST_RL_LR, "TRAINING_BEAM_SIZE": beam,
                            "DECODE_DTYPE": "bfloat16", "DECODE_HEAD_KERNEL": cuda,
                            "DEVICE_REWARD": True})
@@ -3288,11 +3332,13 @@ TRAINER_LOG_EVERY = 50
 CLOCK_FIELDS = ("time", "train/captions_per_sec")
 
 
-def trainer_dataset(root: str, loaded, split) -> dict:
+def trainer_dataset(root: str, loaded, split, max_words=None) -> dict:
     """Write the artifact's test images and references under ``root`` in
     the JAX package's dataset layout: ``features/<id>.npy`` (each image's
     f16 regions at its real count, which the dataset reads as f32) and
-    ``train.json`` / ``dev.json`` / ``test.json``, split by id order.
+    ``train.json`` / ``dev.json`` / ``test.json``, split by id order; with
+    ``max_words`` each reference cut to its first ``max_words`` words (the
+    rehearsal's short captions: its decodes then run a few steps).
     Returns {split: (images, annotations)}."""
     from openviic_tpu_torch import artifact
 
@@ -3307,7 +3353,8 @@ def trainer_dataset(root: str, loaded, split) -> dict:
         part = ids[start:start + n]
         start += n
         data = {"images": [{"id": int(i), "file_name": f"{i}.jpg"} for i in part],
-                "annotations": [{"image_id": int(i), "caption": c}
+                "annotations": [{"image_id": int(i),
+                                 "caption": " ".join(c.split()[:max_words])}
                                 for i in part for c in loaded["refs"][i]]}
         with open(os.path.join(root, f"{name}.json"), "w") as f:
             json.dump(data, f, ensure_ascii=False)
@@ -3534,7 +3581,7 @@ def snapshot_gaps(got: dict, want: dict) -> list:
 
 def trainer_phase(device, s, card: str, loaded):
     """The trainer lifecycle (``BaseTrainer``) on the artifact's data: its
-    150 test images (the rehearsal: 8) written in the JAX package's layout
+    150 test images (the rehearsal: 4) written in the JAX package's layout
     under a temporary directory (deleted after), split by id order into
     TRAINER_SPLIT train, dev and test images; the artifact's ``vocab.bin``
     copied into each run directory first, as a trainer that resumes finds
@@ -3585,7 +3632,7 @@ def trainer_phase(device, s, card: str, loaded):
     from openviic_tpu_torch.utils import setup_logger
 
     cuda = device.type == "cuda"
-    split = TRAINER_SPLIT if cuda else (4, 2, 2)
+    split = TRAINER_SPLIT if cuda else (2, 1, 1)
     epochs = TRAINER_EPOCHS if cuda else 2
     counted = counted_wrappers()
     tmp = tempfile.mkdtemp(prefix="openviic_trainer_phase_")
@@ -3844,6 +3891,8 @@ def family_model(name: str, s) -> dict:
 
     if name == "dlct":
         return dlct_model(s, attn)
+    if name == "rstnet":
+        return rstnet_model(s, attn)
     run_name, architecture, encoder, decoder, enc_attention = {
         "aoa": ("aoa_region_x152++", "StandardTransformerUsingRegion", "Encoder", "Decoder",
                 attn(slots=True)),
@@ -3935,8 +3984,10 @@ def family_xe(device, s, name: str, vocab, card: str):
     dropout 0.1, on one batch of FAMILY_XE_BATCH random images and
     captions (the rehearsal: 4 steps at batch 4), with Adam at the Noam
     schedule's peak (fast-forwarded to step FAMILY_XE_WARMUP: at its start
-    the yamls' lr, about 4e-8, moves nothing in 10 steps): the losses must
-    be finite and fall (the mean of the last 3 below the first); ms per
+    the yamls' lr, about 4e-8, moves nothing in 10 steps) over
+    ``mask_frozen``'s parameters: the losses must be finite and fall (the
+    mean of the last 3 below the first), and a frozen backbone (RSTNet's
+    language model) stay bit-unchanged and out of Adam's state; ms per
     step (CUDA events) and peak memory on the card."""
     from openviic_tpu_torch.builders import build_model
     from openviic_tpu_torch.training import optim, steps
@@ -3951,7 +4002,8 @@ def family_xe(device, s, name: str, vocab, card: str):
         held = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     model = build_model(family_config(name, s).MODEL, vocab, device=device, seed=5)
-    opt, sched = optim.make_optimizer(model.parameters(), s["d_model"], FAMILY_XE_WARMUP)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    opt, sched = optim.make_optimizer(optim.mask_frozen(model), s["d_model"], FAMILY_XE_WARMUP)
     optim.fast_forward_schedule(opt, sched, FAMILY_XE_WARMUP)
     state = steps.init_xe_state(model, opt, sched, seed=1)
     step = steps.make_xe_step(model, mixed_precision=True)
@@ -3967,10 +4019,18 @@ def family_xe(device, s, name: str, vocab, card: str):
             ms.append(start.elapsed_time(end))
         losses.append(loss.item())
     peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30 if cuda else None
-    del model, state, step, opt
+    named = dict(model.named_parameters())
+    moved = [n for n, b in frozen.items() if not torch.equal(named[n], b)]
+    in_adam = [n for n in frozen if named[n] in opt.state]
+    del model, state, step, opt, named
     if not np.isfinite(losses).all() or not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"{name} XE: losses {losses} not finite or not falling")
-    out = dict(losses=losses)
+    if moved or in_adam:
+        raise AssertionError(f"{name} XE: frozen tensors moved {moved[:3]} or hold Adam state "
+                             f"{in_adam[:3]}")
+    out = dict(losses=losses, frozen_tensors=len(frozen))
+    if frozen:
+        log(f"  {name} XE: the {len(frozen)} frozen tensors bit-unchanged, none in Adam's state")
     line = (f"  {name} XE, {n_steps} bf16 steps at batch {len(batch['caption_tokens'])}: "
             f"losses {[round(x, 4) for x in losses]}")
     if cuda:
@@ -4478,6 +4538,462 @@ def two_stream_phase(device, s, card: str):
     return dict(launches=launches, kernels=cases, figures=figures)
 
 
+# ---------------------------------------------------------------- phase 16
+# RSTNet: name -> configs/<yaml>.yaml (its tuned twin the same MODEL tree but NAME)
+RSTNET_FAMILIES = {"rstnet": "rstnet_fixed"}
+RSTNET_TABLE_ATOL = 1e-5  # a table row against the language model run on its id, f32
+RSTNET_TABLE_CHUNK = 500  # ids per language-model call of that check
+RSTNET_SCST_ITERATIONS = 3  # the rehearsal: 1
+RSTNET_SCST_BATCH = 60  # the yaml's DICT_BATCH_SIZE
+RSTNET_TRAINER_SPLIT = (60, 12, 6)  # phase 13's artifact images: train, dev, test by id
+RSTNET_TRAINER_NAME = "rstnet_trainer_phase"
+
+
+def rstnet_model(s, attn) -> dict:
+    """``configs/rstnet_fixed.yaml``'s MODEL at the widths of ``s``: the
+    flagship's encoder (40 memory slots in its attention's tree, unused by
+    plain SDPA), 3 decoder layers and the adaptive one, and the frozen
+    PhoBERT-architecture language model at ``s["lm_hidden"]`` (768) over
+    ``s["lm_vocab"]`` ids (64 001), ``token`` signals."""
+    d = s["d_model"]
+    adaptive = "AdaptiveScaledDotProductAttention"
+    return {
+        "ARCHITECTURE": "StandardTransformerUsingRegion", "NAME": "rstnet_region_x152++",
+        "DEVICE": "tpu",
+        "VISION_EMBEDDING": {"ARCHITECTURE": "FeatureEmbedding", "D_FEATURE": s["d_feature"],
+                             "D_MODEL": d, "DROPOUT": 0.1},
+        "ENCODER": {"ARCHITECTURE": "Encoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
+                    "SELF_ATTENTION": attn(slots=True)},
+        "DECODER": {
+            "ARCHITECTURE": "AdaptiveDecoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
+            "ATTENTION": {"SELF_ATTENTION": attn(stateful=True), "ENC_ATTENTION": attn()},
+            "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
+                               "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
+                               "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1},
+            "ADAPTIVE_ATTENTION": {"SELF_ATTENTION": attn(adaptive, stateful=True),
+                                   "ENC_ATTENTION": attn(adaptive)},
+            "LANGUAGE_MODEL": {
+                "SIGNAL_MODE": "token", "ARCHITECTURE": "PhoBERTModel",
+                "PRETRAINED_NAME": "vinai/phobert-base", "HIDDEN_SIZE": s["lm_hidden"],
+                "D_MODEL": d, "MAX_LEN": 54, "VOCAB_SIZE": s["lm_vocab"], "PADDING_IDX": 0,
+                "BACKBONE_LAYERS": 2, "BACKBONE_HEADS": 8, "ATTENTION": attn()},
+        },
+    }
+
+
+def events_ms(device, fn):
+    """(fn's result, its time in ms by CUDA events; nan off the card)."""
+    if device.type != "cuda":
+        return fn(), float("nan")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_table(device, model, table):
+    """The (vocab, d) signal table against the language model run on every
+    id alone, RSTNET_TABLE_CHUNK ids a call (each a 1-token sequence, as a
+    decode step runs it), within RSTNET_TABLE_ATOL; the <pad> row zero.
+    Returns the worst |error|."""
+    lm, V, pad = model.decoder.language_model, table.shape[0], model.vocab.padding_idx
+    worst = 0.0
+    with torch.no_grad():
+        for start in range(0, V, RSTNET_TABLE_CHUNK):
+            ids = torch.arange(start, min(V, start + RSTNET_TABLE_CHUNK), device=device)
+            rows = lm.signals(ids[:, None])[:, 0]
+            worst = max(worst, (rows - table[start:start + len(ids)]).abs().max().item())
+    if not torch.isfinite(table).all() or worst > RSTNET_TABLE_ATOL or table[pad].any():
+        raise AssertionError(f"rstnet table: finite {bool(torch.isfinite(table).all())}, max "
+                             f"|err| {worst:.3g} > {RSTNET_TABLE_ATOL}?, pad row "
+                             f"{table[pad].abs().max().item():.3g}")
+    return worst
+
+
+def rstnet_scst(device, s, vocab, request, first, card: str):
+    """RSTNET_SCST_ITERATIONS of ``scst_iteration`` on RSTNet at
+    RSTNET_SCST_BATCH images x beam 5 (bf16 sampling through the table,
+    rebuilt each iteration from the weights of the moment; device reward;
+    f32 step with dropout 0.1), each image's references its first bf16
+    caption and four of random words; ms for the table, the sample, the
+    reward and the step; then one iteration sampled with dropout through
+    the per-step language model (no table).  ``first``: the bf16 captions
+    of ``request``'s images."""
+    from openviic_tpu_torch.builders import build_model
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.training import steps
+    from openviic_tpu_torch.training.trainer import ScstSetup, scst_iteration
+
+    cuda = device.type == "cuda"
+    n = RSTNET_SCST_BATCH if cuda else 2
+    iterations = RSTNET_SCST_ITERATIONS if cuda else 1
+    order = [i % len(request) for i in range(n)]
+    feats = torch.from_numpy(np.stack([request[i]["region_features"] for i in order]))
+    first = [first[i] for i in order]
+    rng = np.random.default_rng(16)
+    words = [w for w in vocab.itos if w not in vocab.specials]
+    refs = [[cap or words[0]] + [" ".join(rng.choice(words, 8)) for _ in range(4)]
+            for cap in first]
+    corpus = [r.split() for image in refs for r in image]
+    counted = counted_wrappers()
+    figures = {}
+    # the weights that gave ``first`` (the pipeline's seed), so that beam 0
+    # of each image earns a reward and the advantage is not zero
+    model = build_model(family_config("rstnet", s).MODEL, vocab, device=device, seed=45)
+    for dropout_sampling in (False, True):
+        training = ConfigNode({"RL_LEARNING_RATE": SCST_RL_LR, "TRAINING_BEAM_SIZE": SCST_BEAM,
+                               "DECODE_DTYPE": "bfloat16", "DECODE_HEAD_KERNEL": 1,
+                               "DEVICE_REWARD": True, "SCST_SAMPLE_DROPOUT": dropout_sampling})
+        setup = ScstSetup(model, steps.init_xe_state(model, None, seed=0), corpus, training,
+                          language_table=model.compute_language_table)
+        stamps, tables = [], [0]
+
+        def marks(stage):
+            tables[0] += stage == "table"
+            sync(device)
+            stamps[-1][stage] = time.perf_counter()
+
+        losses = []
+        for fn in counted:
+            fn.launches = 0
+        for _ in range(1 if dropout_sampling else iterations):
+            sync(device)
+            stamps.append({"start": time.perf_counter()})
+            loss, _ = scst_iteration(setup, {"region_features": feats}, refs, marks=marks)
+            losses.append(loss.item())
+        launches = {fn.__name__: fn.launches for fn in counted}
+        stages = ("table", "sample", "reward", "step")
+        ms = {}
+        for st in stamps:
+            prev = st["start"]
+            for stage in stages:
+                if stage in st:
+                    ms.setdefault(stage, []).append((st[stage] - prev) * 1e3)
+                    prev = st[stage]
+        want_tables = 0 if dropout_sampling else len(stamps)
+        if tables[0] != want_tables or any(launches.values()) or not np.isfinite(losses).all():
+            raise AssertionError(f"rstnet SCST (dropout sampling {dropout_sampling}): "
+                                 f"{tables[0]} tables for {len(stamps)} iterations (expected "
+                                 f"{want_tables}), launches {launches}, losses {losses}")
+        key = "dropout" if dropout_sampling else "table"
+        figures[key] = dict(losses=losses, ms={k: float(np.median(v)) for k, v in ms.items()})
+        how = ("dropout sampling through the per-step language model" if dropout_sampling
+               else "the table rebuilt each iteration")
+        log(f"  rstnet SCST, {len(stamps)} iteration(s) of {n} images x {SCST_BEAM} beams, "
+            f"{how}: losses {[round(x, 5) for x in losses]}; ms (host clock after a synchronize, "
+            f"median) {({k: round(v, 3) for k, v in figures[key]['ms'].items()})} on {card}; "
+            f"no kernel launched")
+        del setup
+    return figures
+
+
+def rstnet_trainer(device, s, card: str, loaded):
+    """``BaseTrainer`` on RSTNet over phase 13's artifact dataset
+    (RSTNET_TRAINER_SPLIT of its images, its references), the tuned twin's
+    TRAINING keys at PATIENCE 0: XE (epoch 0), the switch, SCST (epoch 1),
+    then the test predictions.  ``frozen_params.ckpt`` is written once and
+    the per-epoch file holds only the trainable tensors (its MiB beside an
+    unsplit save of the same state); the best checkpoint reloads with the backbone
+    stitched back; ``CaptioningPipeline(config, checkpoint_dir=...)`` gives
+    the trainer's f32 captions of the dev images from the split files; no
+    kernel launches.  The rehearsal: tiny widths on 4 images, references cut
+    to their first FAMILY_REHEARSAL["max_len"] words."""
+    import tempfile
+
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.decoding import beam_search
+    from openviic_tpu_torch.serving import CaptioningPipeline
+    from openviic_tpu_torch.training import checkpoint as ckpt
+
+    cuda = device.type == "cuda"
+    split = RSTNET_TRAINER_SPLIT if cuda else (2, 1, 1)
+    counted = counted_wrappers()
+    saved = []
+    real_save = ckpt.torch.save
+
+    def save(obj, path, *args, **kwargs):
+        saved.append(os.path.basename(str(path)).replace(".tmp", ""))
+        return real_save(obj, path, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        trainer_dataset(data, loaded, split,
+                        max_words=None if cuda else FAMILY_REHEARSAL["max_len"])
+        config = trainer_config(data, os.path.join(tmp, "runs"), s, cuda, TRAINER_LOG_EVERY)
+        config = config.to_dict()
+        model = family_model("rstnet", s)
+        model["NAME"] = RSTNET_TRAINER_NAME
+        model["VISION_EMBEDDING"]["D_FEATURE"] = int(loaded["feats"].shape[-1])
+        config["MODEL"] = model
+        # three SCST iterations of 20 images on the card (one of 2 in the
+        # rehearsal); the bf16 decode guard is phase 13's, not run here
+        config["DATASET"]["DICT_BATCH_SIZE"] = SCST_BEAM * (20 if cuda else 2)
+        config["TRAINING"]["DECODE_DTYPE_GUARD"] = False
+        config = ConfigNode(config)
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ckpt.torch.save = save
+        unsplit = os.path.join(tmp, "unsplit.ckpt")
+        try:
+            tr = build_trainer(config, device=device)
+            tr.start(max_epochs=2)  # XE, then SCST: PATIENCE 0 switches after epoch 0
+            # the last epoch's state saved whole, beside its split file (uncounted)
+            ckpt.torch.save = real_save
+            t_unsplit = time.perf_counter()
+            ckpt.save_checkpoint(unsplit, tr.model, tr.state, {"use_rl": tr.use_rl})
+            t_unsplit = time.perf_counter() - t_unsplit
+            ckpt.torch.save = save
+            tr.get_predictions()
+        finally:
+            ckpt.torch.save = real_save
+        sync(device)
+        seconds = time.perf_counter() - t0 - t_unsplit
+        launches = {fn.__name__: fn.launches for fn in counted}
+        run = tr.checkpoint_path
+        last = os.path.join(run, ckpt.LAST_NAME)
+        mib = {name: os.path.getsize(p) / 2**20 for name, p in
+               (("per_epoch", last), ("frozen", os.path.join(run, ckpt.FROZEN_NAME)),
+                ("unsplit", unsplit))}
+        best = ckpt.load_checkpoint(os.path.join(run, ckpt.BEST_NAME))["model"]
+        live = tr.model.state_dict()
+        stitched = set(best) == set(live) and all(torch.equal(best[k].to(live[k].device), v)
+                                                  for k, v in live.items())
+        raw = torch.load(last, map_location="cpu", weights_only=True)["model"]
+        frozen_in_epoch_file = [k for k in raw if "backbone" in k]
+        dev_items = next(iter(tr.val_dict_dataloader))
+        images = [{"region_features": f} for f in dev_items["region_features"]]
+        serving = ConfigNode({"MODEL": config.MODEL.to_dict(),
+                              "TRAINING": config.TRAINING.to_dict()})
+        pipe = CaptioningPipeline(serving, checkpoint_dir=run, use_bf16=False,
+                                  batch_size=len(images), device=device)
+        _, served = pipe.caption_features(images, return_ids=True)
+        want, _ = beam_search(tr.model, pipe._batch(images), beam_size=pipe.beam_size,
+                              language_table=tr.model.compute_language_table())
+        same = bool(np.array_equal(served, want.cpu().numpy()[:len(images)]))
+        use_rl, epochs = tr.use_rl, saved.count(ckpt.LAST_NAME)
+    log(f"  rstnet trainer on {split} artifact images: {epochs} epochs (XE, the switch, SCST: "
+        f"{use_rl}) "
+        f"and the test predictions in {seconds:.3f} s on {card}; files written "
+        f"{ {n: saved.count(n) for n in sorted(set(saved))} }; per-epoch file "
+        f"{mib['per_epoch']:.1f} MiB beside {mib['frozen']:.1f} MiB frozen, an unsplit save "
+        f"{mib['unsplit']:.1f} MiB; best checkpoint stitched equal to the live weights "
+        f"{stitched}; the pipeline's captions from the split files equal the trainer model's "
+        f"{same}; launches {({k: v for k, v in launches.items() if v})}")
+    if (saved.count(ckpt.FROZEN_NAME) != 1 or frozen_in_epoch_file or not stitched or not same
+            or any(launches.values()) or epochs != 2 or not use_rl):
+        raise AssertionError(f"rstnet trainer: frozen file written {saved.count(ckpt.FROZEN_NAME)}"
+                             f" times, backbone tensors in the per-epoch file "
+                             f"{frozen_in_epoch_file[:3]}, stitched {stitched}, pipeline equal "
+                             f"{same}, launches {launches}, epochs {epochs}, SCST {use_rl}")
+    return dict(seconds=seconds, mib=mib, epochs=epochs)
+
+
+def rstnet_phase(device, s, card: str, loaded):
+    """RSTNet (``configs/rstnet_fixed.yaml``'s MODEL at the widths of ``s``:
+    the flagship's encoder, 3 decoder layers and the adaptive one, the
+    frozen PhoBERT-architecture language model of hidden 768 over 64 001
+    ids; random weights from a seed; bf16; beam 3) serving one request of
+    ``s["batch"]`` images of ``s["n_regions"]`` regions through
+    ``CaptioningPipeline``, which builds the signal table once:
+
+    - the table (f32, from the weights as loaded): its build time (CUDA
+      events), every row against the language model run on its id on the
+      card (within RSTNET_TABLE_ATOL), and its build under
+      ``OPENVIIC_PALLAS=1`` (one fused_attention launch);
+    - the tuned path (the yaml twin's head kernel forced and beam-select
+      kernel on, both turning off for this decoder) and the eager path with
+      the table, the eager path through the per-step language model (score
+      parity, captions/s each); ``resident_kernel`` with ``head_kernel=1``,
+      ``attn_kernel`` and ``OPENVIIC_FUSED_STEP=1`` on the non-resident
+      path: no launch of any kernel and ids equal to the eager path's;
+    - ``OPENVIIC_PALLAS=1`` with the table and with the per-step language
+      model: fused_attention once an encoder layer and request, twice a
+      standard layer and step, once more a step for the language model's
+      encoder layer without the table; score parity with the flag-off twin
+      and the forced decode of the tuned captions against it;
+    - fused_attention on its captured RSTNet inputs (the table build's 1 x 1
+      call over the vocab, the <pad> row's fully masked; one standard
+      layer's step cross call) against its plain version, timed beside its
+      bound and SDPA's;
+    - f32: the table path against the per-step language model on
+      FAMILY_F32_IMAGES images (ids identical), and the card against its
+      host's CPU (>= FAMILY_F32_AGREEMENT_MIN identical; the card only);
+    - ``family_xe`` (which holds the backbone bit-unchanged and out of
+      Adam's state), ``rstnet_scst`` and ``rstnet_trainer``.
+
+    The rehearsal: FAMILY_REHEARSAL's 2 images and 6 steps at tiny widths.
+    Returns {"launches": {kernel: {path: n}}, "kernels": cases,
+    "figures": ...}."""
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    if not cuda:
+        s = dict(s, **FAMILY_REHEARSAL)
+    vocab = make_vocab(s)
+    name = "rstnet"
+    feats = np.random.default_rng(16).standard_normal(
+        (s["batch"], s["n_regions"], s["d_feature"]), dtype=np.float32)
+    request = [{"region_features": f} for f in feats]
+    requests = [request]
+    figures = {}
+
+    # the table at f32, and the f32 decodes
+    few = request[:FAMILY_F32_IMAGES]
+    f32_pipe = CaptioningPipeline.from_state_dict(
+        family_config(name, s, kernels=False), vocab, batch_size=len(few), use_bf16=False,
+        device=device, seed=45)
+    f32_model = f32_pipe.model
+    table, table_ms = events_ms(device, f32_model.compute_language_table)
+    _, table_ms = events_ms(device, f32_model.compute_language_table)  # after a warm-up
+    table_err = check_table(device, f32_model, table)
+    counted = counted_wrappers()
+    for fn in counted:
+        fn.launches = 0
+    with env_flag("OPENVIIC_PALLAS"), capture_calls(attention_module, "fused_attention",
+                                                    10 ** 9, 0) as table_kept:
+        pallas_table = f32_model.compute_language_table()
+    table_launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    if table_launches != ({"fused_attention": 1} if cuda else {}):
+        raise AssertionError(f"rstnet table under OPENVIIC_PALLAS=1: launches {table_launches}")
+    pallas_gap = (pallas_table - table).abs().max().item()
+    lm = f32_model.decoder.language_model
+    n_lm = sum(p.numel() for p in lm.parameters())
+    log(f"  rstnet table: ({table.shape[0]}, {table.shape[1]}) f32 in {table_ms:.3f} ms on "
+        f"{card} (the language model: {n_lm / 1e6:.1f} M parameters, "
+        f"{sum(p.numel() for p in lm.backbone.parameters()) / 1e6:.1f} M of them frozen); rows "
+        f"against the language model on each id: max |err| {table_err:.3g} (bar "
+        f"{RSTNET_TABLE_ATOL}); under OPENVIIC_PALLAS=1 one fused_attention launch, max "
+        f"|diff| {pallas_gap:.3g}")
+    figures["table"] = dict(ms=table_ms, max_abs_err=table_err, pallas_max_diff=pallas_gap,
+                            lm_params=n_lm)
+
+    _, f32_table_ids = f32_pipe.caption_features(few, return_ids=True)
+    per_step = BeamSearcher(f32_model)
+    out, _ = per_step(f32_pipe._batch(few), FAMILY_BEAM)
+    f32_step_ids = out[: len(few)].cpu().numpy()
+    if not np.array_equal(f32_table_ids, f32_step_ids):
+        raise AssertionError("rstnet f32: the table path's ids differ from the per-step "
+                             "language model's")
+    f32_same = None
+    if cuda:
+        cpu_caps = CaptioningPipeline.from_state_dict(
+            family_config(name, s, kernels=False), vocab, batch_size=len(few), use_bf16=False,
+            device="cpu", state_dict=f32_model.state_dict()).caption_features(few)
+        card_caps = vocab.decode_caption(f32_table_ids)
+        f32_same = float(np.mean([a == b for a, b in zip(card_caps, cpu_caps)]))
+        if f32_same < FAMILY_F32_AGREEMENT_MIN:
+            raise AssertionError(f"rstnet f32 card against CPU: {f32_same:.4f} identical < "
+                                 f"{FAMILY_F32_AGREEMENT_MIN}")
+    log(f"  rstnet f32 decode of {len(few)} images: the table path and the per-step language "
+        f"model give identical ids; captions identical on the card and its host's CPU "
+        f"{f32_same}")
+    figures["f32_card_cpu_agreement"] = f32_same
+
+    # bf16: the pipeline (its table built once, from the f32 weights)
+    pipe = CaptioningPipeline.from_state_dict(family_config(name, s), vocab,
+                                              state_dict=f32_model.state_dict(),
+                                              batch_size=s["batch"], device=device)
+    del f32_pipe, f32_model, per_step
+    model, table16 = pipe.model, pipe.language_table
+    n_dec = len(model.decoder.layers) - 1  # the standard layers
+    n_enc = len(model.encoder.layers)
+    per_path = {}
+
+    def run(path, searcher, decode, **expect):
+        results, counts = drive(f"{name} {path}", device, s, vocab, requests, searcher, decode,
+                                card, **expect)
+        per_path[path] = counts
+        return results
+
+    def searched(searcher, with_table=True):
+        return searcher_decode(pipe, searcher, vocab, FAMILY_BEAM,
+                               language_table=table16 if with_table else None)
+
+    served = lambda r: pipe.caption_features(r, return_ids=True)  # noqa: E731
+    tuned = run("tuned (table)", pipe.searcher, served)
+    tuned = rescore(device, requests, searched(pipe.searcher), tuned, f"{name} tuned")
+    eager_searcher = BeamSearcher(model, torch.bfloat16)
+    eager = run("eager (table)", eager_searcher, searched(eager_searcher))
+    step_lm = run("eager (per-step language model)", eager_searcher,
+                  searched(eager_searcher, with_table=False))
+    agree = {"per-step language model": score_parity(
+        f"{name} per-step language model", step_lm, eager, "the table path")}
+
+    def same_ids(label, results, ref):
+        for (_, got, *_), (_, want, *_) in zip(results, ref):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"rstnet {label}: ids differ from the eager path's")
+
+    same_ids("tuned", tuned, eager)
+    flagged = [("(b) resident_kernel, head_kernel=1",
+                BeamSearcher(model, torch.bfloat16, head_kernel=1, resident_kernel=True), None),
+               ("attn_kernel", BeamSearcher(model, torch.bfloat16, attn_kernel=True), None),
+               ("(c) non-resident, OPENVIIC_FUSED_STEP=1",
+                BeamSearcher(model, torch.bfloat16, beam_resident=False),
+                "OPENVIIC_FUSED_STEP")]
+    for label, searcher, flag in flagged:
+        with env_flag(flag) if flag else contextlib.nullcontext():
+            same_ids(label, run(label, searcher, searched(searcher)), eager)
+    log(f"  rstnet: the tuned path and the three flag paths launch no kernel and give the "
+        f"eager path's ids")
+
+    with env_flag("OPENVIIC_PALLAS"):
+        res_d = run("OPENVIIC_PALLAS=1 (table)", pipe.searcher, served,
+                    per_step={"fused_attention": 2 * n_dec},
+                    per_request={"fused_attention": n_enc})
+        res_d = rescore(device, requests, searched(pipe.searcher), res_d, f"{name} pallas")
+        res_lm = run("OPENVIIC_PALLAS=1 (per-step language model)", eager_searcher,
+                     searched(eager_searcher, with_table=False),
+                     per_step={"fused_attention": 2 * n_dec + 1},
+                     per_request={"fused_attention": n_enc})
+    agree["OPENVIIC_PALLAS=1"] = score_parity(f"{name} OPENVIIC_PALLAS=1", res_d, tuned,
+                                              "its tuned path")
+    agree["OPENVIIC_PALLAS=1 per-step"] = score_parity(
+        f"{name} OPENVIIC_PALLAS=1, per-step language model", res_lm, step_lm,
+        "the flag-off per-step path")
+
+    # the forced decode of the tuned captions, the flag on against off
+    ids = torch.from_numpy(tuned[0][1]).to(device)
+    batch = pipe._batch(request)
+    eager_forced = forced_scores(model, batch, ids, vocab, False, language_table=table16)
+    with env_flag("OPENVIIC_PALLAS"):
+        check_forced(f"{name} OPENVIIC_PALLAS=1 against the flag-off step", ids, vocab,
+                     forced_scores(model, batch, ids, vocab, False, language_table=table16),
+                     eager_forced)
+
+    # fused_attention on its RSTNet inputs: the table's 1 x 1 call, one
+    # standard layer's step cross call (layer 0's, at t = 0, 12 and the last)
+    with env_flag("OPENVIIC_PALLAS"), capture_calls(
+            attention_module, "fused_attention", 2 * n_dec, n_enc + 1) as cross_kept:
+        served(request)
+    cases = trained_kernel_cases(device, {"fused_attention_table": table_kept,
+                                          "fused_attention_cross": cross_kept},
+                                 what=f"{name}")
+    first = tuned[0][0]
+    del pipe, model, eager_searcher, flagged, batch, ids
+
+    figures["xe"] = family_xe(device, s, name, vocab, card)
+    figures["scst"] = rstnet_scst(device, s, vocab, request, first, card)
+    figures["trainer"] = rstnet_trainer(device, s, card, loaded)
+    kernels = [fn.__name__ for fn in counted_wrappers()]
+    launches = {k: {path: counts.get(k, 0) for path, counts in per_path.items()}
+                for k in kernels}
+    for k in kernels:
+        launches[k]["table build, OPENVIIC_PALLAS=1"] = table_launches.get(k, 0)
+        launches[k]["trainer"] = 0
+        launches[k]["scst"] = 0
+    figures.update(agreement=agree, seconds=time.perf_counter() - t0)
+    log(f"  {name}: {figures['seconds']:.3f} s")
+    return dict(launches=launches, kernels=cases, figures=figures)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4591,7 +5107,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-15 at tiny widths on the CPU")
+                        help="rehearse phases 3-16 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
@@ -4651,7 +5167,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-15.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-16.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -4694,6 +5210,7 @@ def all_phases(device, s, card: str):
                 trainer = timed("trainer", lambda: trainer_phase_apart(device, s, card, loaded))
     families = timed("region families", lambda: families_phase(device, s, card))
     two_stream = timed("two-stream families", lambda: two_stream_phase(device, s, card))
+    rstnet = timed("RSTNet", lambda: rstnet_phase(device, s, card, loaded))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -4728,6 +5245,10 @@ def all_phases(device, s, card: str):
         e["two_stream"] = two_stream["launches"].get(e["name"], {})
         e["two_stream_cases"] = two_stream["kernels"].get(e["name"], [])
     found[0]["two_stream_figures"] = two_stream["figures"]
+    for e in found:  # every kernel's launches on each RSTNet path, 0 where it does not run
+        e["rstnet"] = rstnet["launches"][e["name"]]
+        e["rstnet_cases"] = rstnet["kernels"].get(e["name"], [])
+    found[0]["rstnet_figures"] = rstnet["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

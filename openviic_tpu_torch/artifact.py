@@ -85,7 +85,7 @@ def load_trained_artifact(artifact_dir=ARTIFACT_DIR, device="cuda") -> Dict[str,
         raise FileNotFoundError(artifact_dir)
     config = artifact_config()
     vocab = load_vocab(artifact_dir / "vocab.bin")
-    model = build_model(config.MODEL, vocab, device="cpu")
+    model = build_model(config.MODEL, vocab, device="cpu", init=False)
     with np.load(artifact_dir / "params_f16.npz") as z:
         flat = {key: z[key].astype(np.float32) for key in z.files}
     state_dict = state_dict_from_jax(flat, model)

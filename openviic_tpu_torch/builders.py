@@ -18,6 +18,7 @@ META_DECODER = Registry("DECODER")
 META_ATTENTION = Registry("ATTENTION")
 META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
 META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
+META_PRETRAINED_LANGUAGE_MODEL = Registry("PRETRAINED_LANGUAGE_MODEL")
 
 # Aliases resolving names and a typo shipped in the reference's configs.
 META_TRAINER.alias("ViTrainer", "viTrainer")
@@ -27,12 +28,7 @@ META_ARCHITECTURE.alias(
 )
 
 # The JAX package's classes still to port, by ROADMAP item.
-for _registry, _name, _item in (
-    (META_DECODER, "AdaptiveDecoder", "5.6"),
-    (META_ATTENTION, "AdaptiveScaledDotProductAttention", "5.6"),
-    (META_TEXT_EMBEDDING, "LSTMTextEmbedding", "5.7"),
-):
-    _registry.not_ported(_name, _item)
+META_TEXT_EMBEDDING.not_ported("LSTMTextEmbedding", "5.7")
 
 
 def _ensure_registered() -> None:
@@ -50,18 +46,25 @@ def build_trainer(config, device="cuda"):
     return META_TRAINER.get(config.TRAINER)(config, device=device)
 
 
-def build_model(config, vocab, device="cuda", seed: int = 0):
+def build_model(config, vocab, device="cuda", seed: int = 0, init: bool = True):
     """Build the architecture named by ``config.ARCHITECTURE``.
 
     Parameters are initialised on the CPU from ``torch.Generator(seed)``
-    (the JAX package's init schemes), then moved to ``device``.  The model
-    is returned in eval mode, the JAX package's ``train=False`` default."""
-    from openviic_tpu_torch.models.initializers import initialize
+    (the JAX package's init schemes), then moved to ``device``; with
+    ``init=False`` every random draw is skipped, the layers' constructors'
+    too (``without_default_init``), for a caller that loads every parameter
+    next.  The model is returned in eval mode, the JAX package's
+    ``train=False`` default."""
+    from openviic_tpu_torch.models.initializers import initialize, without_default_init
 
     _ensure_registered()
     model_cls = META_ARCHITECTURE.get(config.ARCHITECTURE)
-    model = model_cls(config=config, vocab=vocab)
-    initialize(model, torch.Generator().manual_seed(seed))
+    if init:
+        model = model_cls(config=config, vocab=vocab)
+        initialize(model, torch.Generator().manual_seed(seed))
+    else:
+        with without_default_init():
+            model = model_cls(config=config, vocab=vocab)
     return model.to(device).eval()
 
 
@@ -83,3 +86,7 @@ def build_text_embedding(config, vocab):
 
 def build_vision_embedding(config):
     return META_VISION_EMBEDDING.get(config.ARCHITECTURE)(config=config)
+
+
+def build_pretrained_language_model(config):
+    return META_PRETRAINED_LANGUAGE_MODEL.get(config.ARCHITECTURE)(config=config)

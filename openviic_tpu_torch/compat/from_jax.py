@@ -17,6 +17,14 @@ key format of ``params_f16.npz`` and of a Flax parameter tree flattened with
   ``m_k``, ``m_v`` -> the same name (the augmented memory's raw slots,
                     (1, m, h * d), not transposed)
 
+The frozen language model's backbones keep their JAX names
+(``backbone/hf/encoder/layer/<i>/...`` becomes
+``backbone.hf.encoder.layer.<i>....``; the mini backbone's ``attn_<i>``,
+``ln1_<i>``, ``ff1_<i>`` ... stay as they are).  The mini backbone's
+attention is Flax's ``MultiHeadDotProductAttention``, whose kernels are
+3-D: query/key/value (in, h, d) and out (h, d, out), with (h, d) biases;
+they are flattened to (in, h * d), (h * d, out) and (h * d,) first.
+
 The vocab head ``decoder/fc/kernel`` (D, V) becomes ``decoder.fc.weight``
 (V, D): one contiguous row per vocab id, the layout ``ops/head_topk.py``
 reads.  Any key left unmatched on either side raises."""
@@ -59,6 +67,12 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], model: torch.nn.Module
             unmatched.append(key)
             continue
         tensor = torch.from_numpy(np.asarray(array, dtype=np.float32))
+        if tensor.dim() == 3 and transpose:  # a DenseGeneral kernel
+            out_proj = key.split("/")[-2] == "out"
+            tensor = tensor.reshape(-1, tensor.shape[-1]) if out_proj else \
+                tensor.reshape(tensor.shape[0], -1)
+        elif tensor.dim() == 2 and name.endswith(".bias"):  # its (h, d) bias
+            tensor = tensor.reshape(-1)
         if transpose:
             tensor = tensor.T.contiguous()
         if tuple(tensor.shape) != tuple(expected[name].shape):

@@ -34,8 +34,14 @@ Dropout-active sampling (SCST's ``TRAINING.SCST_SAMPLE_DROPOUT``, the JAX
 ``train_dropout_rng``) runs the encoder and every step in train mode, each
 on a stream of its own derived from one seed; the whole-layer step kernels
 bypass themselves there, as in the JAX package.  Otherwise the decode runs
-in eval mode whatever the model's mode.  ``return_probs`` and
-``beam_search_multi`` are not ported."""
+in eval mode whatever the model's mode.
+
+RSTNet's ``AdaptiveDecoder`` decodes off the beam-resident path, as in the
+JAX package: its attentions take language signals, so every kernel flag
+turns off and the non-resident path runs.  ``language_table`` (its
+``compute_language_table``) replaces the language model of every step by
+a row gather; it is cast to the decode's dtype with the rest of the
+cache.  ``return_probs`` and ``beam_search_multi`` are not ported."""
 
 from __future__ import annotations
 
@@ -248,7 +254,8 @@ def _running_model(model, compute_dtype, shadow: Optional[ComputeShadow]):
 def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                  out_size: int, early_exit: bool, compute_dtype, beam_resident: bool,
                  head_kernel, attn_kernel: bool, resident_kernel: bool,
-                 dropout_seed: Optional[int] = None, shadow: Optional[ComputeShadow] = None):
+                 dropout_seed: Optional[int] = None, shadow: Optional[ComputeShadow] = None,
+                 language_table: Optional[torch.Tensor] = None):
     """``beam_search`` that also returns the number of decode steps run; it
     decodes ``_running_model(model, compute_dtype, shadow)``.  With
     ``dropout_seed`` that model runs in train mode, the encoder on the
@@ -262,17 +269,18 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     try:
         if dropout_seed is None:
             return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
-                           head_kernel, attn_kernel, resident_kernel, None)
+                           head_kernel, attn_kernel, resident_kernel, None, language_table)
         with rng.fork(device):
             return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
                            head_kernel, attn_kernel, resident_kernel,
-                           lambda i: rng.reseed(rng.fold_in(dropout_seed, i), device))
+                           lambda i: rng.reseed(rng.fold_in(dropout_seed, i), device),
+                           language_table)
     finally:
         model.train(was_training)
 
 
 def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_kernel,
-            attn_kernel, resident_kernel, stream):
+            attn_kernel, resident_kernel, stream, language_table=None):
     """The decode loop; ``stream(i)`` (when given) seeds the dropout of the
     encoder (i = max_len) and of step i."""
     if resident_kernel or head_kernel or attn_kernel:
@@ -307,6 +315,8 @@ def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_k
     n_rows = b_s * beam_size
     cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype, device=device)
     cache = model.prepare_cache(cache, memory)
+    if language_table is not None:
+        cache["language_table"] = language_table.to(device=device, dtype=dtype)
 
     f32 = dict(dtype=torch.float32, device=device)
     seq_logprob = torch.full((b_s, beam_size), -1e18, **f32)
@@ -414,7 +424,7 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                 compute_dtype: Optional[torch.dtype] = None,
                 beam_resident: bool = True, head_kernel=False,
                 attn_kernel: bool = False, resident_kernel: bool = False,
-                train_dropout_rng=None):
+                train_dropout_rng=None, language_table: Optional[torch.Tensor] = None):
     """Run batched beam search; returns (outputs, log_probs).
 
     outputs: (bs, out_size, max_len) int64 token ids, log_probs: the
@@ -442,11 +452,12 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     (with both, ``attn_kernel`` wins, as in the JAX package).
     ``OPENVIIC_FUSED_STEP=1`` runs each layer of the non-resident path
     through ops/fused_decoder_step.py.  Each kernel runs its plain version
-    on the CPU and the CUDA kernel on a card."""
+    on the CPU and the CUDA kernel on a card.  ``language_table`` serves the
+    adaptive decoder (see the module's docstring)."""
     seed = None if train_dropout_rng is None else rng.seed_of(train_dropout_rng)
     outputs, log_probs, _ = _beam_search(
         model, batch, beam_size, out_size, early_exit, compute_dtype, beam_resident,
-        head_kernel, attn_kernel, resident_kernel, seed,
+        head_kernel, attn_kernel, resident_kernel, seed, language_table=language_table,
     )
     return outputs, log_probs
 
@@ -510,15 +521,15 @@ class BeamSearcher:
                  language_table=None):
         """Decode ``batch``; returns (outputs, log_probs) as ``beam_search``.
         ``dropout_rng`` (an int seed or a ``torch.Generator``) samples with
-        dropout active (the JAX ``dropout_rng``).  ``language_table`` serves
-        the adaptive decoder, which is not ported."""
-        if language_table is not None:
-            raise NotImplementedError("language_table serves AdaptiveDecoder, not ported yet")
+        dropout active (the JAX ``dropout_rng``).  ``language_table`` (the
+        adaptive decoder's ``compute_language_table``) replaces its per-step
+        language model."""
         seed = None if dropout_rng is None else rng.seed_of(dropout_rng)
         outputs, log_probs, steps = _beam_search(
             self.model, batch, beam_size, out_size, True, self.compute_dtype,
             self.beam_resident, self.effective_head_kernel(batch, beam_size),
             self.attn_kernel, self.resident_kernel, seed, self.shadow,
+            language_table=language_table,
         )
         self.steps += steps
         return outputs, log_probs

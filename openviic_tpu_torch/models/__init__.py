@@ -5,6 +5,7 @@ from openviic_tpu_torch.models import (  # noqa: F401
     attention,
     decoders,
     encoders,
+    language_models,
     text_embedding,
     vision_embedding,
 )

@@ -25,7 +25,15 @@ factors make the slots, and with them K and V, f32 at bf16); under
 promoted dtype, as the JAX kernel casts all three to f32 itself.
 ``MultiHeadAttention`` applies the Attention-on-Attention gate
 (``USE_AOA``) after its residual on every path: the cache-free forward
-and both decode paths."""
+and both decode paths.
+
+``AdaptiveScaledDotProductAttention`` (RSTNet) takes a per-query input
+beside q, k and v, its language signals; the adaptive decoder hands them
+to every attention of its layers (the others take and ignore them, the
+JAX package's ``**kwargs``), and, as there, an attention given such an
+input decodes through ``project_kv`` and ``attend_cached``: no fused qkv
+projection, no beam-select path, no grouped cross-attention.  It computes
+its own softmax and never reaches ``ops.fused_attention``."""
 
 from __future__ import annotations
 
@@ -145,14 +153,17 @@ class _Projections(nn.Module):
 class ScaledDotProductAttention(_Projections):
     """Plain scaled dot-product multi-head attention kernel."""
 
-    def forward(self, queries, keys, values, attention_mask=None):
+    def forward(self, queries, keys, values, attention_mask=None, **inputs):
+        """``inputs``: other attentions' per-query inputs (the adaptive
+        decoder's ``language_signals``), unused here as in the JAX package."""
         q = self.project_q(queries)
         k = self.fc_k(keys).reshape(keys.shape[0], keys.shape[1], self.h, self.d_k)
         v = self.fc_v(values).reshape(values.shape[0], values.shape[1], self.h, self.d_v)
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
 
-    def attend_cached(self, queries, k, v, attention_mask):
-        """Attention over an externally managed (cached) K/V."""
+    def attend_cached(self, queries, k, v, attention_mask, **inputs):
+        """Attention over an externally managed (cached) K/V (``inputs``
+        unused, as in ``forward``)."""
         q = self.project_q(queries)
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
 
@@ -285,6 +296,45 @@ class AugmentedMemoryScaledDotProductAttention(_Projections):
         return self.output(_attend(self.project_q(queries), k, v, self.d_k, attention_mask))
 
 
+@META_ATTENTION.register()
+class AdaptiveScaledDotProductAttention(_Projections):
+    """RSTNet's adaptive attention (JAX ``AdaptiveScaledDotProductAttention``):
+    each query i attends to the keys and to one extra column of its own,
+    whose logit is q_i . s_i / sqrt(d_k) and whose value row is s_i, with
+    s = fc_s(language signals) split into heads.  K and V are both
+    projected from ``keys``, as in the JAX class.  Scores, the softmax over
+    nk + 1 columns and both value products run in float32; the extra
+    column is never masked, so no row is fully masked."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.fc_s = XavierLinear(self.d_model, self.h * self.d_k)
+
+    def forward(self, queries, keys, values, attention_mask=None, language_signals=None):
+        k, v = self.project_kv(keys)
+        return self._adaptive(queries, k, v, attention_mask, language_signals)
+
+    def attend_cached(self, queries, k, v, attention_mask, language_signals=None):
+        """The cached-K/V form: ``queries`` and ``language_signals`` are the
+        current step's."""
+        return self._adaptive(queries, k, v, attention_mask, language_signals)
+
+    def _adaptive(self, queries, k, v, attention_mask, language_signals):
+        bs, nq = queries.shape[:2]
+        nk = k.shape[1]
+        q = self.project_q(queries).float()
+        s = self.fc_s(language_signals).reshape(bs, nq, self.h, self.d_k).float()
+        scale = math.sqrt(self.d_k)
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k.float()) / scale
+        if attention_mask is not None:
+            att = att.masked_fill(attention_mask, float("-inf"))
+        lang = torch.einsum("bqhd,bqhd->bhq", q, s) / scale
+        weights = torch.softmax(torch.cat([att, lang[..., None]], dim=-1), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights[..., :nk], v.float())
+        out = out + weights[..., nk].transpose(1, 2)[..., None] * s
+        return self.output(out.to(queries.dtype))
+
+
 class MultiHeadAttention(nn.Module):
     """Attention kernel + dropout + post-LN residual, then with ``USE_AOA``
     the Attention-on-Attention gate: informative(x) * sigmoid(gated(x)) of
@@ -322,18 +372,25 @@ class MultiHeadAttention(nn.Module):
 
     def decode_self(self, queries, cache: Cache, decode_index: int,
                     attention_mask, ancestry=None, beam_select=None,
-                    mask_axis: str = "q", attn_kernel: bool = False):
+                    mask_axis: str = "q", attn_kernel: bool = False, **inputs):
         """Self-attention step: write this step's projected K/V at
         ``decode_index`` (in place), then attend.  With ``beam_select`` and
         ``ancestry`` the cache is never reordered (beam-resident), and
         ``attn_kernel`` runs that attention through
         ``ops.beam_select_attention`` (SDPA only); with ``ancestry`` alone
-        each read resolves its slots by gather."""
-        q_t, k_t, v_t = self.attention.project_qkv_fused(queries)
+        each read resolves its slots by gather.  Per-query ``inputs`` (the
+        adaptive decoder's ``language_signals``) take the JAX package's
+        general path: K/V through ``project_kv``, the attention through
+        ``attend_cached``."""
+        q_t = None
+        if inputs or not hasattr(self.attention, "project_qkv_fused"):
+            k_t, v_t = self.attention.project_kv(queries)
+        else:
+            q_t, k_t, v_t = self.attention.project_qkv_fused(queries)
         cache["k"][:, decode_index] = k_t[:, 0]
         cache["v"][:, decode_index] = v_t[:, 0]
         k, v = cache["k"], cache["v"]
-        if beam_select is not None and ancestry is not None:
+        if beam_select is not None and ancestry is not None and q_t is not None:
             out = self.attention.attend_projected_beam_select(
                 q_t, k, v, ancestry, attention_mask, mask_axis=mask_axis,
                 use_kernel=attn_kernel
@@ -343,19 +400,24 @@ class MultiHeadAttention(nn.Module):
             if ancestry is not None:
                 k = _resolve_ancestry(k, ancestry)
                 v = _resolve_ancestry(v, ancestry)
-            out = self.attention.attend_projected(q_t, k, v, attention_mask)
+            if q_t is None:
+                out = self.attention.attend_cached(queries, k, v, attention_mask, **inputs)
+            else:
+                out = self.attention.attend_projected(q_t, k, v, attention_mask)
         return self._finish(queries, out)
 
-    def decode_cross(self, queries, cache: Cache, attention_mask, beam_select=None):
+    def decode_cross(self, queries, cache: Cache, attention_mask, beam_select=None, **inputs):
         """Cross-attention step over K/V precomputed from the encoder memory;
-        with ``beam_select`` and image-granularity K/V, beams share it."""
-        if beam_select is not None and cache["k"].shape[0] != queries.shape[0]:
+        with ``beam_select`` and image-granularity K/V, beams share it
+        (never with per-query ``inputs``, as in the JAX package)."""
+        if (beam_select is not None and cache["k"].shape[0] != queries.shape[0]
+                and not inputs):
             out = self.attention.attend_cached_grouped(
                 queries, cache["k"], cache["v"], attention_mask, beam_select
             )
         else:
             out = self.attention.attend_cached(
-                queries, cache["k"], cache["v"], attention_mask
+                queries, cache["k"], cache["v"], attention_mask, **inputs
             )
         return self._finish(queries, out)
 

@@ -17,17 +17,21 @@ def make_decode_cache(decoder_config, vocab, batch_size: int,
                       dtype=torch.float32, device="cpu") -> DecodeCache:
     """A zero DecodeCache from config shapes (no parameters needed); the
     cross-attention entries are filled by ``prepare_cache``.  ``Decoder``
-    and ``MeshedDecoder`` share its layout."""
-    if decoder_config.ARCHITECTURE not in ("Decoder", "MeshedDecoder"):
-        raise NotImplementedError(
-            f"decode cache for {decoder_config.ARCHITECTURE} is not ported yet"
-        )
+    and ``MeshedDecoder`` share its layout; ``AdaptiveDecoder``'s has one
+    layer more, over ``ADAPTIVE_ATTENTION``."""
+    arch = decoder_config.ARCHITECTURE
+    if arch not in ("Decoder", "MeshedDecoder", "AdaptiveDecoder"):
+        raise NotImplementedError(f"decode cache for {arch} is not ported yet")
     L = vocab.max_caption_length
-    self_cfg = decoder_config.ATTENTION.SELF_ATTENTION
+    attentions = [decoder_config.ATTENTION] * decoder_config.LAYERS
+    if arch == "AdaptiveDecoder":
+        attentions.append(decoder_config.ADAPTIVE_ATTENTION)
     layers = []
-    for _ in range(decoder_config.LAYERS):
-        k = torch.zeros((batch_size, L, self_cfg.HEAD, self_cfg.D_KEY), dtype=dtype, device=device)
-        v = torch.zeros((batch_size, L, self_cfg.HEAD, self_cfg.D_VALUE), dtype=dtype, device=device)
+    for attention in attentions:
+        self_cfg = attention.SELF_ATTENTION
+        shape = (batch_size, L, self_cfg.HEAD)
+        k = torch.zeros(shape + (self_cfg.D_KEY,), dtype=dtype, device=device)
+        v = torch.zeros(shape + (self_cfg.D_VALUE,), dtype=dtype, device=device)
         layers.append({"self": {"k": k, "v": v}, "cross": None})
     pad = torch.zeros((batch_size, L), dtype=torch.bool, device=device)
     return {"layers": layers, "pad": pad}
@@ -56,6 +60,16 @@ class BaseTransformer(nn.Module):
 
     def prepare_cache(self, cache: DecodeCache, encoder_features) -> DecodeCache:
         return self.decoder.prepare_cache(cache, encoder_features)
+
+    @torch.no_grad()
+    def compute_language_table(self):
+        """The (vocab, d) language-signal table of a decoder with a frozen
+        language model (``AdaptiveDecoder.language_signal_table``), None
+        for the others.  Computed once per checkpoint and passed to
+        ``beam_search(..., language_table=...)``, it replaces the language
+        model of every decode step by a gather, exactly."""
+        fn = getattr(self.decoder, "language_signal_table", None)
+        return None if fn is None else fn()
 
     def decode_step(self, t: int, tokens_t, cache: DecodeCache,
                     encoder_attention_mask, ancestry=None, beam_select=None,

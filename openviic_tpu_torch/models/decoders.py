@@ -24,6 +24,17 @@ The Meshed-Memory decoder's layers cross-attend each of the encoder's N
 levels (memory (bs, N, n, d)) with one shared ``enc_attn`` and fuse them
 through sigmoid gates.  It has no whole-layer kernel; ``resident_kernel``
 on it raises, where the JAX package fails (see ``MeshedDecoderLayer.step``).
+
+RSTNet's ``AdaptiveDecoder`` runs N standard layers and one more over
+``ADAPTIVE_ATTENTION``, every layer given per-position language signals
+from a frozen language model (``models/language_models.py``).  Those
+signals are an attention input, so no whole-layer kernel runs its layers
+(the JAX gates need an empty option set), and the beam search decodes it
+off the beam-resident path.  A decode step needs the signal of the
+current token only, a pure function of its id: ``language_signal_table``
+computes them all once, and a step given the table in its cache
+(``"language_table"``) gathers a row instead of running the language
+model.
 """
 
 from __future__ import annotations
@@ -33,7 +44,11 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from openviic_tpu_torch.builders import META_DECODER, build_text_embedding
+from openviic_tpu_torch.builders import (
+    META_DECODER,
+    build_pretrained_language_model,
+    build_text_embedding,
+)
 from openviic_tpu_torch.models.attention import MultiHeadAttention
 from openviic_tpu_torch.models.ffn import make_pwff
 from openviic_tpu_torch.models.initializers import TorchLinear, XavierLinear
@@ -48,15 +63,25 @@ from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
 DecodeCache = Dict[str, Any]
 
 
+# the per-query attention inputs a decoder may thread through its layers'
+# options (the adaptive decoder's), as against the decode switches
+ATTENTION_INPUTS = ("language_signals",)
+
+
+def _inputs(options) -> Dict[str, Any]:
+    return {k: options[k] for k in ATTENTION_INPUTS if k in options}
+
+
 def _decode_self(self_attn, queries, layer_cache, decode_index, self_attention_mask,
                  ancestry, options):
     """A layer's self-attention decode step with the decoder's attention
-    ``options`` (``beam_select``, ``mask_axis``, ``attn_kernel``)."""
+    ``options`` (``beam_select``, ``mask_axis``, ``attn_kernel``, and the
+    attention inputs of ``ATTENTION_INPUTS``)."""
     return self_attn.decode_self(
         queries, layer_cache["self"], decode_index, self_attention_mask,
         ancestry=ancestry, beam_select=options.get("beam_select"),
         mask_axis=options.get("mask_axis", "q"),
-        attn_kernel=options.get("attn_kernel", False),
+        attn_kernel=options.get("attn_kernel", False), **_inputs(options),
     )
 
 
@@ -70,9 +95,11 @@ class DecoderLayer(nn.Module):
         self.pwff = make_pwff(config.ENC_ATTENTION)
 
     def forward(self, queries, keys, values, self_padding_mask,
-                self_attention_mask, enc_attention_mask):
-        self_att = self.self_attn(queries, queries, queries, self_attention_mask)
-        enc_att = self.enc_attn(self_att, keys, values, enc_attention_mask)
+                self_attention_mask, enc_attention_mask, **inputs):
+        """``inputs``: per-query attention inputs for both attentions (the
+        adaptive decoder's ``language_signals``)."""
+        self_att = self.self_attn(queries, queries, queries, self_attention_mask, **inputs)
+        enc_att = self.enc_attn(self_att, keys, values, enc_attention_mask, **inputs)
         ff = self.pwff(enc_att)
         return ff.masked_fill(self_padding_mask[:, 0, 0, :, None], 0.0)
 
@@ -107,7 +134,7 @@ class DecoderLayer(nn.Module):
                                 self_attention_mask, ancestry, kwargs)
         enc_att = self.enc_attn.decode_cross(
             self_att, layer_cache["cross"], enc_attention_mask,
-            beam_select=kwargs.get("beam_select"),
+            beam_select=kwargs.get("beam_select"), **_inputs(kwargs),
         )
         return self.pwff(enc_att)
 
@@ -292,15 +319,24 @@ class _DecoderBase(nn.Module):
         seq = torch.arange(1, seq_len + 1, device=caption_tokens.device)
         seq = seq[None, :].expand(b_s, seq_len).masked_fill(pad_mask[:, 0, 0, :], 0)
 
+        inputs = self._attention_inputs(caption_tokens)
         embedded, _ = self.word_emb(caption_tokens)
         out = embedded + self.pos_table[seq].to(embedded.dtype)
         for layer in self.layers:
             out = layer(out, encoder_features, encoder_features, pad_mask,
-                        self_mask, encoder_attention_mask)
+                        self_mask, encoder_attention_mask, **inputs)
         out = self.fc(out)
         if raw_logits:
             return out
         return torch.log_softmax(out.float(), dim=-1)
+
+    def _attention_inputs(self, caption_tokens) -> Dict[str, Any]:
+        """Per-query attention inputs of the teacher-forced pass (none)."""
+        return {}
+
+    def _step_attention_inputs(self, tokens_t, cache: DecodeCache) -> Dict[str, Any]:
+        """Per-query attention inputs of a decode step (none)."""
+        return {}
 
     # -- step decoding --------------------------------------------------
     def init_cache(self, batch_size: int, dtype=torch.float32, device="cpu") -> DecodeCache:
@@ -353,9 +389,10 @@ class _DecoderBase(nn.Module):
         )
         is_pad = (tokens_t[:, :1] == self.padding_idx)[:, :, None]  # (rows, 1, 1)
 
+        inputs = self._step_attention_inputs(tokens_t, cache)
         embedded, _ = self.word_emb(tokens_t)
         out = embedded + self.pos_table[t + 1][None, None, :].to(embedded.dtype)
-        layer_kwargs = dict(kwargs)
+        layer_kwargs = dict(kwargs, **inputs)
         if raw_mask:
             layer_kwargs["mask_axis"] = "p"
         if resident_kernel:
@@ -388,3 +425,57 @@ class MeshedDecoder(_DecoderBase):
     """The Meshed-Memory decoder over the stacked encoder levels."""
 
     layer_cls = MeshedDecoderLayer
+
+
+@META_DECODER.register()
+class AdaptiveDecoder(_DecoderBase):
+    """RSTNet's adaptive decoder (JAX ``AdaptiveDecoder``): ``LAYERS``
+    standard layers over ``ATTENTION``, one more over
+    ``ADAPTIVE_ATTENTION``, and the frozen language model
+    ``LANGUAGE_MODEL``, whose signals every layer's attentions receive.
+
+    ``LANGUAGE_MODEL.SIGNAL_MODE``: ``prefix`` (the default) runs the
+    language model over the whole caption; ``token`` runs it on each token
+    alone, the function a decode step evaluates, with <pad> replaced by
+    <bos> before the call (a <pad> row would be fully masked inside the
+    language model, whose NaN softmax gradient would poison the update;
+    its signal is never read).  Every path calls the language model's
+    ``signals``, never its vocab head."""
+
+    def __init__(self, config, vocab):
+        super().__init__(config, vocab)
+        self.layers.append(DecoderLayer(config.ADAPTIVE_ATTENTION))
+        self.language_model = build_pretrained_language_model(config.LANGUAGE_MODEL)
+        self.signal_mode = config.LANGUAGE_MODEL.get("SIGNAL_MODE", "prefix")
+
+    def _attention_inputs(self, caption_tokens) -> Dict[str, Any]:
+        if self.signal_mode != "token":
+            return {"language_signals": self.language_model.signals(caption_tokens)}
+        b_s, seq_len = caption_tokens.shape[:2]
+        flat = caption_tokens.reshape(-1, 1)
+        flat = torch.where(flat == self.padding_idx, self.vocab.bos_idx, flat)
+        signals = self.language_model.signals(flat)
+        return {"language_signals": signals.reshape(b_s, seq_len, -1)}
+
+    def _step_attention_inputs(self, tokens_t, cache: DecodeCache) -> Dict[str, Any]:
+        table = cache.get("language_table")
+        if table is not None:  # one gather replaces the language model
+            return {"language_signals": table[tokens_t[:, 0]][:, None]}
+        return {"language_signals": self.language_model.signals(tokens_t)}
+
+    def language_signal_table(self) -> torch.Tensor:
+        """(vocab, D_MODEL) language signals of every caption-vocab id, each
+        the language model's output on that id alone (the pad row
+        included: zero, as the encoder layer zeroes its masked query), so a
+        decode step may gather its row (``cache["language_table"]``)."""
+        ids = torch.arange(len(self.vocab), device=self.fc.weight.device)[:, None]
+        return self.language_model.signals(ids)[:, 0]
+
+    def step(self, t: int, tokens_t, cache: DecodeCache, encoder_attention_mask,
+             ancestry=None, raw_head=False, **kwargs):
+        """One decode step over the N + 1 layers (``_DecoderBase.step``) with
+        the current token's language signals; the decode switches in
+        ``kwargs`` (``beam_select``, the kernels) are ignored, as the JAX
+        ``AdaptiveDecoder.step`` ignores them."""
+        return super().step(t, tokens_t, cache, encoder_attention_mask, ancestry=ancestry,
+                            raw_head=raw_head)

@@ -55,13 +55,21 @@ def split_tiles(V: int, splits: int):
 def head_topk_reference(x: torch.Tensor, w: torch.Tensor, k: int):
     """Plain PyTorch version: f32 product of the bf16-rounded operands,
     logits rounded through bf16, lse over them, and a top-k that takes the
-    lowest id among equal values (a stable descending sort: ``torch.topk``
-    promises no tie order)."""
+    lowest id among equal values (``torch.topk`` promises no tie order):
+    the ids above the k-th largest value, then the lowest ids equal to it,
+    in ascending order, then a stable descending sort of those k by value,
+    which is the first k of a stable descending sort of the row.  Every
+    shape is static, so a CUDA graph can capture it."""
     logits = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
     logits = logits.to(torch.bfloat16).float()
     lse = torch.logsumexp(logits, dim=1)
-    order = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :k]
-    return torch.gather(logits, 1, order), order.to(torch.int32), lse
+    kth = torch.topk(logits, k, dim=1).values[:, -1:]
+    above, ties = logits > kth, logits == kth
+    take = above | (ties & (torch.cumsum(ties, dim=1) <= k - above.sum(dim=1, keepdim=True)))
+    ids = torch.sort(torch.topk(take.float(), k, dim=1).indices, dim=1).values  # the k taken
+    vals = torch.gather(logits, 1, ids)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    return torch.gather(vals, 1, order), torch.gather(ids, 1, order).to(torch.int32), lse
 
 
 _lib = None  # the loaded library, with its C signatures declared

@@ -16,7 +16,9 @@ places the weights on the device once, and captions
 It decodes beam-resident, with the head and the beam-select attention
 kernels as ``TRAINING.DECODE_HEAD_KERNEL`` and ``DECODE_ATTN_KERNEL`` say,
 as the JAX pipeline does.  ``from_state_dict`` builds one from weights in
-memory (or drawn from a seed) instead of a checkpoint."""
+memory (or drawn from a seed) instead of a checkpoint.  For RSTNet's
+adaptive decoder it computes the language-signal table once, from the
+weights as loaded (f32), and hands it to every decode."""
 
 from __future__ import annotations
 
@@ -90,15 +92,16 @@ class CaptioningPipeline:
         ``TRAINING.DECODE_ATTN_KERNEL`` runs every decoder self-attention
         step through the beam-select attention kernel, as in the JAX
         pipeline."""
-        if config.MODEL.DECODER.ARCHITECTURE == "AdaptiveDecoder":
-            raise NotImplementedError("serving the AdaptiveDecoder needs its language table, "
-                                      "which is not ported (ROADMAP A.5.6)")
         self.config = config
         self.vocab = vocab
         self.device = torch.device(device)
-        self.model = build_model(config.MODEL, vocab, device=self.device, seed=seed)
+        self.model = build_model(config.MODEL, vocab, device=self.device, seed=seed,
+                                 init=state_dict is None)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        # RSTNet: the (vocab, d) signal table once per checkpoint, before the
+        # cast (the JAX pipeline computes it from its f32 parameters)
+        self.language_table = self.model.compute_language_table()
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
         self.model.to(self.compute_dtype)
         self.beam_size = beam_size or config.TRAINING.EVALUATING_BEAM_SIZE
@@ -139,7 +142,8 @@ class CaptioningPipeline:
         ids = []
         for start in range(0, len(feature_dicts), self.batch_size):
             chunk = feature_dicts[start : start + self.batch_size]
-            outputs, _ = self.searcher(self._batch(chunk), self.beam_size)
+            outputs, _ = self.searcher(self._batch(chunk), self.beam_size,
+                                       language_table=self.language_table)
             outputs = outputs[: len(chunk)].cpu().numpy()
             ids.append(outputs)
             captions.extend(self.vocab.decode_caption(outputs))

@@ -18,10 +18,17 @@ captions as they are; ``enTrainer`` PTB-tokenizes them first.
 ``ScstSetup`` builds what the SCST phase needs once and ``scst_iteration``
 runs one iteration of it.
 
+RSTNet's frozen language-model backbone (``optim.frozen_param_mask``)
+gets no Adam moments in either phase and is saved once, apart from the
+per-epoch checkpoint (``checkpoint.FROZEN_NAME``); its adaptive decoder
+decodes eval and SCST samples through the language-signal table, rebuilt
+for every eval decode and SCST iteration since the layers around the
+backbone train (not with dropout-active sampling, which needs the
+per-step language model in train mode).
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
 mesh, multi-host and Grain branches (``TRAINING.DATA_PARALLEL`` over more
-than one card, ``DATASET.LOADER: grain``; A.7), the Orbax backend (A.8),
-a frozen backbone and the adaptive decoder's language table (A.5.6).
+than one card, ``DATASET.LOADER: grain``; A.7) and the Orbax backend (A.8).
 JAX-only keys: ``RNG_IMPL`` is checked and does nothing,
 ``COMPILATION_CACHE_DIR`` does nothing."""
 
@@ -106,7 +113,11 @@ class ScstSetup:
       hook (a language's tokenization of the pairs, which only the host
       reward applies);
     - the host reward: native CIDEr with the train split's document
-      frequencies, or the Python ``Cider`` where no native library loads.
+      frequencies, or the Python ``Cider`` where no native library loads;
+    - ``language_table``: a callable giving the adaptive decoder's signal
+      table for the weights of the moment (the trainer's
+      ``_language_table``), or None; called once an iteration unless the
+      sampling runs with dropout.
 
     ``train_captions`` are the train split's captions as token lists (the
     df corpus); ``training`` the ``TRAINING`` config node; ``searcher`` the
@@ -115,7 +126,8 @@ class ScstSetup:
     def __init__(self, model, state: dict, train_captions: Sequence[List[str]], training,
                  searcher: Optional[BeamSearcher] = None,
                  postprocess_pairs: Optional[Callable] = None,
-                 optimizer_state: Optional[dict] = None):
+                 optimizer_state: Optional[dict] = None,
+                 language_table: Optional[Callable] = None):
         self.model = model
         self.vocab = model.vocab
         self.device = next(model.parameters()).device
@@ -130,6 +142,7 @@ class ScstSetup:
         self.step = make_scst_grad_step(model, self.beam_size)
         self.searcher = searcher if searcher is not None else make_searcher(model, training)
         self.postprocess_pairs = postprocess_pairs
+        self.language_table = None if self.sample_dropout else language_table
         self.device_reward = None
         if training.get("DEVICE_REWARD", True) and postprocess_pairs is None:
             self.device_reward = DeviceCiderFull(self.vocab, train_captions, device=self.device)
@@ -171,14 +184,16 @@ def scst_iteration(setup: ScstSetup, batch: Dict[str, torch.Tensor],
     1. sample ``beam`` captions an image with the searcher (all beams
        kept); with ``TRAINING.SCST_SAMPLE_DROPOUT`` with dropout active, on
        a seed drawn from the state's generator without advancing it and
-       folded with ``SCST_SAMPLE_SALT``;
+       folded with ``SCST_SAMPLE_SALT``; else through the setup's
+       ``language_table`` of the current weights where it has one;
     2. reward each against its image's references, on the device or on the
        host;
     3. one SCST step.
 
     ``batch``: the (bs, ...) f32 features; ``captions``: each image's
     reference caption strings.  ``marks`` (optional) is called with
-    ``"sample"``, ``"reward"`` and ``"step"`` as each stage ends.  Returns
+    ``"table"`` (where a table is built), ``"sample"``, ``"reward"`` and
+    ``"step"`` as each stage ends.  Returns
     (loss, mean reward), 0-d tensors on the device."""
     def mark(stage):
         if marks is not None:
@@ -189,7 +204,12 @@ def scst_iteration(setup: ScstSetup, batch: Dict[str, torch.Tensor],
     seed = None
     if setup.sample_dropout:
         seed = rng.fold_in(rng.peek_seed(setup.state["generator"]), SCST_SAMPLE_SALT)
-    outs, _ = setup.searcher(batch, beam, out_size=beam, dropout_rng=seed)
+    table = None
+    if setup.language_table is not None:
+        table = setup.language_table()
+        mark("table")
+    outs, _ = setup.searcher(batch, beam, out_size=beam, dropout_rng=seed,
+                             language_table=table)
     bs = outs.shape[0]
     sampled = outs.reshape(bs * beam, -1)
     mark("sample")
@@ -220,9 +240,6 @@ def _refuse_unported(config, device: torch.device) -> None:
         raise ValueError(f"TRAINING.RNG_IMPL={rng_impl!r} not recognised")
     if str(ds.get("LOADER", "native")).lower() == "grain":
         raise NotImplementedError("DATASET.LOADER: grain is not ported (ROADMAP A.7)")
-    if config.MODEL.DECODER.ARCHITECTURE == "AdaptiveDecoder":
-        raise NotImplementedError("AdaptiveDecoder and its language table are not ported "
-                                  "(ROADMAP A.5.6)")
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
@@ -300,9 +317,9 @@ class BaseTrainer:
         logger.info("Building model")
         seed = int(tr.get("SEED", 42))
         self.model = build_model(config.MODEL, self.vocab, device=self.device, seed=seed)
-        if frozen_param_mask(self.model) is not None:
-            raise NotImplementedError("a frozen backbone (its masked optimizer and split "
-                                      "checkpoint) is not ported (ROADMAP A.5.6)")
+        # {name: trainable}, or None: RSTNet's language-model backbone gets
+        # no Adam moments (mask_frozen) and a checkpoint file of its own
+        self._frozen_mask = frozen_param_mask(self.model)
         optimizer, scheduler = self._xe_optimizer()
         self.state = init_xe_state(self.model, optimizer, scheduler, seed=seed)
         self.lr_schedule = noam_schedule(config.MODEL.ENCODER.D_MODEL, self.warmup,
@@ -433,7 +450,8 @@ class BaseTrainer:
         self.scst_setup = ScstSetup(
             self.model, self.state, self.train_dataset.captions, self.config.TRAINING,
             searcher=self.beam_searcher, postprocess_pairs=hook,
-            optimizer_state=None if reset_opt else self._rl_optimizer_state)
+            optimizer_state=None if reset_opt else self._rl_optimizer_state,
+            language_table=self._language_table if self._frozen_mask is not None else None)
         self._rl_optimizer_state = None
 
     def train_scst(self) -> float:
@@ -471,10 +489,20 @@ class BaseTrainer:
         logger.info("Epoch %d - validation loss %.4f", self.epoch, val_loss)
         return val_loss
 
+    def _language_table(self) -> Optional[torch.Tensor]:
+        """The adaptive decoder's (vocab, d) language-signal table of the
+        weights of the moment (the JAX trainer's ``_language_table``), None
+        for the other decoders."""
+        if self.config.MODEL.DECODER.ARCHITECTURE != "AdaptiveDecoder":
+            return None
+        return self.model.compute_language_table()
+
     def _decode_loader(self, dataloader: DataLoader, beam_size: int):
-        """Yields (it, items, each image's best caption as a word list)."""
+        """Yields (it, items, each image's best caption as a word list);
+        the adaptive decoder's table is computed once for the whole pass."""
+        table = self._language_table()
         for it, (items, batch) in enumerate(device_prefetch(dataloader, self.device)):
-            outs, _ = self.beam_searcher(batch, beam_size, out_size=1)
+            outs, _ = self.beam_searcher(batch, beam_size, out_size=1, language_table=table)
             if self._dtype_guard_enabled and not self._dtype_guard_done:
                 self._dtype_guard_done = True
                 self._run_decode_dtype_guard(batch, beam_size, outs)
@@ -543,7 +571,8 @@ class BaseTrainer:
                          "train_dict": int(self.train_dict_dataloader.epoch)}
         self._ckpt_io.save_checkpoint(
             os.path.join(self.checkpoint_path, self._ckpt_io.LAST_NAME), self.model,
-            self.state, {"epoch": self.epoch, "loader_epochs": loader_epochs, **extras})
+            self.state, {"epoch": self.epoch, "loader_epochs": loader_epochs, **extras},
+            frozen_mask=self._frozen_mask)
 
     def load_checkpoint(self, fname: str) -> Optional[Dict]:
         """Restore the checkpoint ``fname`` (None when absent): the weights

@@ -1,13 +1,16 @@
 """Every shipped model config in the port: each yaml under ``configs/`` and
 ``configs/tpu/`` builds at its own widths with the JAX package's parameter
 tree (every leaf carried through ``compat.from_jax`` at its shape; DLCT's
-traced over its four streams), or, for the family still to port (RSTNet),
-raises ``NotImplementedError`` naming its ROADMAP item.  The two configs that misspell their architecture
+traced over its four streams; RSTNet's with its frozen language model, the
+PhoBERT-architecture backbone at vocab 64 001 and hidden 768 that the JAX
+package builds offline, its unused pooler included), or, for a family
+still to port (none is left), raises ``NotImplementedError`` naming its
+ROADMAP item.  The two configs that misspell their architecture
 (``dlct-transformer.yaml``, ``rstnet.yaml``: ``StandardStranformerUsingRegion``)
 build as the standard transformer in both packages, through the same
-alias.  And ``chip_smoke.py``'s in-code trees of the four region families
-and of DLCT (the card's machine has no PyYAML) equal their yamls'
-``MODEL``."""
+alias.  And ``chip_smoke.py``'s in-code trees of the four region families,
+of DLCT and of RSTNet (the card's machine has no PyYAML) equal their
+yamls' ``MODEL``."""
 
 import importlib.util
 import sys
@@ -27,8 +30,8 @@ from tests.test_torch_port_support import make_vocab
 
 ROOT = Path(__file__).resolve().parents[1]
 YAMLS = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "configs").glob("**/*.yaml"))
-# the family still to port: its ROADMAP item (A.5.6 RSTNet)
-NOT_PORTED = {"rstnet_fixed.yaml": "A.5.6"}
+# the families still to port, by yaml name: their ROADMAP items (none left)
+NOT_PORTED = {}
 
 
 def _model(path):
@@ -60,7 +63,7 @@ def _jax_shapes(path, vocab):
 
 def test_every_yaml_is_covered():
     assert len(YAMLS) == 21
-    assert {Path(p).name for p in YAMLS} >= set(NOT_PORTED)
+    assert {Path(p).name for p in YAMLS} >= set(NOT_PORTED) | {"rstnet_fixed.yaml"}
 
 
 @pytest.mark.parametrize("path", YAMLS)
@@ -93,10 +96,12 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("family", ["aoa", "augmented_memory", "meshed_memory", "camo", "dlct"])
+@pytest.mark.parametrize("family", ["aoa", "augmented_memory", "meshed_memory", "camo", "dlct",
+                                    "rstnet"])
 def test_chip_smoke_trees_equal_the_yamls(family):
     chip_smoke = _chip_smoke()
-    yaml = {**chip_smoke.FAMILIES, **chip_smoke.TWO_STREAM_FAMILIES}[family]
+    yaml = {**chip_smoke.FAMILIES, **chip_smoke.TWO_STREAM_FAMILIES,
+            **chip_smoke.RSTNET_FAMILIES}[family]
     got = chip_smoke.family_model(family, chip_smoke.FLAGSHIP)
     assert got == _model(f"configs/{yaml}.yaml").to_dict()
     tuned = _model(f"configs/tpu/{yaml}.yaml").to_dict()  # its NAME ends in _tpu

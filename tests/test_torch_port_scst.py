@@ -431,7 +431,8 @@ def _counting(monkeypatch, module, name):
 def test_dropout_sampling_bypasses_the_layer_kernels(dropout_model, monkeypatch):
     """Under dropout the whole-layer kernels are never called (they do not
     implement dropout), while the head kernel and the beam-select attention
-    kernel run (their plain versions here) at every step."""
+    kernel run (their plain versions here) at every step; a language table
+    leaves a decoder without a language model as it is."""
     # the module, not the function the package exports under its name
     beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
     model = dropout_model
@@ -461,8 +462,11 @@ def test_dropout_sampling_bypasses_the_layer_kernels(dropout_model, monkeypatch)
     fused.clear()
     non_resident(batch, BEAM, out_size=BEAM, dropout_rng=2)
     assert not fused
-    with pytest.raises(NotImplementedError):
-        searcher(batch, BEAM, language_table=torch.zeros(3))
+    # a language table, refused until the adaptive decoder was ported, is
+    # now carried in the cache and read by that decoder only: this model's
+    # decode is the same with one
+    torch.testing.assert_close(searcher(batch, BEAM, language_table=torch.zeros(3)),
+                               searcher(batch, BEAM), rtol=0, atol=0)
 
 
 # -------------------------------------------------- compute-dtype shadow

@@ -173,12 +173,17 @@ def test_missing_and_jax_checkpoints_are_refused(region_ckpt, tmp_path):
         CaptioningPipeline(config, checkpoint_dir=str(jax_dir), device="cpu")
     with pytest.raises(NotImplementedError, match="A.7"):
         CaptioningPipeline(config, mesh="auto", device="cpu")
+    # the adaptive decoder, refused until RSTNet was ported: without a
+    # checkpoint it is refused as the others are, and from weights in memory
+    # it serves with its language-signal table
+    from tests.torch_port_rstnet import rstnet_model
+
     adaptive = config.to_dict()
-    adaptive["MODEL"]["DECODER"]["ARCHITECTURE"] = "AdaptiveDecoder"
-    with pytest.raises(NotImplementedError, match="AdaptiveDecoder"):
-        CaptioningPipeline(ConfigNode(adaptive), device="cpu")
-    with pytest.raises(NotImplementedError, match="AdaptiveDecoder"):
-        CaptioningPipeline.from_state_dict(ConfigNode(adaptive), make_vocab(), device="cpu")
+    adaptive["MODEL"] = rstnet_model()
+    with pytest.raises(FileNotFoundError, match="no checkpoint at"):
+        CaptioningPipeline(ConfigNode(adaptive), checkpoint_dir=str(empty), device="cpu")
+    pipe = CaptioningPipeline.from_state_dict(ConfigNode(adaptive), make_vocab(), device="cpu")
+    assert pipe.language_table.shape == (len(make_vocab()), 16)
 
 
 def _yaml_config(config, path, features_dir):

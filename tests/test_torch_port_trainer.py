@@ -549,15 +549,16 @@ def test_max_regions_pins_static_shapes(tmp_path_factory, tiny_dataset_dir):
 def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_dir,
                                                 monkeypatch):
     """Without a card the default device raises; unported branches raise
-    NotImplementedError naming their ROADMAP item; RNG_IMPL is checked."""
+    NotImplementedError naming their ROADMAP item; RNG_IMPL is checked.
+    The adaptive decoder and a frozen backbone, refused until RSTNet was
+    ported, now build: the backbone's parameters are kept out of the XE
+    Adam."""
     tmp = tmp_path_factory.mktemp("refuse")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_trainer(ConfigNode(config_dict(tmp, tiny_dataset_dir)))
     cases = [({"DATASET": {"LOADER": "grain"}}, NotImplementedError, "A.7"),
              ({"TRAINING": {"CHECKPOINT_BACKEND": "orbax"}}, NotImplementedError, "A.8"),
-             ({"MODEL": {"DECODER": {"ARCHITECTURE": "AdaptiveDecoder"}}},
-              NotImplementedError, "A.5.6"),
              ({"TRAINING": {"RNG_IMPL": "mersenne"}}, ValueError, "RNG_IMPL"),
              ({"TRAINING": {"GRAD_ACCUM": 3}}, ValueError, "GRAD_ACCUM")]
     for patch, exc, match in cases:
@@ -582,10 +583,15 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_d
         trainer_module._refuse_unported(ConfigNode(cfg), torch.device("cuda"))
     cfg["TRAINING"]["DATA_PARALLEL"] = False
     trainer_module._refuse_unported(ConfigNode(cfg), torch.device("cuda"))
-    # a frozen backbone
-    monkeypatch.setattr(trainer_module, "frozen_param_mask", lambda model: {})
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        build_trainer(ConfigNode(cfg), device="cpu")
+    # the adaptive decoder with its frozen backbone
+    from tests.torch_port_rstnet import rstnet_model
+
+    cfg["MODEL"] = rstnet_model()
+    tr = build_trainer(ConfigNode(cfg), device="cpu")
+    assert tr._frozen_mask is not None and not all(tr._frozen_mask.values())
+    in_adam = {id(p) for g in tr.state["optimizer"].param_groups for p in g["params"]}
+    frozen = {id(p) for n, p in tr.model.named_parameters() if not tr._frozen_mask[n]}
+    assert frozen and not in_adam & frozen
 
 
 
