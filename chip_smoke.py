@@ -204,21 +204,48 @@ On the card it runs these phases, each printing its seconds:
    written once, the per-epoch file's MiB beside an unsplit save's) and
    ``CaptioningPipeline(checkpoint_dir=...)`` captioning from the split
    files;
-17. the last line: ``{"ok": true, "device": {...}}``.
+17. the single-card remainder: the flagship with a 4-expert Switch MoE as
+   every encoder and decoder FFN (capacity factor 1.25) and
+   ``LSTMTextEmbedding`` (D_EMBEDDING 512) as the decoder's word
+   embedding, random weights from a seed, beam 3, bf16, one request of 320
+   images through ``CaptioningPipeline``: the tuned path (head kernel
+   forced, beam-select kernel on) against eager fast select (launches per
+   step, ids in the vocab, score parity, captions/s) and the forced decode
+   of its captions through the attention kernel; ``OPENVIIC_PALLAS=1``
+   (fused_attention once an encoder layer), with its score parity and
+   forced decode; ``resident_kernel`` and ``OPENVIIC_FUSED_STEP=1`` raise
+   the MoE ``ValueError`` (the JAX package fails there) with no launch;
+   head_topk, beam_select_attention and fused_attention on their inputs
+   captured from these decodes against their plain versions, timed beside
+   their bounds; f32 on the card against its host's CPU on 16 images
+   (>= 99% identical); 10 bf16 XE steps whose loss must fall (ms per
+   step, peak memory, the MoE layers' aux losses); ``return_probs`` on 7
+   images (the best beam's word log-probs found in the kept
+   distributions); ``beam_search_multi`` over the 320 and the 7 images
+   (tokens equal to ``beam_search`` of each); the RDR segmenter on the
+   card's host from whichever library loads (lexicon, rules and an SCRDR
+   tree written by the phase; fixed expected segmentations); a synthetic
+   original-code run of the flagship at full width (its ``state_dict``
+   under the original names and a torch Adam state) through
+   ``import_reference_checkpoint`` into a temporary directory and
+   captioned from there: captions equal to the same weights loaded
+   directly;
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families, two-stream and RSTNet phases, 0 where a
-kernel does not run); the line before that is
+and cases in the families, two-stream, RSTNet and remainder phases, 0
+where a kernel does not run); the line before that is
 the card's name and power limit.  Any failure raises, and the script
-exits non-zero without those lines.  ``--cpu`` runs phases 3-16 at tiny
+exits non-zero without those lines.  ``--cpu`` runs phases 3-17 at tiny
 widths with the plain versions on the CPU (the artifact's first image;
 the serving cell at batch 8, 8 requests from 2 clients; XE,
-SCST and the trainer at tiny widths; the families and RSTNet on 2
-images and 6 steps, RSTNet's trainer on 4 images whose references are
-cut to 6 words) and ends with ``cpu rehearsal ok`` instead.  The script
-writes nothing outside ``openviic_tpu_torch/_build/`` but the serving and
-trainer phases' temporary directories, which it deletes.
+SCST and the trainer at tiny widths; the families, RSTNet and the
+remainder on 2 images and 6 steps, RSTNet's trainer on 4 images whose
+references are cut to 6 words) and ends with ``cpu rehearsal ok`` instead.
+The script writes nothing outside ``openviic_tpu_torch/_build/`` but the
+serving, trainer, RDR and import phases' temporary directories, which it
+deletes.
 """
 
 from __future__ import annotations
@@ -2675,6 +2702,7 @@ XE_WARMUP = 10_000  # configs/standard_transformer_using_region.yaml's WARMUP
 XE_BATCH = 60  # its FEATURE_BATCH_SIZE
 XE_STEPS_PER_CALL = 4  # configs/tpu/standard_transformer_using_region.yaml
 XE_RUN_STEPS = 20
+XE_REHEARSAL_RUN_STEPS = 8  # the rehearsal's run: the loss falls within 8 steps there too
 XE_CPU_LOSS_RTOL = 1e-4
 XE_CPU_TOL = 1e-3  # gradient leaves and updated parameters, of their max-abs
 XE_MULTI_RTOL = 1e-5
@@ -2763,8 +2791,9 @@ def xe_phase(device, s, card: str, loaded):
     precision, dropout 0.1 and Noam warmup XE_WARMUP on one batch, whose
     losses must be finite and fall (the mean of the last 5 below the
     first), with ms per step (CUDA events) and peak memory; and under
-    OPENVIIC_PALLAS=1 the step refuses (the kernel has no backward).  The CPU rehearsal runs it at
-    tiny widths on batches of 12."""
+    OPENVIIC_PALLAS=1 the step refuses (the kernel has no backward).  The
+    CPU rehearsal runs it at tiny widths on batches of 12, its training run
+    XE_REHEARSAL_RUN_STEPS steps long."""
     from openviic_tpu_torch.training import optim, steps
 
     cuda = device.type == "cuda"
@@ -2853,7 +2882,8 @@ def xe_phase(device, s, card: str, loaded):
     ties = sum(int(((p.detach().view(torch.int32) & 0xFFFF) == 0x8000).sum())
                for p in model.parameters()) / sum(p.numel() for p in model.parameters())
     losses, ms = [], []
-    for _ in range(XE_RUN_STEPS):
+    n_run = XE_RUN_STEPS if cuda else XE_REHEARSAL_RUN_STEPS
+    for _ in range(n_run):
         if cuda:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
@@ -2865,7 +2895,7 @@ def xe_phase(device, s, card: str, loaded):
         losses.append(loss.item())
     peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30 if cuda else None
     first, last5 = losses[0], float(np.mean(losses[-5:]))
-    log(f"  XE training run, {XE_RUN_STEPS} steps at bf16 mixed precision, dropout 0.1, Noam "
+    log(f"  XE training run, {n_run} steps at bf16 mixed precision, dropout 0.1, Noam "
         f"warmup {XE_WARMUP}, batch {batch}: losses {[round(x, 4) for x in losses]}; first "
         f"{first:.4f}, mean of the last 5 {last5:.4f}; the batch's f32 eval loss "
         f"{eval_before:.5f} -> {eval_loss(batches[0]).item():.5f}; {ties:.4f} of the weights' "
@@ -3979,7 +4009,7 @@ def family_xe_batch(gen, s, vocab, n: int, device, name: str = ""):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def family_xe(device, s, name: str, vocab, card: str):
+def family_xe(device, s, name: str, vocab, card: str, model_cfg=None):
     """FAMILY_XE_STEPS XE steps of the family at bf16 mixed precision,
     dropout 0.1, on one batch of FAMILY_XE_BATCH random images and
     captions (the rehearsal: 4 steps at batch 4), with Adam at the Noam
@@ -4001,7 +4031,7 @@ def family_xe(device, s, name: str, vocab, card: str):
         sync(device)
         held = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-    model = build_model(family_config(name, s).MODEL, vocab, device=device, seed=5)
+    model = build_model(model_cfg or family_config(name, s).MODEL, vocab, device=device, seed=5)
     frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
     opt, sched = optim.make_optimizer(optim.mask_frozen(model), s["d_model"], FAMILY_XE_WARMUP)
     optim.fast_forward_schedule(opt, sched, FAMILY_XE_WARMUP)
@@ -4020,6 +4050,7 @@ def family_xe(device, s, name: str, vocab, card: str):
         losses.append(loss.item())
     peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30 if cuda else None
     named = dict(model.named_parameters())
+    aux = [float(m.aux_loss) for m in model.modules() if getattr(m, "aux_loss", None) is not None]
     moved = [n for n, b in frozen.items() if not torch.equal(named[n], b)]
     in_adam = [n for n in frozen if named[n] in opt.state]
     del model, state, step, opt, named
@@ -4029,6 +4060,10 @@ def family_xe(device, s, name: str, vocab, card: str):
         raise AssertionError(f"{name} XE: frozen tensors moved {moved[:3]} or hold Adam state "
                              f"{in_adam[:3]}")
     out = dict(losses=losses, frozen_tensors=len(frozen))
+    if aux:
+        out["moe_aux_loss"] = aux
+        log(f"  {name} XE: the MoE layers' aux losses after the last step "
+            f"{[round(x, 4) for x in aux]} (not trained on)")
     if frozen:
         log(f"  {name} XE: the {len(frozen)} frozen tensors bit-unchanged, none in Adam's state")
     line = (f"  {name} XE, {n_steps} bf16 steps at batch {len(batch['caption_tokens'])}: "
@@ -4994,6 +5029,346 @@ def rstnet_phase(device, s, card: str, loaded):
     return dict(launches=launches, kernels=cases, figures=figures)
 
 
+# ---------------------------------------------------------------- phase 17
+REMAINDER_NAME = "remainder"
+REMAINDER_EXPERTS = 4  # MOE_EXPERTS on every FFN; the capacity factor unset (1.25)
+REMAINDER_SMALL = 7  # the return_probs request and beam_search_multi's second batch
+# the RDR segmenter's strings with a lexicon, JOIN / SPLIT rules and an
+# SCRDR tree written by the phase, and their expected segmentations (those
+# of tests/test_rdr_segmenter.py, which holds the JAX package's binding)
+RDR_LEXICON = "học sinh\nsinh học\nđàn ông\nđi bộ\nbóng đá\nkhoa học máy tính\n"
+RDR_RULES = "JOIN * con mèo\nSPLIT những sinh_học\n"
+RDR_SCRDR = ('True : object.conclusion = "NN"\n'
+             '\tobject.tag == "B" : object.conclusion = "B"\n'
+             '\t\tobject.word == "mèo" and object.prevWord1 == "con" : '
+             'object.conclusion = "I"\n'
+             '\t\t\tobject.nextWord1 == "hoang" : object.conclusion = "B"\n'
+             '\t\tobject.word == "bộ" and object.prevTag1 == "B" and '
+             'object.prevWord1 == "đi" : object.conclusion = "I"\n'
+             '\tobject.tag == "I" : object.conclusion = "I"\n'
+             '\t\tobject.word == "học" and object.prevWord2 == "những" : '
+             'object.conclusion = "B"\n')
+RDR_EXPECTED = {
+    "rules": {"học sinh đi bộ": "học_sinh đi_bộ",
+              "khoa học máy tính và bóng đá": "khoa_học_máy_tính và bóng_đá",
+              "xin chào thế giới": "xin chào thế giới", "một con mèo": "một con_mèo",
+              "những sinh học": "những sinh học", "ngành sinh học": "ngành sinh_học"},
+    "scrdr": {"một con mèo": "một con_mèo", "một con mèo hoang": "một con mèo hoang",
+              "đang đi bộ": "đang đi_bộ", "ngành sinh học": "ngành sinh_học",
+              "những sinh học": "những sinh học"},
+}
+
+
+def remainder_config(s, kernels: bool = True):
+    """The flagship (``model_config``) with a Switch MoE of
+    REMAINDER_EXPERTS experts as every encoder and decoder FFN and
+    ``LSTMTextEmbedding`` (D_EMBEDDING = d_model) as the decoder's word
+    embedding; the families' beam and decode switches (``family_config``)."""
+    from openviic_tpu_torch.config import ConfigNode
+
+    model = model_config(s).to_dict()["MODEL"]
+    model["ENCODER"]["SELF_ATTENTION"]["MOE_EXPERTS"] = REMAINDER_EXPERTS
+    model["DECODER"]["ATTENTION"]["ENC_ATTENTION"]["MOE_EXPERTS"] = REMAINDER_EXPERTS
+    model["DECODER"]["TEXT_EMBEDDING"].update(ARCHITECTURE="LSTMTextEmbedding",
+                                              D_EMBEDDING=s["d_model"])
+    return ConfigNode({"MODEL": model,
+                       "TRAINING": {"EVALUATING_BEAM_SIZE": FAMILY_BEAM,
+                                    "DECODE_HEAD_KERNEL": 1 if kernels else False,
+                                    "DECODE_ATTN_KERNEL": kernels}})
+
+
+def remainder_probs_and_multi(model, requests):
+    """On ``model`` (the pipeline's bf16 copy), each request's images
+    unpadded: ``return_probs`` on the small request, the kept
+    distributions' shape, finite, and the best beam's word log-prob at
+    each step found at its word in some slot's distribution of that step
+    (exactly: the stored rows are the ones selected from; slots are not
+    re-gathered on later reorders); ``beam_search_multi`` over both
+    requests against ``beam_search`` of each (tokens equal)."""
+    from openviic_tpu_torch.decoding.beam_search import beam_search, beam_search_multi
+
+    batches = [{"region_features": torch.from_numpy(np.stack(
+        [image["region_features"] for image in r]))} for r in requests]
+    outputs, log_probs, probs = beam_search(model, batches[1], FAMILY_BEAM, out_size=FAMILY_BEAM,
+                                            return_probs=True)
+    b_s, L = outputs.shape[0], outputs.shape[-1]
+    if probs.shape != (b_s, FAMILY_BEAM, L, len(model.vocab)) or not torch.isfinite(probs).all():
+        raise AssertionError(f"return_probs: distributions {tuple(probs.shape)} or not finite")
+    words = outputs[:, 0]
+    at_words = torch.gather(probs, 3, words[:, None, :, None].expand(-1, FAMILY_BEAM, -1, 1))
+    found = (at_words[..., 0] == log_probs[:, 0][:, None, :]).any(dim=1)
+    if not bool(found.all()):
+        raise AssertionError(f"return_probs: {int((~found).sum())} of {found.numel()} best-beam "
+                             "steps not in the kept distributions")
+    multi = beam_search_multi(model, batches, FAMILY_BEAM)
+    gaps = []
+    for batch, (got_o, got_l) in zip(batches, multi):
+        want_o, want_l = beam_search(model, batch, FAMILY_BEAM)
+        if not torch.equal(got_o, want_o):
+            raise AssertionError("beam_search_multi: tokens differ from beam_search's")
+        gaps.append(float((got_l - want_l).abs().max()))
+    log(f"  return_probs on {b_s} images: kept distributions {tuple(probs.shape)}, every "
+        f"best-beam step found at its word; beam_search_multi over "
+        f"{[len(b['region_features']) for b in batches]} images: tokens equal to beam_search, "
+        f"max |d log-prob| "
+        f"{max(gaps):.3g}")
+    return dict(return_probs_images=b_s,
+                multi_images=[len(b["region_features"]) for b in batches],
+                multi_max_logprob_gap=max(gaps))
+
+
+def remainder_rdr():
+    """The RDR segmenter on this host, from whichever library loads, on
+    RDR_EXPECTED's strings with the lexicon, rules and SCRDR tree written
+    to a temporary directory."""
+    import tempfile
+
+    from openviic_tpu_torch.data import rdr_segmenter
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rdr_") as tmp:
+        paths = {}
+        for key, name, text in (("lexicon_path", "lexicon.txt", RDR_LEXICON),
+                                ("rules_path", "rules.txt", RDR_RULES),
+                                ("model_path", "model.rdr", RDR_SCRDR)):
+            paths[key] = os.path.join(tmp, name)
+            with open(paths[key], "w") as f:
+                f.write(text)
+        segmenters = {
+            "rules": rdr_segmenter.RDRSegmenter(paths["lexicon_path"], paths["rules_path"]),
+            "scrdr": rdr_segmenter.RDRSegmenter(model_path=paths["model_path"]),
+        }
+        segmenters["scrdr"].add_word("sinh học")
+        for case, expected in RDR_EXPECTED.items():
+            got = {k: segmenters[case].tokenize(k) for k in expected}
+            if got != expected:
+                raise AssertionError(f"rdr segmenter ({case}): {got} != {expected}")
+    path = str(rdr_segmenter.library_path())
+    log(f"  rdr segmenter: {sum(map(len, RDR_EXPECTED.values()))} strings as expected, "
+        f"library {path}")
+    return dict(library=path)
+
+
+def remainder_import(device, s, vocab, request, card: str):
+    """A synthetic run of the original code at the flagship's width (its
+    ``state_dict`` under the original's names, with its decode buffers,
+    and a torch Adam state after one update) imported by
+    ``import_reference_checkpoint`` into a temporary directory, then
+    ``CaptioningPipeline(config, checkpoint_dir=...)`` from there at beam
+    3, bf16, the tuned path: captions equal to the same weights loaded
+    directly; the Adam state's moments in the written ``last_model.ckpt``.
+    The original names come from the port's own mapping
+    (``torch_import.reference_name``), which the CPU tests hold to the JAX
+    package's importer."""
+    import pickle
+    import tempfile
+
+    from openviic_tpu_torch.builders import build_model
+    from openviic_tpu_torch.compat.migrate import import_reference_checkpoint
+    from openviic_tpu_torch.compat.torch_import import reference_name
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.serving import CaptioningPipeline
+    from openviic_tpu_torch.training import checkpoint as ckpt
+
+    config = ConfigNode({
+        "MODEL": dict(model_config(s).to_dict()["MODEL"], NAME="imported"),
+        "TRAINING": {"EVALUATING_BEAM_SIZE": FAMILY_BEAM, "DECODE_HEAD_KERNEL": 1,
+                     "DECODE_ATTN_KERNEL": True}})
+    weights = build_model(config.MODEL, vocab, device="cpu", seed=41).state_dict()
+    params = {reference_name(k): torch.nn.Parameter(v.clone()) for k, v in weights.items()}
+    adam = torch.optim.Adam(params.values(), lr=1e-4, betas=(0.9, 0.98))
+    gen = torch.Generator().manual_seed(42)
+    for p in params.values():
+        p.grad = torch.randn(p.shape, generator=gen) * 1e-3
+    adam.step()
+    state_dict = {k: p.detach() for k, p in params.items()}
+    state_dict["decoder.running_seq"] = torch.zeros(1)  # a buffer the import skips
+    payload = {"state_dict": state_dict, "optimizer": adam.state_dict(),
+               "scheduler": {"_step_count": 2}, "epoch": 4, "use_rl": False, "patience": 0,
+               "best_val_score": 0.5}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as tmp:
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        with open(os.path.join(run, "vocab.bin"), "wb") as f:
+            pickle.dump(vocab, f)
+        torch.save(payload, os.path.join(run, "last_model.pth"))
+        out = os.path.join(tmp, "imported")
+        with quiet_port_logger():
+            report = import_reference_checkpoint(config, os.path.join(run, "last_model.pth"),
+                                                 out_dir=out, write_last=True, device=device)
+            imported = CaptioningPipeline(config, checkpoint_dir=out, batch_size=s["batch"],
+                                          device=device)
+        import_s = time.perf_counter() - t0
+        saved = ckpt.load_checkpoint(os.path.join(out, ckpt.LAST_NAME))
+        mib = os.path.getsize(os.path.join(out, ckpt.BEST_NAME)) / 2**20
+    n_moments = len(saved["optimizer"]["state"])
+    if report["missing"] or report["unused"] or report["step"] != 1 or saved["epoch"] != 4:
+        raise AssertionError(f"import: {report}")
+    if n_moments != len(weights):
+        raise AssertionError(f"import: {n_moments} Adam states for {len(weights)} parameters")
+    # the same numbers loaded by name, the import's mapping aside
+    direct = CaptioningPipeline.from_state_dict(
+        config, vocab, state_dict={k: state_dict[reference_name(k)] for k in weights},
+        batch_size=s["batch"], device=device)
+    got, want = imported.caption_features(request), direct.caption_features(request)
+    if got != want:
+        raise AssertionError(f"import: {np.mean([a == b for a, b in zip(got, want)]):.4f} of "
+                             "the captions equal to the directly loaded weights'")
+    log(f"  import of an original-code run at full width: {len(weights)} tensors and their "
+        f"Adam moments, {mib:.1f} MiB, {import_s:.3f} s to the loaded pipeline on {card}; "
+        f"{len(request)} captions equal to the directly loaded weights'")
+    return dict(tensors=len(weights), checkpoint_mib=mib, seconds=import_s)
+
+
+def remainder_phase(device, s, card: str):
+    """The modules of the single-card remainder (``remainder_config``: the
+    flagship with the Switch MoE on every FFN and ``LSTMTextEmbedding``;
+    random weights from a seed; beam 3; bf16), one request of
+    ``s["batch"]`` images of ``s["n_regions"]`` regions through
+    ``CaptioningPipeline`` (the rehearsal: FAMILY_REHEARSAL's 2 images and
+    6 steps):
+
+    - the tuned path (head kernel forced, beam-select kernel on) against
+      eager fast select: launches per step, valid ids, score parity,
+      captions/s; ``OPENVIIC_PALLAS=1``: fused_attention once an encoder
+      layer and request; the forced decode of the tuned captions through
+      the attention kernel and under ``OPENVIIC_PALLAS=1`` against the
+      eager step;
+    - ``resident_kernel`` and ``OPENVIIC_FUSED_STEP=1`` raise the MoE
+      ``ValueError`` (where the JAX package's weight pack fails), no kernel
+      launched;
+    - head_topk, beam_select_attention and fused_attention on their inputs
+      captured from these decodes against their plain versions, timed
+      beside their bounds;
+    - f32 on the card against its host's CPU on FAMILY_F32_IMAGES images
+      (>= FAMILY_F32_AGREEMENT_MIN identical; the card only);
+    - ``family_xe``'s bf16 XE steps, with the MoE layers' aux losses;
+    - ``return_probs`` and ``beam_search_multi``
+      (``remainder_probs_and_multi``), the RDR segmenter
+      (``remainder_rdr``) and the import of an original-code run
+      (``remainder_import``).
+
+    Returns {"launches": {kernel: {path: n}}, "kernels": cases,
+    "figures": ...}."""
+    import importlib
+
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.models.decoders import MOE_LAYER_KERNEL
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    t0 = time.perf_counter()
+    name, cuda = REMAINDER_NAME, device.type == "cuda"
+    if not cuda:
+        s = dict(s, **FAMILY_REHEARSAL)
+    vocab = make_vocab(s)
+    rng = np.random.default_rng(17)
+    feats = rng.standard_normal((s["batch"] + REMAINDER_SMALL, s["n_regions"], s["d_feature"]),
+                                dtype=np.float32)
+    request = [{"region_features": f} for f in feats[:s["batch"]]]
+    small = [{"region_features": f} for f in feats[s["batch"]:]]
+    requests = [request]
+    pipe = CaptioningPipeline.from_state_dict(remainder_config(s), vocab, batch_size=s["batch"],
+                                              device=device, seed=40)
+    model = pipe.model
+    n_dec, n_enc = len(model.decoder.layers), len(model.encoder.layers)
+    per_path = {}
+
+    def run(path, searcher, decode, **expect):
+        results, counts = drive(f"{name} {path}", device, s, vocab, requests, searcher, decode,
+                                card, **expect)
+        per_path[path] = {k: v for k, v in counts.items() if v}
+        return results
+
+    def searched(searcher):
+        return searcher_decode(pipe, searcher, vocab, FAMILY_BEAM)
+
+    served = lambda r: pipe.caption_features(r, return_ids=True)  # noqa: E731
+    # the kernels' inputs are captured while the rescoring decodes run
+    captures = [("head_topk", beam_search_module, "head_topk", 1, 0),
+                ("beam_select_attention", attention_module, "beam_select_attention", n_dec, 0)]
+    tuned = run("tuned", pipe.searcher, served,
+                per_step={"head_topk": 1, "beam_select_attention": n_dec})
+    with contextlib.ExitStack() as stack:
+        kept = {key: stack.enter_context(capture_calls(mod, attr, every, first))
+                for key, mod, attr, every, first in captures}
+        tuned = rescore(device, requests, searched(pipe.searcher), tuned, f"{name} tuned")
+    eager_searcher = BeamSearcher(model, torch.bfloat16)
+    eager = run("eager", eager_searcher, searched(eager_searcher))
+    score_parity(f"{name} tuned", tuned, eager, "its eager twin")
+    with env_flag("OPENVIIC_PALLAS"):
+        res_d = run("OPENVIIC_PALLAS=1", pipe.searcher, served,
+                    per_step={"head_topk": 1, "beam_select_attention": n_dec},
+                    per_request={"fused_attention": n_enc})
+        with capture_calls(attention_module, "fused_attention", 10 ** 9, 0) as enc_kept:
+            res_d = rescore(device, requests, searched(pipe.searcher), res_d, f"{name} pallas")
+    kept["fused_attention_encoder"] = enc_kept
+    score_parity(f"{name} OPENVIIC_PALLAS=1", res_d, tuned, "its tuned path")
+
+    ids = torch.from_numpy(tuned[0][1]).to(device)
+    batch = pipe._batch(request)
+    eager_step = forced_scores(model, batch, ids, vocab, True)
+    check_forced(f"{name} attention kernel against the eager step", ids, vocab,
+                 forced_scores(model, batch, ids, vocab, True, attn_kernel=True), eager_step)
+    with env_flag("OPENVIIC_PALLAS"):
+        check_forced(f"{name} OPENVIIC_PALLAS=1 against the eager step", ids, vocab,
+                     forced_scores(model, batch, ids, vocab, True), eager_step)
+
+    counted = counted_wrappers()
+    for path, flag, searcher in (
+            ("(b) resident_kernel", None,
+             BeamSearcher(model, torch.bfloat16, head_kernel=1, resident_kernel=True)),
+            ("(c) non-resident, OPENVIIC_FUSED_STEP=1", "OPENVIIC_FUSED_STEP",
+             BeamSearcher(model, torch.bfloat16, beam_resident=False))):
+        for fn in counted:
+            fn.launches = 0
+        with env_flag(flag) if flag else contextlib.nullcontext():
+            try:
+                searcher(batch, FAMILY_BEAM)
+            except ValueError as exc:
+                if str(exc) != MOE_LAYER_KERNEL:
+                    raise
+            else:
+                raise AssertionError(f"{name} {path} ran on the MoE decoder")
+        launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
+        if launched:
+            raise AssertionError(f"{name} {path}: launches {launched} before the refusal")
+        per_path[path] = {}
+        log(f"  {name} {path} raises, as the JAX package fails there: {MOE_LAYER_KERNEL}")
+
+    cases = trained_kernel_cases(device, kept, what=f"{name} decode")
+
+    f32_same = None
+    if cuda:
+        few = request[:FAMILY_F32_IMAGES]
+
+        def f32_captions(dev):
+            return CaptioningPipeline.from_state_dict(
+                remainder_config(s, kernels=False), vocab, batch_size=len(few), use_bf16=False,
+                device=dev, seed=40).caption_features(few)
+        card_caps, cpu_caps = f32_captions(device), f32_captions("cpu")
+        f32_same = float(np.mean([a == b for a, b in zip(card_caps, cpu_caps)]))
+        log(f"  {name} f32 decode of {len(few)} images: captions identical on the card and "
+            f"its host's CPU {f32_same:.4f}")
+        if f32_same < FAMILY_F32_AGREEMENT_MIN:
+            raise AssertionError(f"{name} f32 card against CPU: {f32_same:.4f} identical < "
+                                 f"{FAMILY_F32_AGREEMENT_MIN}")
+    figures = dict(launches=per_path, f32_card_cpu_agreement=f32_same,
+                   captions_identical_tuned_eager=agreement(tuned, eager))
+    figures.update(remainder_probs_and_multi(pipe.searcher.shadow(model), [request, small]))
+    del pipe, model, eager_searcher, batch, ids
+    figures["xe"] = family_xe(device, s, name, vocab, card, remainder_config(s).MODEL)
+    figures["rdr"] = remainder_rdr()
+    figures["import"] = remainder_import(device, s, vocab, small, card)
+    launches = {fn.__name__: {path: counts.get(fn.__name__, 0)
+                              for path, counts in per_path.items()}
+                for fn in counted}
+    figures["seconds"] = time.perf_counter() - t0
+    log(f"  {name}: {figures['seconds']:.3f} s")
+    return dict(launches=launches, kernels=cases, figures=figures)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5107,7 +5482,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-16 at tiny widths on the CPU")
+                        help="rehearse phases 3-17 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     args = parser.parse_args()
@@ -5167,7 +5542,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-16.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-17.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -5211,6 +5586,7 @@ def all_phases(device, s, card: str):
     families = timed("region families", lambda: families_phase(device, s, card))
     two_stream = timed("two-stream families", lambda: two_stream_phase(device, s, card))
     rstnet = timed("RSTNet", lambda: rstnet_phase(device, s, card, loaded))
+    remainder = timed("single-card remainder", lambda: remainder_phase(device, s, card))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -5249,6 +5625,10 @@ def all_phases(device, s, card: str):
         e["rstnet"] = rstnet["launches"][e["name"]]
         e["rstnet_cases"] = rstnet["kernels"].get(e["name"], [])
     found[0]["rstnet_figures"] = rstnet["figures"]
+    for e in found:  # every kernel's launches on each remainder path, 0 where it does not run
+        e["remainder"] = remainder["launches"][e["name"]]
+        e["remainder_cases"] = remainder["kernels"].get(e["name"], [])
+    found[0]["remainder_figures"] = remainder["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -27,9 +27,6 @@ META_ARCHITECTURE.alias(
     "StandardStranformerUsingRegion", "StandardTransformerUsingRegion"
 )
 
-# The JAX package's classes still to port, by ROADMAP item.
-META_TEXT_EMBEDDING.not_ported("LSTMTextEmbedding", "5.7")
-
 
 def _ensure_registered() -> None:
     """Import the module zoo so registration decorators have run (lazy to

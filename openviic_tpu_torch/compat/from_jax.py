@@ -16,6 +16,14 @@ key format of ``params_f16.npz`` and of a Flax parameter tree flattened with
   ``bias``       -> ``bias``
   ``m_k``, ``m_v`` -> the same name (the augmented memory's raw slots,
                     (1, m, h * d), not transposed)
+  ``w1``, ``b1``, ``w2``, ``b2`` -> the same name (the MoE FFN's stacked
+                    experts, (E, in, out) and (E, out), not transposed;
+                    its ``router/kernel`` is a kernel like any other)
+
+``LSTMTextEmbedding``'s cell keeps Flax's ``OptimizedLSTMCell`` names:
+``lstm/cell/ii/kernel`` becomes ``lstm.cell.ii.weight`` (transposed), and
+so on for ``if``, ``ig``, ``io`` and the biased ``hi``, ``hf``, ``hg``,
+``ho``.
 
 The frozen language model's backbones keep their JAX names
 (``backbone/hf/encoder/layer/<i>/...`` becomes
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
-         "m_k": "m_k", "m_v": "m_v"}
+         "m_k": "m_k", "m_v": "m_v", "w1": "w1", "b1": "b1", "w2": "w2", "b2": "b2"}
 
 
 def torch_name(jax_key: str) -> Tuple[str, bool]:

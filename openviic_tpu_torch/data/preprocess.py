@@ -1,11 +1,12 @@
 """Host-side caption preprocessing: the port's copy of
-``openviic_tpu/data/preprocess.py``'s punctuation rules and its identity
-tokenizer.
+``openviic_tpu/data/preprocess.py``'s punctuation rules and tokenizers.
 
 The same punctuation-splitting regex rules in the same order, lowercasing
 and whitespace normalisation, so tokens (and vocab ids) come out the same.
-Only the ``None`` tokenizer is ported; the word segmenters (``pyvi``,
-``spacy``, ``vncorenlp``, ``rdr``) raise ``NotImplementedError``."""
+The tokenizers are ``None`` (identity), a callable and ``rdr``, the native
+word segmenter (``data/rdr_segmenter.py``); ``pyvi``, ``spacy`` and
+``vncorenlp`` are packages (the last also a Java server) and raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -40,7 +41,14 @@ def get_tokenizer(tokenizer: Union[None, str, Callable]) -> Callable[[str], str]
         return lambda s: s
     if callable(tokenizer):
         return tokenizer
-    raise NotImplementedError(f"tokenizer {tokenizer!r} is not ported yet")
+    if tokenizer == "rdr":
+        from openviic_tpu_torch.data.rdr_segmenter import RDRSegmenter
+
+        return RDRSegmenter.default().tokenize
+    if tokenizer in ("pyvi", "spacy", "vncorenlp"):
+        raise NotImplementedError(f"tokenizer {tokenizer!r} needs a package the port does "
+                                  "not use")
+    raise ValueError(f"Unknown tokenizer {tokenizer!r}")
 
 
 def preprocess_caption(caption: str, tokenizer: Union[None, str, Callable]) -> List[str]:

@@ -41,12 +41,16 @@ JAX package: its attentions take language signals, so every kernel flag
 turns off and the non-resident path runs.  ``language_table`` (its
 ``compute_language_table``) replaces the language model of every step by
 a row gather; it is cast to the decode's dtype with the rest of the
-cache.  ``return_probs`` and ``beam_search_multi`` are not ported."""
+cache.
+
+Each batch's decode is a ``_Stream`` (encoder and cache, then one
+``step`` a position, then ``finish``); ``beam_search`` runs one, and
+``beam_search_multi`` several in one interleaved loop."""
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -207,9 +211,10 @@ class ComputeShadow:
     step or ``load_state_dict`` bumps the version counter, so sampling after
     an update never reads the old weights.  An update that bypasses the
     counter (``torch.optim``'s ``fused=True`` kernels) is not seen.  The
-    copy is rebuilt when the master is replaced, moved or reshaped.
-    ``casts`` counts the rebuilds and refreshes.  The copy's fused weight
-    pack (``DecoderLayer.fused_weights``) follows its parameters."""
+    copy is rebuilt when the master is replaced, moved or reshaped; it
+    shares the master's vocab and config objects.  ``casts`` counts the
+    rebuilds and refreshes.  The copy's fused weight pack
+    (``DecoderLayer.fused_weights``) follows its parameters."""
 
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
@@ -231,7 +236,9 @@ class ComputeShadow:
                 for c, t in zip(copies, tensors):
                     c.copy_(t)
         else:
-            model = copy.deepcopy(master)
+            shared = {id(v): v for m in master.modules() for k, v in vars(m).items()
+                      if k in ("vocab", "config")}
+            model = copy.deepcopy(master, shared)
             for p in model.parameters():
                 p.grad = None
             self.model = model.to(self.dtype).requires_grad_(False)
@@ -255,107 +262,148 @@ def _beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                  out_size: int, early_exit: bool, compute_dtype, beam_resident: bool,
                  head_kernel, attn_kernel: bool, resident_kernel: bool,
                  dropout_seed: Optional[int] = None, shadow: Optional[ComputeShadow] = None,
-                 language_table: Optional[torch.Tensor] = None):
+                 language_table: Optional[torch.Tensor] = None, return_probs: bool = False):
     """``beam_search`` that also returns the number of decode steps run; it
     decodes ``_running_model(model, compute_dtype, shadow)``.  With
     ``dropout_seed`` that model runs in train mode, the encoder on the
     stream ``fold_in(seed, max_len)`` and step t on ``fold_in(seed, t)``
     (the JAX package's folds), inside a fork of the CPU and the device's
     RNG; its mode is restored after."""
+    _check_out_size(out_size, beam_size)
     model = _running_model(model, compute_dtype, shadow)
     device = next(model.parameters()).device
     was_training = model.training
     model.train(dropout_seed is not None)
+
+    def decode(stream):
+        decoder = _Stream(model, batch, beam_size, beam_resident, head_kernel, attn_kernel,
+                          resident_kernel, stream, language_table, return_probs)
+        steps = _run([decoder], early_exit)
+        return decoder.finish(out_size) + (steps,)
+
     try:
         if dropout_seed is None:
-            return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
-                           head_kernel, attn_kernel, resident_kernel, None, language_table)
+            return decode(None)
         with rng.fork(device):
-            return _decode(model, batch, beam_size, out_size, early_exit, beam_resident,
-                           head_kernel, attn_kernel, resident_kernel,
-                           lambda i: rng.reseed(rng.fold_in(dropout_seed, i), device),
-                           language_table)
+            return decode(lambda i: rng.reseed(rng.fold_in(dropout_seed, i), device))
     finally:
         model.train(was_training)
 
 
-def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_kernel,
-            attn_kernel, resident_kernel, stream, language_table=None):
-    """The decode loop; ``stream(i)`` (when given) seeds the dropout of the
-    encoder (i = max_len) and of step i."""
-    if resident_kernel or head_kernel or attn_kernel:
-        beam_resident = True  # the kernels implement the beam-resident math
-    if beam_resident and not _supports_beam_resident(model):
-        beam_resident = resident_kernel = head_kernel = attn_kernel = False
+def _check_out_size(out_size: int, beam_size: int) -> None:
     if not 1 <= out_size <= beam_size:
         raise ValueError(f"out_size {out_size} must lie in [1, beam_size={beam_size}]")
-    param = next(model.parameters())
-    device, dtype = param.device, param.dtype
-    # every floating input runs in the compute dtype, as in the JAX package
-    # (beam_search.py:317-321): the ORT's pixel boxes round to bf16 too
-    batch = {
-        key: value.to(device=device, dtype=dtype if value.is_floating_point() else None)
-        for key, value in batch.items()
-    }
 
-    vocab = model.vocab
-    max_len = vocab.max_caption_length
-    eos_idx, bos_idx = vocab.eos_idx, vocab.bos_idx
-    vocab_size = len(vocab)
 
-    # 1) encode once at batch size; beam-resident decode keeps the cross
-    # K/V at image granularity, the default path expands them to beams
-    if stream is not None:
-        stream(max_len)  # never a step's index
-    memory, memory_mask = model.encoder_forward(batch)
-    b_s = memory.shape[0]
-    if not beam_resident:
-        memory = _expand_to_beams(memory, beam_size)
-        memory_mask = _expand_to_beams(memory_mask, beam_size)
-    n_rows = b_s * beam_size
-    cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype, device=device)
-    cache = model.prepare_cache(cache, memory)
-    if language_table is not None:
-        cache["language_table"] = language_table.to(device=device, dtype=dtype)
-
-    f32 = dict(dtype=torch.float32, device=device)
-    seq_logprob = torch.full((b_s, beam_size), -1e18, **f32)
-    seq_logprob[:, 0] = 0.0
-    seq_mask = torch.ones((b_s, beam_size), **f32)
-    selected_words = torch.full((n_rows, 1), bos_idx, dtype=torch.long, device=device)
-    outputs = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
-    log_probs = torch.zeros((b_s, beam_size, max_len), **f32)
-    ancestry = None
-    if beam_resident:
-        ancestry = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
-    own_slot = torch.arange(beam_size, device=device)[None, :]
-    not_first = torch.arange(vocab_size, device=device) >= 1
-    head_weight = model.decoder.fc.weight
-
-    steps = 0
+def _run(streams, early_exit: bool) -> int:
+    """Step every stream in turn at each t until max_len, or (with
+    ``early_exit``) until no beam of any stream is alive at t >= 2, which
+    changes no observable output; returns the steps run."""
+    max_len = streams[0].max_len
     for t in range(max_len):
-        if early_exit and t >= 2 and not bool((seq_mask > 0).any()):
-            break
-        if beam_resident:
-            # position t of every current beam lives at its own slot
-            ancestry[:, :, t] = own_slot
+        if early_exit and t >= 2 and not any(s.alive() for s in streams):
+            return t
+        for s in streams:
+            s.step(t)
+    return max_len
+
+
+class _Stream:
+    """The decode of one batch, step by step: the encoder and the cache at
+    construction, ``step(t)`` for each step, ``finish`` for the sorted
+    outputs.  ``stream(i)`` (when given) seeds the dropout of the encoder
+    (i = max_len) and of step i.  With ``return_probs`` every step
+    selects through full distributions (fast select and the head kernel
+    off, as in the JAX package) and keeps them."""
+
+    def __init__(self, model, batch, beam_size, beam_resident, head_kernel, attn_kernel,
+                 resident_kernel, stream=None, language_table=None, return_probs=False):
+        if resident_kernel or head_kernel or attn_kernel:
+            beam_resident = True  # the kernels implement the beam-resident math
+        if beam_resident and not _supports_beam_resident(model):
+            beam_resident = resident_kernel = head_kernel = attn_kernel = False
+        # the full distributions: the fused selections never materialise them
+        self.fast_select = beam_resident and not return_probs
+        self.head_kernel = bool(head_kernel) and self.fast_select
+        self.model, self.beam_size, self.beam_resident = model, beam_size, beam_resident
+        self.attn_kernel, self.resident_kernel, self.stream = attn_kernel, resident_kernel, stream
+        param = next(model.parameters())
+        device, dtype = param.device, param.dtype
+        # every floating input runs in the compute dtype, as in the JAX package
+        # (beam_search.py:317-321): the ORT's pixel boxes round to bf16 too
+        batch = {
+            key: value.to(device=device, dtype=dtype if value.is_floating_point() else None)
+            for key, value in batch.items()
+        }
+
+        vocab = model.vocab
+        self.max_len = max_len = vocab.max_caption_length
+        self.eos_idx, self.vocab_size = vocab.eos_idx, len(vocab)
+
+        # 1) encode once at batch size; beam-resident decode keeps the cross
+        # K/V at image granularity, the default path expands them to beams
         if stream is not None:
-            stream(t)
-        head, cache = model.decode_step(
-            t, selected_words, cache, memory_mask, ancestry=ancestry,
-            beam_select=beam_size if beam_resident else None,
-            # beam-resident decode selects through raw logits + logsumexp
-            raw_head="hidden" if head_kernel else beam_resident,
-            resident_kernel=resident_kernel, attn_kernel=attn_kernel,
+            stream(max_len)  # never a step's index
+        memory, memory_mask = model.encoder_forward(batch)
+        self.b_s = b_s = memory.shape[0]
+        if not beam_resident:
+            memory = _expand_to_beams(memory, beam_size)
+            memory_mask = _expand_to_beams(memory_mask, beam_size)
+        self.memory_mask = memory_mask
+        n_rows = b_s * beam_size
+        cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype,
+                                  device=device)
+        self.cache = model.prepare_cache(cache, memory)
+        if language_table is not None:
+            self.cache["language_table"] = language_table.to(device=device, dtype=dtype)
+
+        f32 = dict(dtype=torch.float32, device=device)
+        self.seq_logprob = torch.full((b_s, beam_size), -1e18, **f32)
+        self.seq_logprob[:, 0] = 0.0
+        self.seq_mask = torch.ones((b_s, beam_size), **f32)
+        self.selected_words = torch.full((n_rows, 1), vocab.bos_idx, dtype=torch.long,
+                                         device=device)
+        self.outputs = torch.zeros((b_s, beam_size, max_len), dtype=torch.long, device=device)
+        self.log_probs = torch.zeros((b_s, beam_size, max_len), **f32)
+        # each step's eos-masked distributions, never re-gathered on later
+        # reorders, only sorted at the end (the reference's, beam_search.py:68-72)
+        self.all_log_probs = (torch.zeros((b_s, beam_size, max_len, self.vocab_size), **f32)
+                              if return_probs else None)
+        self.ancestry = None
+        if beam_resident:
+            self.ancestry = torch.zeros((b_s, beam_size, max_len), dtype=torch.long,
+                                        device=device)
+        self.own_slot = torch.arange(beam_size, device=device)[None, :]
+        self.not_first = torch.arange(self.vocab_size, device=device) >= 1
+
+    def alive(self) -> bool:
+        return bool((self.seq_mask > 0).any())
+
+    def step(self, t: int) -> None:
+        model, b_s, beam_size = self.model, self.b_s, self.beam_size
+        device = self.seq_mask.device
+        if self.beam_resident:
+            # position t of every current beam lives at its own slot
+            self.ancestry[:, :, t] = self.own_slot
+        if self.stream is not None:
+            self.stream(t)
+        head, self.cache = model.decode_step(
+            t, self.selected_words, self.cache, self.memory_mask, ancestry=self.ancestry,
+            beam_select=beam_size if self.beam_resident else None,
+            # fast select goes through raw logits + logsumexp
+            raw_head="hidden" if self.head_kernel else self.fast_select,
+            resident_kernel=self.resident_kernel, attn_kernel=self.attn_kernel,
         )
-        prev_words = selected_words.reshape(b_s, beam_size)
+        seq_logprob, seq_mask = self.seq_logprob, self.seq_mask
+        prev_words = self.selected_words.reshape(b_s, beam_size)
         if t > 0:
-            seq_mask = seq_mask * (prev_words != eos_idx).float()
+            seq_mask = seq_mask * (prev_words != self.eos_idx).float()
             finished = seq_mask == 0.0
         else:
             finished = torch.zeros((b_s, beam_size), dtype=torch.bool, device=device)
-        if beam_resident:
-            if head_kernel:
+        if self.fast_select:
+            if self.head_kernel:
+                head_weight = model.decoder.fc.weight
                 vals, idxs, lse_rows = head_topk(
                     head.to(torch.bfloat16).contiguous(),
                     head_weight.to(torch.bfloat16).contiguous(),
@@ -371,7 +419,7 @@ def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_k
                 logits, lse = head
                 lse = lse.reshape(b_s, beam_size)
                 selected = _select_topk_hier(
-                    logits.reshape(b_s, beam_size, vocab_size), seq_logprob - lse,
+                    logits.reshape(b_s, beam_size, self.vocab_size), seq_logprob - lse,
                     finished, seq_logprob, beam_size,
                 )
             selected_logprob, selected_beam, words, selected_logit = selected
@@ -384,39 +432,46 @@ def _decode(model, batch, beam_size, out_size, early_exit, beam_resident, head_k
             # full distributions with the reference's -999 continuation:
             # a finished beam keeps word 0 at its frozen log-prob, every
             # other word at -999, and adds a zero word log-prob
-            word_logprob = head.float().reshape(b_s, beam_size, vocab_size)
+            word_logprob = head.float().reshape(b_s, beam_size, self.vocab_size)
             candidate = seq_logprob[..., None] + word_logprob
             if t > 0:
                 live = seq_mask[..., None]
                 word_logprob = word_logprob * live
-                old = torch.where(not_first, -999.0, seq_logprob[..., None])
+                old = torch.where(self.not_first, -999.0, seq_logprob[..., None])
                 candidate = live * candidate + old * (1.0 - live)
             selected_logprob, selected_beam, words = _select_topk(candidate, beam_size)
             this_word_logprob = torch.gather(
                 _gather_beams(word_logprob, selected_beam), 2, words[..., None]
             )[..., 0]
+            if self.all_log_probs is not None:
+                self.all_log_probs[:, :, t] = word_logprob
 
-        if beam_resident:
+        if self.beam_resident:
             # reorder the small per-beam state; the caches stay put
-            ancestry = _gather_beams(ancestry, selected_beam)
+            self.ancestry = _gather_beams(self.ancestry, selected_beam)
         else:
-            cache = _reorder_cache(cache, selected_beam)
-        seq_mask = _gather_beams(seq_mask, selected_beam)
-        outputs = _gather_beams(outputs, selected_beam)
-        outputs[:, :, t] = words
-        log_probs = _gather_beams(log_probs, selected_beam)
-        log_probs[:, :, t] = this_word_logprob
-        seq_logprob = selected_logprob
-        selected_words = words.reshape(n_rows, 1)
-        steps += 1
+            self.cache = _reorder_cache(self.cache, selected_beam)
+        self.seq_mask = _gather_beams(seq_mask, selected_beam)
+        self.outputs = _gather_beams(self.outputs, selected_beam)
+        self.outputs[:, :, t] = words
+        self.log_probs = _gather_beams(self.log_probs, selected_beam)
+        self.log_probs[:, :, t] = this_word_logprob
+        self.seq_logprob = selected_logprob
+        self.selected_words = words.reshape(b_s * beam_size, 1)
 
-    # sort beams by final sequence log-prob (stable: ties keep beam order)
-    sort_idxs = torch.argsort(-seq_logprob, dim=1, stable=True)
-    outputs = _gather_beams(outputs, sort_idxs)[:, :out_size]
-    log_probs = _gather_beams(log_probs, sort_idxs)[:, :out_size]
-    if out_size == 1:
-        outputs, log_probs = outputs[:, 0], log_probs[:, 0]
-    return outputs, log_probs, steps
+    def finish(self, out_size: int):
+        """(outputs, log_probs) sorted by the final sequence log-prob
+        (stable: ties keep beam order), cut to ``out_size`` beams and
+        squeezed at 1; with ``return_probs`` also the kept distributions
+        (bs, beam, max_len, vocab), sorted alike, uncut."""
+        sort_idxs = torch.argsort(-self.seq_logprob, dim=1, stable=True)
+        outputs = _gather_beams(self.outputs, sort_idxs)[:, :out_size]
+        log_probs = _gather_beams(self.log_probs, sort_idxs)[:, :out_size]
+        if out_size == 1:
+            outputs, log_probs = outputs[:, 0], log_probs[:, 0]
+        if self.all_log_probs is None:
+            return outputs, log_probs
+        return outputs, log_probs, _gather_beams(self.all_log_probs, sort_idxs)
 
 
 def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
@@ -424,8 +479,10 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
                 compute_dtype: Optional[torch.dtype] = None,
                 beam_resident: bool = True, head_kernel=False,
                 attn_kernel: bool = False, resident_kernel: bool = False,
-                train_dropout_rng=None, language_table: Optional[torch.Tensor] = None):
-    """Run batched beam search; returns (outputs, log_probs).
+                train_dropout_rng=None, language_table: Optional[torch.Tensor] = None,
+                return_probs: bool = False):
+    """Run batched beam search; returns (outputs, log_probs), and with
+    ``return_probs`` a third output (see below).
 
     outputs: (bs, out_size, max_len) int64 token ids, log_probs: the
     per-step word log-probs (f32) likewise, both squeezed to (bs, max_len)
@@ -453,13 +510,46 @@ def beam_search(model, batch: Dict[str, torch.Tensor], beam_size: int,
     ``OPENVIIC_FUSED_STEP=1`` runs each layer of the non-resident path
     through ops/fused_decoder_step.py.  Each kernel runs its plain version
     on the CPU and the CUDA kernel on a card.  ``language_table`` serves the
-    adaptive decoder (see the module's docstring)."""
+    adaptive decoder (see the module's docstring).
+
+    ``return_probs`` (the JAX flag) selects through the full per-step
+    distributions, fast select and the head kernel off (the other flags
+    stay), and returns them as a third output, (bs, beam_size, max_len,
+    vocab) f32: at step t each slot's eos-masked word log-probs, in the
+    slot order of step t (not re-gathered on later reorders, as in the
+    reference), the slots sorted at the end with the beams, all of them
+    whatever ``out_size``; zero past an early exit."""
     seed = None if train_dropout_rng is None else rng.seed_of(train_dropout_rng)
-    outputs, log_probs, _ = _beam_search(
+    *outputs, _ = _beam_search(
         model, batch, beam_size, out_size, early_exit, compute_dtype, beam_resident,
         head_kernel, attn_kernel, resident_kernel, seed, language_table=language_table,
+        return_probs=return_probs,
     )
-    return outputs, log_probs
+    return tuple(outputs)
+
+
+@torch.no_grad()
+def beam_search_multi(model, batches, beam_size: int, out_size: int = 1,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      beam_resident: bool = True) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Decode several batches in one loop (the JAX ``beam_search_multi``):
+    at each step every batch's step runs in turn, and the loop ends when
+    no beam of any batch is alive (t >= 2).  A batch whose beams have
+    all finished steps on as a no-op, so each batch's (outputs, log_probs)
+    equal ``beam_search`` of it alone with the same flags.  The JAX
+    function fuses the batches into one while loop for XLA to interleave;
+    on the card this is the plain interleaved loop."""
+    _check_out_size(out_size, beam_size)
+    model = _running_model(model, compute_dtype, None)
+    was_training = model.training
+    model.eval()
+    try:
+        streams = [_Stream(model, batch, beam_size, beam_resident, False, False, False)
+                   for batch in batches]
+        _run(streams, early_exit=True)
+        return [s.finish(out_size) for s in streams]
+    finally:
+        model.train(was_training)
 
 
 # The head kernel's win region on the H100, measured by chip_smoke.py's

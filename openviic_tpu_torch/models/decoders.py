@@ -19,6 +19,9 @@ and ``OPENVIIC_FUSED_STEP=1`` on the non-resident path
 (``ops.fused_layer_step``); both read the layer's weight pack
 (``DecoderLayer.fused_weights``), built once per dtype.  Neither runs a
 layer with the Attention-on-Attention gate, which they do not implement.
+A layer whose FFN is the Switch MoE passes the same gates, as in the JAX
+package, whose weight pack then fails; the port raises ``ValueError``
+there (``MOE_LAYER_KERNEL``).
 
 The Meshed-Memory decoder's layers cross-attend each of the encoder's N
 levels (memory (bs, N, n, d)) with one shared ``enc_attn`` and fuse them
@@ -50,7 +53,7 @@ from openviic_tpu_torch.builders import (
     build_text_embedding,
 )
 from openviic_tpu_torch.models.attention import MultiHeadAttention
-from openviic_tpu_torch.models.ffn import make_pwff
+from openviic_tpu_torch.models.ffn import MoEPositionWiseFeedForward, make_pwff
 from openviic_tpu_torch.models.initializers import TorchLinear, XavierLinear
 from openviic_tpu_torch.models.masks import (
     generate_padding_mask,
@@ -61,6 +64,14 @@ from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step, fused_st
 from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
 
 DecodeCache = Dict[str, Any]
+
+# the JAX package's failure that both whole-layer kernels meet on a layer
+# whose FFN is the Switch MoE (its gates let the layer in)
+MOE_LAYER_KERNEL = (
+    "resident_kernel and OPENVIIC_FUSED_STEP=1 do not run a decoder layer whose FFN is the "
+    "Switch MoE: in the JAX package both gates let it in and the weight pack fails "
+    "(AttributeError: \"MoEPositionWiseFeedForward\" object has no attribute \"fc1\", "
+    "openviic_tpu/models/decoders.py:183)")
 
 
 # the per-query attention inputs a decoder may thread through its layers'
@@ -197,7 +208,10 @@ class DecoderLayer(nn.Module):
         """The whole-layer kernels' weight dict (the JAX ``_fused_weights``:
         (in, out) kernels, q | k | v concatenated), in ``dtype``, contiguous.
         Built once and kept until a parameter is replaced or changed in
-        place (checked by data pointer and version counter)."""
+        place (checked by data pointer and version counter).  A MoE FFN,
+        which the kernels do not implement, raises ``MOE_LAYER_KERNEL``."""
+        if isinstance(self.pwff, MoEPositionWiseFeedForward):
+            raise ValueError(MOE_LAYER_KERNEL)
         params = tuple(self.parameters())
         key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
         cached = getattr(self, "_fused_pack", None)

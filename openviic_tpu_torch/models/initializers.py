@@ -19,7 +19,10 @@ JAX package builds them from: the transformers Flax encoders' normal(0,
 ``NormalEmbedding``), and for the stand-in mini backbone Flax's default
 Dense kernel, lecun-normal (a normal truncated at two standard deviations,
 rescaled to variance 1 / fan_in; ``LecunLinear``) with zero biases, and
-``torch_embedding_init``'s N(0, 1) embeddings."""
+``torch_embedding_init``'s N(0, 1) embeddings.  ``LSTMTextEmbedding``'s
+cell keeps Flax's ``OptimizedLSTMCell`` schemes: lecun-normal input
+kernels, orthogonal recurrent kernels (``OrthogonalLinear``), zero
+biases."""
 
 from __future__ import annotations
 
@@ -102,6 +105,16 @@ class LecunLinear(_DeferredInit, nn.Linear):
     def reset_with(self, generator: torch.Generator) -> None:
         std = math.sqrt(1.0 / self.in_features) / 0.87962566103423978
         nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
+class OrthogonalLinear(_DeferredInit, nn.Linear):
+    """An orthogonal weight, zero bias (Flax's ``initializers.orthogonal()``
+    and ``zeros_init()``, the recurrent kernels of ``OptimizedLSTMCell``)."""
+
+    def reset_with(self, generator: torch.Generator) -> None:
+        nn.init.orthogonal_(self.weight, generator=generator)
         if self.bias is not None:
             self.bias.zero_()
 

@@ -45,33 +45,43 @@ _lib_path: Optional[Path] = None
 _tried = False
 
 
-def built_path() -> Path:
-    """Where the port's own build of ``SOURCE`` goes."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def shared_path(source: Path, stem: str, build_dir: Path) -> Path:
+    """Where the port's own build of ``source`` goes: ``build_dir`` /
+    ``<stem>-<hash of the source and the flags>.so``."""
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"openviic_native-{digest.hexdigest()[:16]}.so"
+    return build_dir / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _build() -> Optional[Path]:
-    """Compile ``SOURCE`` into ``built_path()`` unless it is there; None
+def build_shared(source: Path, stem: str, build_dir: Path) -> Optional[Path]:
+    """Compile ``source`` into ``shared_path(...)`` unless it is there; None
     when there is no source or no compiler, or the compile fails."""
-    out = built_path() if SOURCE.is_file() else None
+    out = shared_path(source, stem, build_dir) if source.is_file() else None
     if out is None or out.exists():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
-        logger.warning("native scorers: no g++ to build %s", SOURCE)
+        logger.warning("native: no g++ to build %s", source)
         return None
-    BUILD_DIR.mkdir(exist_ok=True)
+    build_dir.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=GXX_TIMEOUT_S)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        logger.warning("native scorers: g++ failed on %s:\n%s", SOURCE, proc.stderr[-2000:])
+        logger.warning("native: g++ failed on %s:\n%s", source, proc.stderr[-2000:])
         return None
     os.replace(tmp, out)  # atomic: concurrent builds leave one whole library
     return out
+
+
+def built_path() -> Path:
+    """Where the port's own build of ``SOURCE`` goes."""
+    return shared_path(SOURCE, "openviic_native", BUILD_DIR)
+
+
+def _build() -> Optional[Path]:
+    return build_shared(SOURCE, "openviic_native", BUILD_DIR)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
