@@ -230,21 +230,48 @@ On the card it runs these phases, each printing its seconds:
    ``import_reference_checkpoint`` into a temporary directory and
    captioned from there: captions equal to the same weights loaded
    directly;
-18. the last line: ``{"ok": true, "device": {...}}``.
+18. data parallel across processes (``data_parallel_phase``): (a)
+   ``openviic_tpu_torch/parallel/dryrun.py`` at the flagship's widths
+   (random weights from a seed, f32, dropout 0, Adam with the Noam
+   schedule) over a global batch of 60 for 6 steps: two ranks on the card
+   over gloo (losses within 1e-5 of one process on the same global
+   batches, parameters bit-equal across ranks, the rank-0 checkpoint of
+   step 3 resumed bit-identically on every rank), then one rank over NCCL
+   on the dry run's default device (``cuda:<LOCAL_RANK>``) in this
+   process, its losses and parameters bit-equal to one process;
+   each run's ms a step and the gradient all-reduce's ms and MiB a step;
+   (b) ``BaseTrainer`` across two rank processes on the card over gloo
+   (NCCL refuses two ranks on one device) on phase 13's data, weights and
+   TRAINING keys with ``DATASET.LOADER: grain``, MAX_REGIONS 40 and 30
+   captions a rank a step (SCST: 15 images a rank an iteration, 3
+   iterations an epoch): XE, the switch, one SCST epoch and the test
+   predictions; every rank exits 0 in time, the ranks take the same
+   decisions on scores that agree with rank 0's, head_topk launches once a
+   decode step and beam_select_attention once a layer and step in each
+   rank, rank 0 alone writes the checkpoints, ``metrics.jsonl`` and
+   ``test_results.json``, and both kernels are held against their plain
+   versions on rank 0's inputs captured from its first val decode, first
+   test prediction and second SCST iteration; each rank's epoch seconds;
+   (c) ``CaptioningPipeline(mesh="auto")`` (bf16, head kernel forced,
+   attention kernel on; its launches) and ``mesh=[the card, the card]``
+   at f32 each give captions bit-equal to the pipeline without a mesh;
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families, two-stream, RSTNet and remainder phases, 0
-where a kernel does not run); the line before that is
+and cases in the families, two-stream, RSTNet, remainder and data-parallel
+phases, 0 where a kernel does not run); the line before that is
 the card's name and power limit.  Any failure raises, and the script
-exits non-zero without those lines.  ``--cpu`` runs phases 3-17 at tiny
+exits non-zero without those lines.  ``--cpu`` runs phases 3-18 at tiny
 widths with the plain versions on the CPU (the artifact's first image;
 the serving cell at batch 8, 8 requests from 2 clients; XE,
 SCST and the trainer at tiny widths; the families, RSTNet and the
 remainder on 2 images and 6 steps, RSTNet's trainer on 4 images whose
-references are cut to 6 words) and ends with ``cpu rehearsal ok`` instead.
-The script writes nothing outside ``openviic_tpu_torch/_build/`` but the
-serving, trainer, RDR and import phases' temporary directories, which it
+references are cut to 6 words; of phase 18 the dry run's one rank over gloo
+in this process, bit-equal to no group, and serving over ``["cpu",
+"cpu"]``) and ends with ``cpu rehearsal ok`` instead.  The script writes
+nothing outside ``openviic_tpu_torch/_build/`` but the serving, trainer,
+RDR, import and data-parallel phases' temporary directories, which it
 deletes.
 """
 
@@ -5369,6 +5396,339 @@ def remainder_phase(device, s, card: str):
     return dict(launches=launches, kernels=cases, figures=figures)
 
 
+# ---------------------------------------------------------------- phase 18
+DP_DRYRUN = dict(global_batch=XE_BATCH, steps=6, save_at=3)  # 30 rows a rank over two
+DP_REHEARSAL = dict(global_batch=2, steps=2, save_at=1)
+DP_RANKS = 2  # two ranks on the one card, over gloo (NCCL refuses two ranks a device)
+DP_TRAINER_BATCH = 30  # FEATURE_BATCH_SIZE, each rank's share of phase 13's 60
+DP_TRAINER_DICT = 75  # DICT_BATCH_SIZE: 15 images a rank an SCST iteration at beam 5
+DP_TRAINER_EPOCHS = 2  # XE, the switch (PATIENCE 0), one SCST epoch
+DP_TRAINER_REGIONS = 40  # MAX_REGIONS: the artifact's most regions, pinned on every rank
+DP_RANK_TIMEOUT = 600
+
+
+def dryrun_options(s, cuda: bool, nprocs: int, backend: str, exact: bool = False):
+    """``parallel/dryrun.py``'s options at ``s``'s widths: over NCCL its
+    default device (``cuda:<LOCAL_RANK>``), over gloo every rank on the
+    card (the rehearsal: on the CPU, in this process)."""
+    from openviic_tpu_torch.parallel import dryrun
+
+    run = DP_DRYRUN if cuda else DP_REHEARSAL
+    device = ("cuda" if backend == "nccl" else "cuda:0") if cuda else "cpu"
+    argv = ["--nprocs", str(nprocs), "--backend", backend, "--device", device, "--d-model", str(s["d_model"]), "--heads",
+            str(s["heads"]), "--layers", str(s["layers"]), "--d-ff", str(s["d_ff"]),
+            "--d-feature", str(s["d_feature"]), "--regions", str(s["n_regions"]), "--vocab",
+            str(s["vocab"]), "--max-len", str(s["max_len"]), "--global-batch",
+            str(run["global_batch"]), "--steps", str(run["steps"]), "--save-at",
+            str(run["save_at"]), "--warmup", str(XE_WARMUP), "--timeout", str(DP_RANK_TIMEOUT)]
+    if nprocs == 1:
+        argv.append("--in-process")
+    if exact:
+        argv.append("--exact")
+    return dryrun.parse(argv)
+
+
+def dp_dryrun_part(device, s, card: str) -> dict:
+    """(a) The dry run at ``s``'s widths, f32, dropout 0, global batch
+    DP_DRYRUN's: two ranks over gloo on the card (their losses within 1e-5
+    of one process on the same global batches, parameters bit-equal across
+    ranks, the rank-0 checkpoint's resume bit-identical on every rank), then
+    one rank over NCCL in this process, bit-equal to one process.  The
+    rehearsal runs the second over gloo on the CPU.  Each run's ms a step
+    (the median past the first) and the all-reduce's ms and MiB a step."""
+    from openviic_tpu_torch.parallel import dryrun
+
+    cuda = device.type == "cuda"
+    runs = {}
+    if cuda:
+        runs["gloo_2"] = dryrun.run(dryrun_options(s, True, DP_RANKS, "gloo"))
+    runs["nccl_1" if cuda else "gloo_1"] = dryrun.run(
+        dryrun_options(s, cuda, 1, "nccl" if cuda else "gloo", exact=True))
+    for name, r in runs.items():
+        log(f"  dry run {name} ({r['nprocs']} rank(s) over {r['backend']} on {r['device']}, "
+            f"global batch {(DP_DRYRUN if cuda else DP_REHEARSAL)['global_batch']}): losses "
+            f"{[round(x, 6) for x in r['losses']]}, one process's relative gap "
+            f"{r['loss_rel_gap']:.3g}; ms a step: one process {r['single_ms']:.2f}, the ranks "
+            f"{[round(x, 2) for x in r['ranks_ms']]}; gradient all-reduce "
+            f"{[round(x, 2) for x in r['allreduce_ms']]} ms and "
+            f"{r['allreduce_mib_per_step']:.2f} MiB a step on {card}")
+    return runs
+
+
+def dp_trainer_config(data: str, checkpoint_path: str):
+    """Phase 13's trainer config with the data-parallel keys: the grain
+    loader, pinned regions, each rank's batch."""
+    cfg = trainer_config(data, checkpoint_path, FLAGSHIP, True, TRAINER_LOG_EVERY).to_dict()
+    cfg["DATASET"].update(LOADER="grain", MAX_REGIONS=DP_TRAINER_REGIONS,
+                          FEATURE_BATCH_SIZE=DP_TRAINER_BATCH, DICT_BATCH_SIZE=DP_TRAINER_DICT)
+    from openviic_tpu_torch.config import ConfigNode
+
+    return ConfigNode(cfg)
+
+
+def dp_trainer_rank(device, root: str) -> None:
+    """One rank of part (b), in a process of its own (``--dp-trainer-rank``,
+    torchrun's variables set by the parent): ``BaseTrainer`` over gloo on
+    ``root``'s dataset with the artifact's weights, DP_TRAINER_EPOCHS
+    epochs and the test predictions; its result in ``root/rank<r>.json``:
+    phases, decisions, whether its scores agreed with rank 0's, each
+    epoch's seconds, the files it wrote, the kernels' launches against the
+    decode steps, and on rank 0 the kernels on their captured inputs
+    against their plain versions."""
+    import builtins
+
+    from openviic_tpu_torch.artifact import load_trained_artifact
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.parallel import runtime
+    from openviic_tpu_torch.training import checkpoint as ckpt
+    from openviic_tpu_torch.training import trainer as trainer_module
+    from openviic_tpu_torch.utils import setup_logger
+
+    runtime.initialize_distributed(device, backend="gloo")
+    rank = runtime.process_index()
+    setup_logger().setLevel(logging.WARNING)
+    writes = {"files": {}, "saves": 0, "copies": 0}
+
+    def counted_open(path, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+"):
+            name = os.path.basename(path)
+            writes["files"][name] = writes["files"].get(name, 0) + 1
+        return builtins.open(path, mode, *args, **kwargs)
+
+    save, copy = ckpt.NativeBackend.save_checkpoint, ckpt.NativeBackend.copy
+
+    def counted(key, fn):
+        def run(*args, **kwargs):
+            writes[key] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    trainer_module.open = counted_open
+    ckpt.NativeBackend.save_checkpoint = counted("saves", save)
+    ckpt.NativeBackend.copy = counted("copies", copy)
+    try:
+        loaded = load_trained_artifact(device="cpu")
+        tr = build_trainer(dp_trainer_config(os.path.join(root, "data"),
+                                             os.path.join(root, "run")), device=device)
+        tr.model.load_state_dict(loaded["state_dict"])
+        n_layers = len(tr.model.decoder.layers)
+        captured = {}
+        capture = (trainer_captures(True, n_layers, captured) if rank == 0
+                   else (lambda label: contextlib.nullcontext()))
+        rec, iterations, decisions, agreed = {"epochs": {}}, [], [], []
+        clock_trainer(tr, device, rec, capture)
+        clocked_save = tr.save_checkpoint
+
+        def save_checkpoint(extras):
+            decisions.append({"epoch": tr.epoch, **extras})
+            agreed.append(tr.scores_agreed)
+            return clocked_save(extras)
+
+        tr.save_checkpoint = save_checkpoint
+        kernels = counted_wrappers()
+        for fn in kernels:
+            fn.launches = 0
+        steps0 = tr.beam_searcher.steps
+        with clocked_trainer_module(device, tr, rec, iterations, capture):
+            tr.start(max_epochs=DP_TRAINER_EPOCHS)
+        t0 = time.perf_counter()
+        tr.get_predictions()
+        sync(device)
+        predictions_s = time.perf_counter() - t0
+        steps = tr.beam_searcher.steps - steps0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        runtime.barrier("dp_trainer_done")  # rank 0 times its cases with the card to itself
+        cases = {}
+        for what, kept in captured.items():
+            for kernel, rows in trained_kernel_cases(device, kept, what).items():
+                cases.setdefault(kernel, []).extend(
+                    dict(r, case=f"{what} {r['case']}") for r in rows)
+        result = {"rank": rank, "phases": [r.get("phase") for _, r in
+                                           sorted(rec["epochs"].items())],
+                  "decisions": decisions, "agreed": agreed, "steps": steps,
+                  "n_layers": n_layers, "launches": launches, "writes": writes,
+                  "metrics_file": tr.metrics._file.name, "captured": sorted(captured),
+                  "epochs": {str(e): r for e, r in rec["epochs"].items()},
+                  "scst_iterations": len(iterations), "predictions_s": predictions_s,
+                  "test_results": os.path.isfile(os.path.join(tr.checkpoint_path,
+                                                              "test_results.json")),
+                  "kernels": cases}
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        runtime.shutdown()
+
+
+def dp_trainer_part(device, s, card: str, loaded) -> dict:
+    """(b) ``BaseTrainer`` across DP_RANKS processes on the card over gloo,
+    on phase 13's data (the artifact's images 90 / 30 / 30, its vocab
+    copied into the run directory and its weights, the tuned twin's
+    TRAINING keys, PATIENCE 0) with ``LOADER: grain``, MAX_REGIONS pinned,
+    FEATURE_BATCH_SIZE DP_TRAINER_BATCH a rank and DICT_BATCH_SIZE
+    DP_TRAINER_DICT: XE, the switch, one SCST epoch and the test
+    predictions (``dp_trainer_rank``).  Every rank must exit 0 within
+    DP_RANK_TIMEOUT (a rank that hangs is killed and the phase fails),
+    take the same phases and decisions with scores that agree with rank
+    0's, launch head_topk once a decode step and beam_select_attention once
+    a layer and step; rank 0 alone writes the checkpoints,
+    ``metrics.jsonl`` and ``test_results.json`` (the vocab is the
+    artifact's, written by none); both kernels are held against their
+    plain versions on rank 0's captured inputs.  Prints each rank's epoch
+    seconds."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.parallel import dryrun
+
+    tmp = tempfile.mkdtemp(prefix="openviic_dp_trainer_")
+    try:
+        counts = trainer_dataset(os.path.join(tmp, "data"), loaded, TRAINER_SPLIT)
+        run_dir = os.path.join(tmp, "run", TRAINER_NAME)
+        os.makedirs(run_dir)
+        shutil.copyfile(artifact.ARTIFACT_DIR / "vocab.bin", os.path.join(run_dir, "vocab.bin"))
+        dryrun.wait(dryrun.start([os.path.abspath(__file__), "--dp-trainer-rank", tmp],
+                                 DP_RANKS, tmp), tmp, DP_RANK_TIMEOUT)
+        ranks = []
+        for rank in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  data-parallel trainer data: {counts} (images, annotations) as train, dev, test; "
+        f"{DP_RANKS} ranks over gloo on {card}")
+    failures = []
+    zero = ranks[0]
+    for r in ranks:
+        for e, rec in sorted(r["epochs"].items(), key=lambda kv: int(kv[0])):
+            log(f"  rank {r['rank']} epoch {e} ({rec.get('phase')}, {rec.get('steps')} steps): "
+                f"loss {rec.get('loss', float('nan')):.5f}; seconds: train "
+                f"{rec.get('train', 0):.3f}, val loss {rec.get('val_loss', 0):.3f}, val decode "
+                f"+ scoring {rec.get('val_metrics', 0):.3f}, checkpoint save "
+                f"{rec.get('save', 0):.3f}")
+        want = {fn.__name__: 0 for fn in counted_wrappers()}
+        want.update(head_topk=r["steps"], beam_select_attention=r["n_layers"] * r["steps"])
+        log(f"  rank {r['rank']}: phases {r['phases']}, {r['scst_iterations']} SCST iterations, "
+            f"test predictions {r['predictions_s']:.3f} s, {r['steps']} decode steps, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, scores agreed with rank 0's "
+            f"{r['agreed']}, writes {r['writes']}")
+        if r["launches"] != want or r["steps"] <= 0:
+            failures.append(f"rank {r['rank']}: launches {r['launches']}, expected {want}")
+        if r["phases"] != ["xe", "scst"] or r["decisions"] != zero["decisions"]:
+            failures.append(f"rank {r['rank']}: phases {r['phases']}, decisions "
+                            f"{r['decisions']} against rank 0's {zero['decisions']}")
+        if not all(r["agreed"]) or not r["test_results"]:
+            failures.append(f"rank {r['rank']}: scores agreed {r['agreed']}, test_results.json "
+                            f"{r['test_results']}")
+    bests = sum(d["patience"] == 0 for d in zero["decisions"])
+    want_zero = {"files": {"test_results.json": 1}, "saves": len(zero["decisions"]),
+                 "copies": bests}
+    if zero["writes"] != want_zero or any(r["writes"] != {"files": {}, "saves": 0, "copies": 0}
+                                          for r in ranks[1:]):
+        failures.append(f"writes {[r['writes'] for r in ranks]}: rank 0 must write "
+                        f"{want_zero} and the others nothing")
+    if (not zero["metrics_file"].endswith("metrics.jsonl")
+            or any(r["metrics_file"] != os.devnull for r in ranks[1:])):
+        failures.append(f"metrics files {[r['metrics_file'] for r in ranks]}")
+    if set(zero["captured"]) != {"trainer val decode", "trainer test prediction",
+                                 "trainer SCST iteration 2"} or not all(
+            zero["kernels"].get(k) for k in ("head_topk", "beam_select_attention")):
+        failures.append(f"rank 0's kernel cases from {zero['captured']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"ranks": ranks}
+
+
+def dp_serving_part(device, s, card: str) -> dict:
+    """(c) ``CaptioningPipeline`` over a mesh: ``mesh="auto"`` on the card
+    (every visible card: this one) at bf16 with the head kernel forced and
+    the attention kernel on, its captions bit-equal to the pipeline without
+    a mesh, head_topk once a decode step and beam_select_attention once a
+    layer and step; ``mesh=[the card, the card]`` at f32 (the eager path),
+    each half of the batch decoded on its own, bit-equal to the unsharded
+    f32 pipeline.  The rehearsal serves ``["cpu", "cpu"]`` at f32 only."""
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    cuda = device.type == "cuda"
+    vocab = make_vocab(s)
+    rng = np.random.default_rng(18)
+    feats = rng.standard_normal((s["batch"], s["n_regions"], s["d_feature"]), dtype=np.float32)
+    images = [{"region_features": f} for f in feats]
+    launches, out = {}, {}
+
+    def compare(name, config, mesh, **kw):
+        plain = CaptioningPipeline.from_state_dict(config, vocab, batch_size=s["batch"],
+                                                   device=device, seed=0, **kw)
+        meshed = CaptioningPipeline.from_state_dict(config, vocab, batch_size=s["batch"],
+                                                    device=device, seed=0, mesh=mesh, **kw)
+        want = plain.caption_features(images, return_ids=True)
+        if cuda:
+            meshed.caption_features(images[:7])  # warm-up: cuBLAS handles, allocator
+        sync(device)
+        kernels = counted_wrappers()
+        for fn in kernels:
+            fn.launches = 0
+        steps0 = sum(sr.steps for _, sr, _ in meshed._replicas)
+        t0 = time.perf_counter()
+        got = meshed.caption_features(images, return_ids=True)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        steps = sum(sr.steps for _, sr, _ in meshed._replicas) - steps0
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        same = got[0] == want[0] and np.array_equal(got[1], want[1])
+        log(f"  {name}: mesh {mesh} ({len(meshed._replicas)} slices of "
+            f"{s['batch'] // len(meshed._replicas)}): captions and ids equal to the unsharded "
+            f"pipeline's: {same}; {steps} decode steps, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, {s['batch'] / seconds:.1f} captions/s "
+            f"on {card}")
+        if not same:
+            raise AssertionError(f"{name}: the sharded captions differ from the unsharded ones")
+        return counts, steps, seconds
+
+    if cuda:
+        counts, steps, seconds = compare("serving mesh auto (bf16, kernels)",
+                                         model_config(s, attn_kernel=True), "auto")
+        want = {fn.__name__: 0 for fn in counted_wrappers()}
+        want.update(head_topk=steps, beam_select_attention=s["layers"] * steps)
+        if counts != want:
+            raise AssertionError(f"serving mesh auto: launches {counts}, expected {want}")
+        launches["serving_auto"] = counts
+        out["auto_captions_per_s"] = s["batch"] / seconds
+    pair = [str(device)] * 2
+    _, _, seconds = compare("serving mesh of the device twice (f32, eager)", model_config(s),
+                            pair, use_bf16=False, head_kernel=False)
+    out["twice_f32_captions_per_s"] = s["batch"] / seconds
+    return {"launches": launches, "figures": out}
+
+
+def data_parallel_phase(device, s, card: str, loaded) -> dict:
+    """Phase 18: data-parallel training across processes and serving over
+    a device list (``dp_dryrun_part``, ``dp_trainer_part`` on the card
+    only, ``dp_serving_part``).  Returns each kernel's launches in the
+    phase, rank 0's kernel cases and the figures."""
+    cuda = device.type == "cuda"
+    dryruns = timed("data parallel (a): dry run", lambda: dp_dryrun_part(device, s, card))
+    trainer = (timed("data parallel (b): trainer across two ranks",
+                     lambda: dp_trainer_part(device, s, card, loaded)) if cuda else None)
+    serving = timed("data parallel (c): serving over a device list",
+                    lambda: dp_serving_part(device, s, card))
+    launches = {fn.__name__: {} for fn in counted_wrappers()}
+    for name in launches:
+        if trainer is not None:
+            for r in trainer["ranks"]:
+                launches[name][f"trainer_rank{r['rank']}"] = r["launches"][name]
+        for path, counts in serving["launches"].items():
+            launches[name][path] = counts[name]
+    figures = {"dryrun": dryruns, "serving": serving["figures"]}
+    kernels = {}
+    if trainer is not None:
+        figures["trainer"] = [{k: r[k] for k in ("rank", "phases", "epochs", "steps",
+                                                 "predictions_s", "writes")}
+                              for r in trainer["ranks"]]
+        kernels = trainer["ranks"][0]["kernels"]
+    return {"launches": launches, "kernels": kernels, "figures": figures}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5482,9 +5842,12 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-17 at tiny widths on the CPU")
+                        help="rehearse phases 3-18 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
+    parser.add_argument("--dp-trainer-rank", metavar="DIR",
+                        help="run one rank of the data-parallel trainer on the card (a child "
+                             "process of phase 18)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -5513,6 +5876,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     device = torch.device("cuda:0")
+    if args.dp_trainer_rank:
+        dp_trainer_rank(device, args.dp_trainer_rank)
+        return 0
     if args.trainer_phase:
         from openviic_tpu_torch.artifact import load_trained_artifact
 
@@ -5542,7 +5908,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-17.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-18.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -5587,6 +5953,7 @@ def all_phases(device, s, card: str):
     two_stream = timed("two-stream families", lambda: two_stream_phase(device, s, card))
     rstnet = timed("RSTNet", lambda: rstnet_phase(device, s, card, loaded))
     remainder = timed("single-card remainder", lambda: remainder_phase(device, s, card))
+    data_parallel = timed("data parallel", lambda: data_parallel_phase(device, s, card, loaded))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -5629,6 +5996,10 @@ def all_phases(device, s, card: str):
         e["remainder"] = remainder["launches"][e["name"]]
         e["remainder_cases"] = remainder["kernels"].get(e["name"], [])
     found[0]["remainder_figures"] = remainder["figures"]
+    for e in found:  # every kernel's launches on each data-parallel path, 0 where it does not run
+        e["data_parallel"] = data_parallel["launches"][e["name"]]
+        e["data_parallel_cases"] = data_parallel["kernels"].get(e["name"], [])
+    found[0]["data_parallel_figures"] = data_parallel["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -152,8 +152,12 @@ class DataLoader:
         self.prefetch = prefetch
         self.epoch = 0
 
+    def _items(self) -> int:
+        """The items an epoch."""
+        return len(self.dataset)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._items()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -164,9 +168,11 @@ class DataLoader:
             return np.random.default_rng(self.seed + self.epoch).permutation(n)
         return np.arange(n)
 
+    def _read(self, indices) -> list:
+        return [self.dataset[int(i)] for i in indices]
+
     def _make_batch(self, indices: np.ndarray) -> InstanceList:
-        return make_instance_batch([self.dataset[int(i)] for i in indices], self.pad_sizes,
-                                   self.bucket)
+        return make_instance_batch(self._read(indices), self.pad_sizes, self.bucket)
 
     def __iter__(self) -> Iterator[InstanceList]:
         order = self._order()

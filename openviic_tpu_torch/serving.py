@@ -18,10 +18,18 @@ kernels as ``TRAINING.DECODE_HEAD_KERNEL`` and ``DECODE_ATTN_KERNEL`` say,
 as the JAX pipeline does.  ``from_state_dict`` builds one from weights in
 memory (or drawn from a seed) instead of a checkpoint.  For RSTNet's
 adaptive decoder it computes the language-signal table once, from the
-weights as loaded (f32), and hands it to every decode."""
+weights as loaded (f32), and hands it to every decode.
+
+``mesh`` (a list of devices, or ``"auto"`` for every visible card) serves
+over several devices as the JAX pipeline serves over a mesh's data axis:
+the weights are copied to each device, and each fixed-size batch is split
+into equal contiguous slices, one a device, decoded in threads and
+concatenated.  A device may be listed more than once."""
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Union
@@ -50,10 +58,8 @@ class CaptioningPipeline:
         ``TRAINING.CHECKPOINT_BACKEND``.  Raises ``FileNotFoundError`` when
         there is no checkpoint file and ``ValueError`` for a file that is
         not the port's checkpoint (a JAX package checkpoint among them).
-        ``mesh`` (decode sharded over cards) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("CaptioningPipeline(mesh=...): decoding sharded over "
-                                      "several cards is not ported (ROADMAP A.7)")
+        ``mesh``: see the module's docstring; ``batch_size`` must divide by
+        its length."""
         checkpoint_dir = checkpoint_dir or os.path.join(config.TRAINING.CHECKPOINT_PATH,
                                                         config.MODEL.NAME)
         vocab = load_vocab(os.path.join(checkpoint_dir, "vocab.bin"))
@@ -64,24 +70,24 @@ class CaptioningPipeline:
         if loaded is None:
             raise FileNotFoundError(f"no checkpoint at {path}")
         self._setup(config, vocab, loaded["model"], beam_size, batch_size, use_bf16,
-                    head_kernel, device, seed=0)
+                    head_kernel, device, seed=0, mesh=mesh)
         logger.info("Loaded %s (epoch %s)", path, loaded.get("epoch"))
 
     @classmethod
     def from_state_dict(cls, config, vocab, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                         beam_size: Optional[int] = None, batch_size: int = 32,
                         use_bf16: bool = True, head_kernel: Optional[Union[bool, int]] = None,
-                        device="cuda", seed: int = 0) -> "CaptioningPipeline":
+                        device="cuda", seed: int = 0, mesh=None) -> "CaptioningPipeline":
         """A pipeline over weights in memory: ``state_dict`` (for example
         ``compat.from_jax.state_dict_from_jax``), or the initialisation
         drawn from ``seed`` when it is None."""
         self = cls.__new__(cls)
         self._setup(config, vocab, state_dict, beam_size, batch_size, use_bf16, head_kernel,
-                    device, seed)
+                    device, seed, mesh)
         return self
 
     def _setup(self, config, vocab, state_dict, beam_size, batch_size, use_bf16, head_kernel,
-               device, seed):
+               device, seed, mesh=None):
         """``config`` holds ``MODEL`` and ``TRAINING`` nodes, as the JAX
         pipeline's does.  ``head_kernel`` defaults to
         ``TRAINING.DECODE_HEAD_KERNEL`` and goes to ``BeamSearcher`` as is:
@@ -94,7 +100,11 @@ class CaptioningPipeline:
         pipeline."""
         self.config = config
         self.vocab = vocab
-        self.device = torch.device(device)
+        devices = _mesh_devices(mesh) or [torch.device(device)]
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} not divisible by the mesh data axis "
+                             f"({len(devices)})")
+        self.device = devices[0]
         self.model = build_model(config.MODEL, vocab, device=self.device, seed=seed,
                                  init=state_dict is None)
         if state_dict is not None:
@@ -109,9 +119,22 @@ class CaptioningPipeline:
         if head_kernel is None:
             head_kernel = config.TRAINING.get("DECODE_HEAD_KERNEL", False)
         attn_kernel = config.TRAINING.get("DECODE_ATTN_KERNEL", False) or False
-        self.searcher = BeamSearcher(self.model, self.compute_dtype, beam_resident=True,
-                                     head_kernel=head_kernel or False,
-                                     attn_kernel=bool(attn_kernel))
+
+        def searcher(model):
+            return BeamSearcher(model, self.compute_dtype, beam_resident=True,
+                                head_kernel=head_kernel or False, attn_kernel=bool(attn_kernel))
+
+        self.searcher = searcher(self.model)
+        # (device, its searcher, the signal table there) for each device of
+        # the mesh (the first: this pipeline's own), one copy of the weights
+        # a device
+        models = {self.device: self.model}
+        self._replicas = [(self.device, self.searcher, self.language_table)]
+        for dev in devices[1:]:
+            if dev not in models:
+                models[dev] = copy.deepcopy(self.model).to(dev)
+            table = None if self.language_table is None else self.language_table.to(dev)
+            self._replicas.append((dev, searcher(models[dev]), table))
         self._backbones = {}  # (spec, grid, dim) -> backbone
 
     def _batch(self, chunk: List[Dict]) -> Dict[str, torch.Tensor]:
@@ -134,6 +157,30 @@ class CaptioningPipeline:
             for key, value in arrays.items()
         }
 
+    def decode(self, batch: Dict[str, torch.Tensor]):
+        """(outputs, log-probs) of a fixed-size batch: each device of the
+        mesh decodes its contiguous slice (several devices in threads of
+        their own) and the slices are concatenated on the first device.
+        The head kernel's gate does not depend on the batch's size, so each
+        slice takes it as the JAX pipeline's one program over the mesh
+        takes it for the whole batch."""
+        n = len(self._replicas)
+        per = len(next(iter(batch.values()))) // n
+
+        def run(i):
+            dev, searcher, table = self._replicas[i]
+            part = {k: v[i * per:(i + 1) * per].to(dev) for k, v in batch.items()}
+            on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with torch.no_grad(), on_card:
+                return searcher(part, self.beam_size, language_table=table)
+
+        if n == 1:
+            return run(0)
+        with ThreadPoolExecutor(max_workers=n) as ex:
+            outs = list(ex.map(run, range(n)))
+        return (torch.cat([o.to(self.device) for o, _ in outs]),
+                torch.cat([lp.to(self.device) for _, lp in outs]))
+
     def caption_features(self, feature_dicts: List[Dict], return_ids: bool = False):
         """Caption a list of per-image feature dicts (e.g. ``{"region_features":
         (n_regions, d_feature) array}``).  With ``return_ids`` also return
@@ -142,8 +189,7 @@ class CaptioningPipeline:
         ids = []
         for start in range(0, len(feature_dicts), self.batch_size):
             chunk = feature_dicts[start : start + self.batch_size]
-            outputs, _ = self.searcher(self._batch(chunk), self.beam_size,
-                                       language_table=self.language_table)
+            outputs, _ = self.decode(self._batch(chunk))
             outputs = outputs[: len(chunk)].cpu().numpy()
             ids.append(outputs)
             captions.extend(self.vocab.decode_caption(outputs))
@@ -245,3 +291,19 @@ class CaptioningPipeline:
                     fut = ex.submit(load_chunk, chunks[n + 1])
                 captions.extend(self.caption_features(current))
         return dict(zip([str(i) for i in image_ids], captions))
+
+
+def _mesh_devices(mesh) -> Optional[List[torch.device]]:
+    """The devices of a pipeline's ``mesh``: None, a list of devices, or
+    ``"auto"`` for every visible card (which raises without one)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str) and mesh == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CaptioningPipeline(mesh='auto'): no CUDA device; pass a list of "
+                               "devices")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("mesh must list at least one device")
+    return devices

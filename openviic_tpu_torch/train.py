@@ -8,12 +8,23 @@ It builds the config's trainer on the card (``--cpu``: on the CPU), trains
 from ``last_model`` or from scratch unless ``--eval-only``, then writes the
 test split's predictions and scores (``test_results.json``).  ``KEY VALUE``
 pairs override the config (e.g. ``TRAINING.WARMUP 100``).  PyYAML is
-imported only to parse the file.  No process group is started: the port
-trains on one card."""
+imported only to parse the file.
+
+Under ``torchrun`` it trains data-parallel, one process a card:
+
+    torchrun --nproc_per_node=N -m openviic_tpu_torch.train --config-file <yaml> [--cpu]
+
+Each process takes the card ``cuda:<LOCAL_RANK>`` (``--cpu``: the CPU) and
+starts the process group on it before the trainer is built, as the JAX
+``train.py`` calls ``initialize_distributed()``: NCCL on the cards, gloo on
+the CPU (``parallel/runtime.py``).  The config must then set
+``DATASET.LOADER: grain`` and ``DATASET.MAX_REGIONS`` (or ``PAD_SIZES``);
+``FEATURE_BATCH_SIZE`` is each process's share of the global batch."""
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 
@@ -30,12 +41,19 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from openviic_tpu_torch.builders import build_trainer
     from openviic_tpu_torch.config import get_config
+    from openviic_tpu_torch.parallel import initialize_distributed, runtime
 
     config = get_config(args.config_file, args.opts or None)
-    trainer = build_trainer(config, device="cpu" if args.cpu else "cuda")
-    if not args.eval_only:
-        trainer.start(max_epochs=args.max_epochs)
-    trainer.get_predictions(get_scores=config.TRAINING.GET_SCORES)
+    device = "cpu" if args.cpu else f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    started = initialize_distributed(device)
+    try:
+        trainer = build_trainer(config, device=device)
+        if not args.eval_only:
+            trainer.start(max_epochs=args.max_epochs)
+        trainer.get_predictions(get_scores=config.TRAINING.GET_SCORES)
+    finally:
+        if started:
+            runtime.shutdown()
 
 
 if __name__ == "__main__":

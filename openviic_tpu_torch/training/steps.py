@@ -83,12 +83,15 @@ def _cast_floating(batch: Batch, dtype) -> Batch:
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
 
 
-def _train_update(model, state: dict, backward):
+def _train_update(model, state: dict, backward, stream=None):
     """One update of ``state``: ``backward()`` (which fills the gradients
     and returns the loss) in train mode on the dropout stream drawn from
-    the state's generator, then the optimizer's (and scheduler's) step.
-    Returns (state, the loss detached)."""
+    the state's generator (folded with ``stream`` where one is given: a
+    rank's), then the optimizer's (and scheduler's) step.  Returns (state,
+    the loss detached)."""
     seed = rng.draw_seed(state["generator"])
+    if stream is not None:
+        seed = rng.fold_in(seed, stream)
     device = next(model.parameters()).device
     was_training = model.training
     optimizer = state["optimizer"]
@@ -224,6 +227,19 @@ def scst_log_probs(model, batch: Batch, sampled: torch.Tensor) -> torch.Tensor:
     return picked * alive
 
 
+def scst_loss(model, batch: Batch, sampled: torch.Tensor, reward: torch.Tensor,
+              beam_size: int) -> torch.Tensor:
+    """The SCST loss of ``make_scst_grad_step``: ``batch`` (bs, ...) repeated
+    ``beam_size`` times along dim 0, then ``-(mean over L of the log-probs)
+    * (reward - mean over beams of reward)``, averaged over the bs * beam
+    rows."""
+    bs = reward.shape[0]
+    rows = {k: v.repeat_interleave(beam_size, dim=0) for k, v in batch.items()}
+    lp = scst_log_probs(model, rows, sampled).reshape(bs, beam_size, -1)
+    baseline = reward.mean(dim=-1, keepdim=True)
+    return (-lp.mean(dim=-1) * (reward - baseline)).mean()
+
+
 def make_scst_grad_step(model, beam_size: int):
     """(state, batch, sampled, reward) -> (state, loss): one SCST update of
     ``model`` (``openviic_tpu/training/steps.py::make_scst_grad_step``),
@@ -233,19 +249,13 @@ def make_scst_grad_step(model, beam_size: int):
     ``beam_size`` times along dim 0 inside the step, so the encoder runs on
     bs * beam rows and, with dropout on, each row draws its own masks.
     ``sampled`` (bs * beam, L) and ``reward`` (bs, beam).  The loss is
-    ``-(mean over L of the log-probs) * (reward - mean over beams of
-    reward)``, averaged: the mean runs over the full length, zeroed tail
+    ``scst_loss``: the mean runs over the full length, zeroed tail
     included, as the reference's.  The step runs in f32 with dropout on,
     from the state's generator."""
 
     def update(state: dict, batch: Batch, sampled: torch.Tensor, reward: torch.Tensor):
-        bs = reward.shape[0]
-
         def backward():
-            rows = {k: v.repeat_interleave(beam_size, dim=0) for k, v in batch.items()}
-            lp = scst_log_probs(model, rows, sampled).reshape(bs, beam_size, -1)
-            baseline = reward.mean(dim=-1, keepdim=True)
-            loss = (-lp.mean(dim=-1) * (reward - baseline)).mean()
+            loss = scst_loss(model, batch, sampled, reward, beam_size)
             loss.backward()
             return loss
 

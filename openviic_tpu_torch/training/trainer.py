@@ -1,5 +1,4 @@
-"""Trainers (the port's counterpart of ``openviic_tpu/training/trainer.py``),
-on one card.
+"""Trainers (the port's counterpart of ``openviic_tpu/training/trainer.py``).
 
 ``BaseTrainer`` runs the OpenViIC recipe from a config: it builds or loads
 the vocab (``<CHECKPOINT_PATH>/<NAME>/vocab.bin``), six loaders (three
@@ -18,6 +17,21 @@ captions as they are; ``enTrainer`` PTB-tokenizes them first.
 ``ScstSetup`` builds what the SCST phase needs once and ``scst_iteration``
 runs one iteration of it.
 
+Across processes (a process group of more than one rank, one card or the
+CPU each: ``parallel/runtime.py``, started by ``train.py`` under
+``torchrun``) the trainer is data parallel as the JAX trainer is on a
+multi-host mesh: JAX's refusals hold (``multiprocess_refusal``); rank 0
+builds the vocab behind a barrier; the train loaders are
+``GrainDataLoader``s sharded by rank that drop their ragged last batch; the
+XE and SCST steps are ``parallel.mesh``'s, the XE one without label
+smoothing, mixed precision or several steps a call, as JAX's sharded step;
+each rank scores its own SCST samples with the host CIDEr; every rank runs
+the full val and test loaders, and the best, patience, switch and stop
+decisions follow rank 0's scores, broadcast; rank 0 alone writes the
+checkpoints (each followed by a barrier), ``metrics.jsonl`` and
+``test_results.json``, and every rank loads.  A checkpoint holds no world
+size, so a run saved at one size resumes at another.
+
 RSTNet's frozen language-model backbone (``optim.frozen_param_mask``)
 gets no Adam moments in either phase and is saved once, apart from the
 per-epoch checkpoint (``checkpoint.FROZEN_NAME``); its adaptive decoder
@@ -26,10 +40,10 @@ for every eval decode and SCST iteration since the layers around the
 backbone train (not with dropout-active sampling, which needs the
 per-step language model in train mode).
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-mesh, multi-host and Grain branches (``TRAINING.DATA_PARALLEL`` over more
-than one card, ``DATASET.LOADER: grain``; A.7) and the Orbax backend (A.8).
-JAX-only keys: ``RNG_IMPL`` is checked and does nothing,
+One process does not train over several cards (``TRAINING.DATA_PARALLEL``
+with more than one visible card raises: start one process a card with
+``torchrun --nproc_per_node``); the Orbax backend is not ported (ROADMAP
+A.8).  JAX-only keys: ``RNG_IMPL`` is checked and does nothing,
 ``COMPILATION_CACHE_DIR`` does nothing."""
 
 from __future__ import annotations
@@ -49,10 +63,13 @@ import torch
 from openviic_tpu_torch import native, rng
 from openviic_tpu_torch.builders import META_TRAINER, build_model
 from openviic_tpu_torch.data.datasets import DictionaryDataset, FeatureDataset
+from openviic_tpu_torch.data.grain_loader import GrainDataLoader
 from openviic_tpu_torch.data.loader import DataLoader, device_prefetch
 from openviic_tpu_torch.data.vocab import Vocab, load_vocab
 from openviic_tpu_torch.decoding import BeamSearcher
 from openviic_tpu_torch.evaluation import Cider, PTBTokenizer, compute_scores
+from openviic_tpu_torch.parallel import mesh as dp
+from openviic_tpu_torch.parallel import runtime
 from openviic_tpu_torch.training import checkpoint as ckpt
 from openviic_tpu_torch.training.device_reward import DeviceCiderFull
 from openviic_tpu_torch.training.optim import (
@@ -99,19 +116,20 @@ def make_searcher(model, training) -> BeamSearcher:
 
 class ScstSetup:
     """What the SCST phase builds once, the counterpart of ``_ensure_scst``
-    (``openviic_tpu/training/trainer.py:561-627``) on one card, without its
-    mesh and multi-host branches:
+    (``openviic_tpu/training/trainer.py:561-627``):
 
     - the RL Adam (``make_rl_optimizer`` at ``RL_LEARNING_RATE`` over
       ``mask_frozen``'s parameters) put into ``state`` (the XE step state:
       ``params``, ``step``, ``generator``), which it then holds: fresh, or
       holding ``optimizer_state`` (a checkpoint's RL Adam ``state_dict``,
       for a mid-SCST resume) where that fits it, else fresh with a warning;
-    - the SCST step at ``TRAINING_BEAM_SIZE`` (``make_scst_grad_step``);
+    - the SCST step at ``TRAINING_BEAM_SIZE`` (``make_scst_grad_step``; with
+      a ``mesh`` across processes ``parallel.mesh.make_sharded_scst_step``);
     - the device reward (``DeviceCiderFull`` on the model's device) when
-      ``TRAINING.DEVICE_REWARD`` (default on) and no ``postprocess_pairs``
+      ``TRAINING.DEVICE_REWARD`` (default on), no ``postprocess_pairs``
       hook (a language's tokenization of the pairs, which only the host
-      reward applies);
+      reward applies) and no ``mesh`` (each rank then scores its own rows
+      on the host, as the JAX trainer's hosts do);
     - the host reward: native CIDEr with the train split's document
       frequencies, or the Python ``Cider`` where no native library loads;
     - ``language_table``: a callable giving the adaptive decoder's signal
@@ -127,7 +145,8 @@ class ScstSetup:
                  searcher: Optional[BeamSearcher] = None,
                  postprocess_pairs: Optional[Callable] = None,
                  optimizer_state: Optional[dict] = None,
-                 language_table: Optional[Callable] = None):
+                 language_table: Optional[Callable] = None,
+                 mesh: Optional[dp.DataMesh] = None):
         self.model = model
         self.vocab = model.vocab
         self.device = next(model.parameters()).device
@@ -139,12 +158,13 @@ class ScstSetup:
         self.state = state
         if optimizer_state is not None:
             self.restore_optimizer(optimizer_state)
-        self.step = make_scst_grad_step(model, self.beam_size)
+        self.step = (make_scst_grad_step(model, self.beam_size) if mesh is None
+                     else dp.make_sharded_scst_step(model, self.beam_size, mesh))
         self.searcher = searcher if searcher is not None else make_searcher(model, training)
         self.postprocess_pairs = postprocess_pairs
         self.language_table = None if self.sample_dropout else language_table
         self.device_reward = None
-        if training.get("DEVICE_REWARD", True) and postprocess_pairs is None:
+        if training.get("DEVICE_REWARD", True) and postprocess_pairs is None and mesh is None:
             self.device_reward = DeviceCiderFull(self.vocab, train_captions, device=self.device)
         train_gts = {f"{i}": caption for i, caption in enumerate(train_captions)}
         self.train_cider = (native.NativeCider(gts=train_gts) if native.available()
@@ -231,25 +251,67 @@ def _wait(tensor: torch.Tensor) -> None:
         torch.cuda.current_stream(tensor.device).synchronize()
 
 
-def _refuse_unported(config, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for a branch of the JAX trainer that is
-    not ported, naming its ROADMAP item; check ``RNG_IMPL``."""
+def _check_config(config, device: torch.device) -> None:
+    """Check ``RNG_IMPL``; refuse ``TRAINING.DATA_PARALLEL`` over several
+    cards in one process (the port runs one process a card)."""
     tr, ds = config.TRAINING, config.DATASET
     rng_impl = str(tr.get("RNG_IMPL", "threefry"))
     if rng_impl not in ("threefry", "rbg", "unsafe_rbg"):
         raise ValueError(f"TRAINING.RNG_IMPL={rng_impl!r} not recognised")
-    if str(ds.get("LOADER", "native")).lower() == "grain":
-        raise NotImplementedError("DATASET.LOADER: grain is not ported (ROADMAP A.7)")
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("training across processes is not ported (ROADMAP A.7)")
     cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (cards > 1 and math.gcd(int(ds.FEATURE_BATCH_SIZE), cards) > 1
+    if (runtime.process_count() == 1 and cards > 1
+            and math.gcd(int(ds.FEATURE_BATCH_SIZE), cards) > 1
             and tr.get("DATA_PARALLEL", True)):
-        raise NotImplementedError(
-            f"TRAINING.DATA_PARALLEL over {cards} cards is not ported (ROADMAP A.7); set "
+        raise ValueError(
+            f"TRAINING.DATA_PARALLEL over {cards} cards in one process: the port trains one "
+            f"process a card; start them with torchrun --nproc_per_node={cards}, or set "
             "TRAINING.DATA_PARALLEL: false to train on one")
+
+
+def _pad_sizes(ds) -> Dict[str, int]:
+    """``DATASET.PAD_SIZES``, with ``MAX_REGIONS`` pinning every region key."""
+    pad_sizes = dict(ds.get("PAD_SIZES", {}) or {})
+    if ds.get("MAX_REGIONS"):
+        for key in ("region_features", "region_boxes"):
+            pad_sizes.setdefault(key, int(ds.MAX_REGIONS))
+    return pad_sizes
+
+
+def multiprocess_refusal(config) -> None:
+    """The JAX trainer's refusals of a run across processes, in its words
+    (``openviic_tpu/training/trainer.py:209-235``, ``:290-299``).  Its
+    refusal of a global batch that the mesh does not divide cannot arise
+    here: with one card a process, ``FEATURE_BATCH_SIZE`` x the world
+    always divides the world's data axis."""
+    tr, ds = config.TRAINING, config.DATASET
+    if not tr.get("DATA_PARALLEL", True):
+        raise ValueError("multi-host runs require TRAINING.DATA_PARALLEL")
+    if int(tr.get("GRAD_ACCUM", 1)) > 1:
+        raise ValueError("TRAINING.GRAD_ACCUM is single-device only; scale the batch across "
+                         "hosts instead")
+    if str(ds.get("LOADER", "native")).lower() != "grain":
+        raise ValueError("multi-host training requires DATASET.LOADER: grain (the native loader "
+                         "does not shard across hosts)")
+    if not _pad_sizes(ds):
+        raise ValueError("multi-host training requires static shapes: set DATASET.MAX_REGIONS "
+                         "(or DATASET.PAD_SIZES) so every host pads identically")
+
+
+def make_xe_steps(model, training, grad_accum: int, mesh: Optional[dp.DataMesh]):
+    """(the XE step, the k-step call or None) for ``TRAINING``: across
+    processes JAX's sharded step, which ignores ``LABEL_SMOOTHING``,
+    ``MIXED_PRECISION`` and ``STEPS_PER_CALL``; else ``make_xe_step`` with
+    them, and ``make_xe_multi_step`` for ``STEPS_PER_CALL`` k > 1 without
+    ``GRAD_ACCUM`` (as in the JAX trainer it amortises a dispatch; here the
+    numerics are equal)."""
+    if mesh is not None:
+        return dp.make_sharded_xe_step(model, mesh), None
+    smoothing = float(training.get("LABEL_SMOOTHING", 0.0))
+    mixed = bool(training.get("MIXED_PRECISION", False))
+    multi = None
+    if int(training.get("STEPS_PER_CALL", 1)) > 1 and grad_accum <= 1:
+        multi = make_xe_multi_step(model, smoothing, mixed)
+    return make_xe_step(model, smoothing, mixed, grad_accum), multi
 
 
 class BaseTrainer:
@@ -262,14 +324,20 @@ class BaseTrainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BaseTrainer: no CUDA device; pass device='cpu' to train on "
                                "the CPU")
-        _refuse_unported(config, self.device)
+        _check_config(config, self.device)
         tr, ds = config.TRAINING, config.DATASET
         self._ckpt_io = ckpt.get_backend(str(tr.get("CHECKPOINT_BACKEND", "native")))
+        # across processes (parallel/runtime.py) every rank runs this
+        # constructor; rank 0 alone writes files, each write behind a barrier
+        self._multiprocess = runtime.process_count() > 1
+        self._writer = runtime.process_index() == 0
 
         self.checkpoint_path = os.path.join(tr.CHECKPOINT_PATH, config.MODEL.NAME)
         os.makedirs(self.checkpoint_path, exist_ok=True)
         vocab_file = os.path.join(self.checkpoint_path, "vocab.bin")
-        if not os.path.isfile(vocab_file):
+        if not self._writer:
+            runtime.barrier("vocab")  # rank 0 builds and pickles it first
+        if self._writer and not os.path.isfile(vocab_file):
             logger.info("Creating vocab")
             self.vocab = self.load_vocab(config)
             with open(vocab_file, "wb") as f:
@@ -277,6 +345,8 @@ class BaseTrainer:
         else:
             logger.info("Loading vocab from %s", vocab_file)
             self.vocab = load_vocab(vocab_file)
+        if self._writer and self._multiprocess:
+            runtime.barrier("vocab")
 
         logger.info("Loading data")
         self.train_dataset, self.dev_dataset, self.test_dataset = \
@@ -289,26 +359,40 @@ class BaseTrainer:
         if grad_accum > 1 and ds.FEATURE_BATCH_SIZE % grad_accum:
             raise ValueError(f"TRAINING.GRAD_ACCUM={grad_accum} must divide "
                              f"DATASET.FEATURE_BATCH_SIZE={ds.FEATURE_BATCH_SIZE}")
-        # DATASET.MAX_REGIONS pins every region key to one row count,
-        # DATASET.PAD_SIZES any key; other variable keys are bucket-padded
-        pad_sizes = dict(ds.get("PAD_SIZES", {}) or {})
-        if ds.get("MAX_REGIONS"):
-            for key in ("region_features", "region_boxes"):
-                pad_sizes.setdefault(key, int(ds.MAX_REGIONS))
+        # the data axis across processes: each rank's loader batch is its
+        # share of the global batch
+        self.mesh = None
+        if self._multiprocess:
+            multiprocess_refusal(config)
+            self.mesh = dp.make_mesh()
+            logger.info("Data-parallel over %d processes", self.mesh.size)
+        # DATASET.LOADER: grain shards the train streams by rank; the eval
+        # streams stay whole on every rank, so every rank takes the same
+        # decisions.  DATASET.MAX_REGIONS pins every region key to one row
+        # count, DATASET.PAD_SIZES any key; other variable keys are
+        # bucket-padded
+        loader_cls, eval_kw = DataLoader, {}
+        if str(ds.get("LOADER", "native")).lower() == "grain":
+            loader_cls, eval_kw = GrainDataLoader, {"shard_index": 0, "shard_count": 1}
+        pad_sizes = _pad_sizes(ds)
         kw = {"pad_sizes": pad_sizes} if pad_sizes else {}
-        # grad accumulation needs every batch divisible by GRAD_ACCUM, so
-        # the ragged last batch is dropped; else it is kept
-        self.train_dataloader = DataLoader(self.train_dataset, ds.FEATURE_BATCH_SIZE,
-                                           shuffle=True, seed=13, drop_last=grad_accum > 1,
+        eval_kw.update(kw)
+        # grad accumulation needs every batch divisible by GRAD_ACCUM, and
+        # the data axis equal batches on every rank, so the ragged last
+        # batch is dropped; else it is kept
+        self.train_dataloader = loader_cls(self.train_dataset, ds.FEATURE_BATCH_SIZE,
+                                           shuffle=True, seed=13,
+                                           drop_last=self.mesh is not None or grad_accum > 1,
                                            **kw)
-        self.val_dataloader = DataLoader(self.dev_dataset, ds.FEATURE_BATCH_SIZE, **kw)
-        self.test_dataloader = DataLoader(self.test_dataset, ds.FEATURE_BATCH_SIZE, **kw)
-        self.train_dict_dataloader = DataLoader(
+        self.val_dataloader = loader_cls(self.dev_dataset, ds.FEATURE_BATCH_SIZE, **eval_kw)
+        self.test_dataloader = loader_cls(self.test_dataset, ds.FEATURE_BATCH_SIZE, **eval_kw)
+        self.train_dict_dataloader = loader_cls(
             self.train_dict_dataset, max(1, ds.DICT_BATCH_SIZE // self.training_beam_size),
-            shuffle=True, seed=17, **kw)
-        self.val_dict_dataloader = DataLoader(
-            self.dev_dict_dataset, max(1, ds.DICT_BATCH_SIZE // self.evaluating_beam_size), **kw)
-        self.test_dict_dataloader = DataLoader(self.test_dict_dataset, 1, **kw)
+            shuffle=True, seed=17, drop_last=self._multiprocess, **kw)
+        self.val_dict_dataloader = loader_cls(
+            self.dev_dict_dataset, max(1, ds.DICT_BATCH_SIZE // self.evaluating_beam_size),
+            **eval_kw)
+        self.test_dict_dataloader = loader_cls(self.test_dict_dataset, 1, **eval_kw)
         # the JAX constructor draws one train batch as its init template,
         # which advances the loader's epoch counter: the port needs no
         # template but advances it the same, so both shuffle alike
@@ -322,17 +406,12 @@ class BaseTrainer:
         self._frozen_mask = frozen_param_mask(self.model)
         optimizer, scheduler = self._xe_optimizer()
         self.state = init_xe_state(self.model, optimizer, scheduler, seed=seed)
+        if self.mesh is not None:  # every rank starts from rank 0's state
+            dp.shard_state(self.model, self.state, self.mesh)
         self.lr_schedule = noam_schedule(config.MODEL.ENCODER.D_MODEL, self.warmup,
                                          tr.LEARNING_RATE)
-        smoothing = float(tr.get("LABEL_SMOOTHING", 0.0))
-        mixed = bool(tr.get("MIXED_PRECISION", False))
-        self.xe_step = make_xe_step(self.model, smoothing, mixed, grad_accum)
-        # TRAINING.STEPS_PER_CALL k > 1: k XE updates a call, as in the JAX
-        # trainer (there it amortises a dispatch; here numerics are equal)
+        self.xe_step, self.xe_multi_step = make_xe_steps(self.model, tr, grad_accum, self.mesh)
         self.steps_per_call = int(tr.get("STEPS_PER_CALL", 1))
-        self.xe_multi_step = None
-        if self.steps_per_call > 1 and grad_accum <= 1:
-            self.xe_multi_step = make_xe_multi_step(self.model, smoothing, mixed)
         self.eval_step = make_eval_loss_step(self.model)
         self.beam_searcher = make_searcher(self.model, tr)
         # the bf16 decode guard: on the first metric eval, one batch decoded
@@ -348,10 +427,13 @@ class BaseTrainer:
         self._rl_optimizer_state = None  # a mid-SCST checkpoint's RL Adam
         self.use_rl = False
         self.epoch = 0
+        self.scores_agreed = None  # across processes: the last val scores' agreement
 
         maybe_enable_nan_checks(bool(tr.get("DEBUG_NANS", False)))
+        # one writer per run directory
         self.metrics = MetricsLogger(self.checkpoint_path,
-                                     tensorboard=bool(tr.get("TENSORBOARD", False)))
+                                     tensorboard=bool(tr.get("TENSORBOARD", False)),
+                                     enabled=self._writer)
         self.log_every = int(tr.get("LOG_EVERY", 50))
         self.profiler = Profiler(self.checkpoint_path) if tr.get("PROFILE", False) else None
 
@@ -451,7 +533,8 @@ class BaseTrainer:
             self.model, self.state, self.train_dataset.captions, self.config.TRAINING,
             searcher=self.beam_searcher, postprocess_pairs=hook,
             optimizer_state=None if reset_opt else self._rl_optimizer_state,
-            language_table=self._language_table if self._frozen_mask is not None else None)
+            language_table=self._language_table if self._frozen_mask is not None else None,
+            mesh=self.mesh)
         self._rl_optimizer_state = None
 
     def train_scst(self) -> float:
@@ -462,6 +545,8 @@ class BaseTrainer:
         step = int(self.state["step"])
         for items, batch in device_prefetch(self.train_dict_dataloader, self.device):
             loss, reward = scst_iteration(self.scst_setup, batch, items["captions"])
+            if self.mesh is not None:  # the global batch's mean reward
+                reward = dp.sum_across(reward, self.mesh) / self.mesh.size
             losses.append(loss)
             rewards.append(reward)
             step += 1
@@ -569,10 +654,13 @@ class BaseTrainer:
         # advances only in XE epochs and the dict loader only in SCST ones
         loader_epochs = {"train": int(self.train_dataloader.epoch),
                          "train_dict": int(self.train_dict_dataloader.epoch)}
-        self._ckpt_io.save_checkpoint(
-            os.path.join(self.checkpoint_path, self._ckpt_io.LAST_NAME), self.model,
-            self.state, {"epoch": self.epoch, "loader_epochs": loader_epochs, **extras},
-            frozen_mask=self._frozen_mask)
+        if self._writer:  # the state is the same on every rank
+            self._ckpt_io.save_checkpoint(
+                os.path.join(self.checkpoint_path, self._ckpt_io.LAST_NAME), self.model,
+                self.state, {"epoch": self.epoch, "loader_epochs": loader_epochs, **extras},
+                frozen_mask=self._frozen_mask)
+        if self._multiprocess:  # no rank loads before the file is whole
+            runtime.barrier("ckpt_save")
 
     def load_checkpoint(self, fname: str) -> Optional[Dict]:
         """Restore the checkpoint ``fname`` (None when absent): the weights
@@ -613,6 +701,16 @@ class BaseTrainer:
             fast_forward_schedule(optimizer, scheduler, loaded["step"])
         self.state["optimizer"], self.state["scheduler"] = optimizer, scheduler
         return loaded
+
+    def _agreed(self, val_loss: float, scores: Dict[str, float]):
+        """Rank 0's val loss and scores on every rank (each rank ran the
+        whole val loaders); whether every rank's own agreed is logged and
+        kept in ``scores_agreed``."""
+        gathered = runtime.all_gather_object((val_loss, scores))
+        self.scores_agreed = all(g == gathered[0] for g in gathered)
+        logger.info("Epoch %d - the ranks' own val scores agree with rank 0's: %s", self.epoch,
+                    self.scores_agreed)
+        return gathered[0]
 
     # -- main loop -------------------------------------------------------
     def start(self, max_epochs: Optional[int] = None) -> None:
@@ -678,6 +776,8 @@ class BaseTrainer:
                 self.train_scst()
             val_loss = self.evaluate_loss(self.val_dataloader)
             scores = self.evaluate_metrics(self.val_dict_dataloader)
+            if self._multiprocess:
+                val_loss, scores = self._agreed(val_loss, scores)
             logger.info("Validation scores %s", scores)
             val_score = scores[self.score_metric]
 
@@ -706,8 +806,16 @@ class BaseTrainer:
             self.save_checkpoint({"val_loss": val_loss, "best_val_score": best_val_score,
                                   "patience": patience, "use_rl": self.use_rl})
             if best:
-                self._ckpt_io.copy(last, best_file)
-            if self._stop_requested:
+                if self._writer:
+                    self._ckpt_io.copy(last, best_file)
+                if self._multiprocess:  # the switch may load it next epoch on every rank
+                    runtime.barrier("ckpt_best")
+            # a signal may reach some ranks only: all stop, or the others
+            # would wait at the next collective
+            stop = self._stop_requested
+            if self._multiprocess:
+                stop = runtime.any_across(stop)
+            if stop:
                 self._ckpt_io.wait()
                 logger.info("Preemption checkpoint written; exiting training loop")
                 break
@@ -750,8 +858,9 @@ class BaseTrainer:
             overall_gts, overall_gens = self.postprocess_pairs(overall_gts, overall_gens)
             scores, _ = compute_scores(overall_gts, overall_gens)
             logger.info("Evaluation scores on test set: %s", scores)
-        with open(os.path.join(self.checkpoint_path, "test_results.json"), "w+") as f:
-            json.dump({"results": results, **scores}, f, ensure_ascii=False)
+        if self._writer:
+            with open(os.path.join(self.checkpoint_path, "test_results.json"), "w+") as f:
+                json.dump({"results": results, **scores}, f, ensure_ascii=False)
 
 
 @META_TRAINER.register()

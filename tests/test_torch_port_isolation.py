@@ -1,6 +1,6 @@
 """The port stands alone: neither ``openviic_tpu_torch`` nor ``chip_smoke.py``
-imports JAX, Flax, Optax, the JAX package, PyYAML or Pillow at import time
-(the machine with the card has none of them).
+imports JAX, Flax, Optax, the JAX package, PyYAML, Pillow or Grain at
+import time (the machine with the card has none of them).
 
 ``chip_smoke.py --cpu`` runs in a subprocess whose imports of those
 packages raise; a static scan checks every import statement of the port."""
@@ -12,7 +12,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml", "PIL")
+BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml", "PIL", "grain")
 # PyYAML is imported inside the one function that parses a config file,
 # Pillow inside the one that decodes an image file
 LAZY_ALLOWED = {("openviic_tpu_torch/config/loader.py", "yaml"),

@@ -171,8 +171,17 @@ def test_missing_and_jax_checkpoints_are_refused(region_ckpt, tmp_path):
     jax_dir = Path(jax_config.TRAINING.CHECKPOINT_PATH) / jax_config.MODEL.NAME
     with pytest.raises(ValueError, match="not a checkpoint of openviic_tpu_torch"):
         CaptioningPipeline(config, checkpoint_dir=str(jax_dir), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        CaptioningPipeline(config, mesh="auto", device="cpu")
+    # serving over a device list, refused until data parallel was ported:
+    # "auto" takes every card (none here), a list must divide the batch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CaptioningPipeline(config, mesh="auto", device="cpu")
+    with pytest.raises(ValueError, match=r"not divisible by the mesh data axis \(3\)"):
+        CaptioningPipeline(config, mesh=["cpu"] * 3, batch_size=4)
+    meshed = CaptioningPipeline(config, mesh=["cpu", "cpu"], batch_size=4, use_bf16=False)
+    plain = CaptioningPipeline(config, batch_size=4, use_bf16=False, device="cpu")
+    images = [{"region_features": np.full((5, 13), 0.1 * i, np.float32)} for i in range(5)]
+    assert meshed.caption_features(images) == plain.caption_features(images)
     # the adaptive decoder, refused until RSTNet was ported: without a
     # checkpoint it is refused as the others are, and from weights in memory
     # it serves with its language-signal table

@@ -548,17 +548,21 @@ def test_max_regions_pins_static_shapes(tmp_path_factory, tiny_dataset_dir):
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_dir,
                                                 monkeypatch):
-    """Without a card the default device raises; unported branches raise
-    NotImplementedError naming their ROADMAP item; RNG_IMPL is checked.
-    The adaptive decoder and a frozen backbone, refused until RSTNet was
-    ported, now build: the backbone's parameters are kept out of the XE
-    Adam."""
+    """Without a card the default device raises; the Orbax backend raises
+    NotImplementedError naming its ROADMAP item; RNG_IMPL and GRAD_ACCUM
+    are checked.  DATASET.LOADER: grain, refused until data parallel across
+    processes was ported, now builds the host-sharded loaders (one shard
+    in one process, the eval streams whole).  One process over several
+    cards is refused, naming torchrun.  The adaptive decoder and a frozen
+    backbone, refused until RSTNet was ported, now build: the backbone's
+    parameters are kept out of the XE Adam."""
+    from openviic_tpu_torch.data.grain_loader import GrainDataLoader
+
     tmp = tmp_path_factory.mktemp("refuse")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_trainer(ConfigNode(config_dict(tmp, tiny_dataset_dir)))
-    cases = [({"DATASET": {"LOADER": "grain"}}, NotImplementedError, "A.7"),
-             ({"TRAINING": {"CHECKPOINT_BACKEND": "orbax"}}, NotImplementedError, "A.8"),
+    cases = [({"TRAINING": {"CHECKPOINT_BACKEND": "orbax"}}, NotImplementedError, "A.8"),
              ({"TRAINING": {"RNG_IMPL": "mersenne"}}, ValueError, "RNG_IMPL"),
              ({"TRAINING": {"GRAD_ACCUM": 3}}, ValueError, "GRAD_ACCUM")]
     for patch, exc, match in cases:
@@ -572,17 +576,25 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_d
                     node[key] = value
         with pytest.raises(exc, match=match):
             build_trainer(ConfigNode(cfg), device="cpu")
+    cfg = config_dict(tmp, tiny_dataset_dir)
+    cfg["DATASET"]["LOADER"] = "grain"
+    tr = build_trainer(ConfigNode(cfg), device="cpu")
+    assert isinstance(tr.train_dataloader, GrainDataLoader) and tr.mesh is None
+    assert (tr.train_dataloader.shard_index, tr.train_dataloader.shard_count) == (0, 1)
+    assert (tr.val_dict_dataloader.shard_index, tr.val_dict_dataloader.shard_count) == (0, 1)
+    assert not tr.train_dataloader.drop_last and not tr.train_dict_dataloader.drop_last
     cfg = config_dict(tmp, tiny_dataset_dir, RNG_IMPL="rbg", COMPILATION_CACHE_DIR="/nowhere")
     assert build_trainer(ConfigNode(cfg), device="cpu").model is not None
 
     from openviic_tpu_torch.training import trainer as trainer_module
 
-    # data parallel over more than one card (batch 4 shares a factor with 4 cards)
+    # data parallel over more than one card in one process (batch 4 shares a
+    # factor with 4 cards): one process a card, under torchrun
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        trainer_module._refuse_unported(ConfigNode(cfg), torch.device("cuda"))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=4"):
+        trainer_module._check_config(ConfigNode(cfg), torch.device("cuda"))
     cfg["TRAINING"]["DATA_PARALLEL"] = False
-    trainer_module._refuse_unported(ConfigNode(cfg), torch.device("cuda"))
+    trainer_module._check_config(ConfigNode(cfg), torch.device("cuda"))
     # the adaptive decoder with its frozen backbone
     from tests.torch_port_rstnet import rstnet_model
 
@@ -592,7 +604,6 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_d
     in_adam = {id(p) for g in tr.state["optimizer"].param_groups for p in g["params"]}
     frozen = {id(p) for n, p in tr.model.named_parameters() if not tr._frozen_mask[n]}
     assert frozen and not in_adam & frozen
-
 
 
 def test_ragged_last_batch_and_grad_accum(tmp_path_factory, tiny_dataset_dir):
