@@ -255,23 +255,53 @@ On the card it runs these phases, each printing its seconds:
    (c) ``CaptioningPipeline(mesh="auto")`` (bf16, head kernel forced,
    attention kernel on; its launches) and ``mesh=[the card, the card]``
    at f32 each give captions bit-equal to the pipeline without a mesh;
-19. the last line: ``{"ok": true, "device": {...}}``.
+19. model parallel across processes (``model_parallel_phase``):
+   ``openviic_tpu_torch/parallel/layouts_dryrun.py`` at the flagship's
+   widths (random weights from a seed, f32 unless said), four gloo ranks on
+   the card (NCCL refuses two ranks on one device), each case against one
+   process on the card: (a) XE at a global batch of 60 for 6 steps over
+   {data 2, model 2} under SGD (losses within 1e-5, parameters within
+   2e-4 / 1e-5) and {model 2} under Adam (losses; each rank's sharded
+   parameters and moments half of one process's bytes); (b) the {model 2}
+   decode of 64 images at beam 3: f32 tokens equal, bf16 with
+   ``head_kernel=1`` (head_topk once a step in each rank on its 5 000-id
+   shard) with the mean best-beam log-prob within 0.5% and, teacher-forced
+   along its captions, each token's log-prob within 0.25 of one process's
+   on 99% of the tokens (the captions' agreement printed beside that of
+   one process with its encoder attention rounded otherwise); (c) the
+   {model 2} encoder under
+   ``OPENVIIC_PALLAS=1`` (fused_attention once a layer on each rank's 4
+   heads); (d) the flagship encoder under the ring and under Ulysses, the
+   ORT's (trig embedding off) under the ring, at {data 2, seq 2} (25 of
+   the 50 positions a rank): forward within 2e-5, gradients within 1e-4 of
+   their scale, one call a layer; (e) the encoder pipelined at {pipe 3} on
+   ranks 0-2 with 4 microbatches: forward within 1e-5, gradients within
+   2e-4 / 1e-4, and under ``OPENVIIC_PALLAS=1`` fused_attention once a
+   microbatch a stage; (f) phase 17's 4-expert MoE encoder at {expert 4}:
+   forward within 1e-5, gradients within 2e-4 / 1e-4; ms a step, a decode
+   or a forward, bytes per axis, the ops staged through the host; then
+   head_topk on rank 0's shard at decode steps 0, 12 and 24 and
+   fused_attention on rank 0's first tensor-parallel and pipeline-stage
+   calls against their plain versions, timed beside their bounds; (g) one
+   NCCL rank in this process, every axis of size 1, bit-equal to no group;
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families, two-stream, RSTNet, remainder and data-parallel
-phases, 0 where a kernel does not run); the line before that is
-the card's name and power limit.  Any failure raises, and the script
-exits non-zero without those lines.  ``--cpu`` runs phases 3-18 at tiny
+and cases in the families, two-stream, RSTNet, remainder, data-parallel
+and model-parallel phases, 0 where a kernel does not run); the line before
+that is the card's name and power limit.  Any failure raises, and the
+script exits non-zero without those lines.  ``--cpu`` runs phases 3-19 at tiny
 widths with the plain versions on the CPU (the artifact's first image;
 the serving cell at batch 8, 8 requests from 2 clients; XE,
 SCST and the trainer at tiny widths; the families, RSTNet and the
 remainder on 2 images and 6 steps, RSTNet's trainer on 4 images whose
 references are cut to 6 words; of phase 18 the dry run's one rank over gloo
 in this process, bit-equal to no group, and serving over ``["cpu",
-"cpu"]``) and ends with ``cpu rehearsal ok`` instead.  The script writes
-nothing outside ``openviic_tpu_torch/_build/`` but the serving, trainer,
-RDR, import and data-parallel phases' temporary directories, which it
+"cpu"]``; of phase 19 its check (g) over gloo) and ends with ``cpu
+rehearsal ok`` instead.  The script writes nothing outside
+``openviic_tpu_torch/_build/`` but the serving, trainer, RDR, import,
+data-parallel and model-parallel phases' temporary directories, which it
 deletes.
 """
 
@@ -2111,7 +2141,8 @@ def trained_phase(device, s, card: str, loaded):
     TRAINED_AGREEMENT_MIN, the bar the JAX package's own paths meet.  Each
     kernel is then held against its plain version on its own inputs
     captured at t = 0, 12 and 29 (the last step run, where the decode ends
-    earlier) and timed.  The CPU rehearsal decodes the first image."""
+    earlier) and timed.  The CPU rehearsal decodes the first image for
+    REHEARSAL_MAX_LEN steps (``rehearsal_artifact``)."""
     import importlib
 
     from openviic_tpu_torch import artifact
@@ -2648,6 +2679,21 @@ def images_phase(device, s, card: str, serving):
     return dict(seconds=seconds, worst=worst, pillow=pillow)
 
 
+REHEARSAL_MAX_LEN = 5  # the rehearsal's trained decodes: 5 steps of the artifact's 30
+
+
+def rehearsal_artifact(loaded) -> dict:
+    """The loaded artifact with a copy of its vocab whose captions end after
+    REHEARSAL_MAX_LEN steps: the rehearsal's trained and caption_directory
+    decodes run every path and check on the artifact's weights for those
+    steps only (a decode's first steps do not depend on its length)."""
+    import copy
+
+    vocab = copy.copy(loaded["vocab"])
+    vocab.max_caption_length = REHEARSAL_MAX_LEN
+    return dict(loaded, vocab=vocab)
+
+
 def directory_phase(device, s, card: str, loaded, trained):
     """caption_directory over the trained artifact's test images, written
     as ``<id>.npy`` (f16 regions at their real counts) beside a port
@@ -2658,7 +2704,8 @@ def directory_phase(device, s, card: str, loaded, trained):
     F32_CIDER_ATOL; at bf16 through the head kernel (forced) its CIDEr,
     launches (one a step) and captions/s, the background loading of the
     files included, are printed.  The rehearsal takes the trained phase's
-    image."""
+    image and its vocab cut short (``rehearsal_artifact``), pickled into
+    the run."""
     import tempfile
 
     from openviic_tpu_torch import artifact
@@ -2680,7 +2727,9 @@ def directory_phase(device, s, card: str, loaded, trained):
                 np.save(os.path.join(features, f"{i}.npy"), {"region_features": z[i]},
                         allow_pickle=True)
         run = os.path.join(tmp, "run")
-        write_run(run, loaded["model"], vocab_file=artifact.ARTIFACT_DIR / "vocab.bin")
+        # the rehearsal's vocab is cut short (rehearsal_artifact): pickled as it is
+        write_run(run, loaded["model"], **({"vocab_file": artifact.ARTIFACT_DIR / "vocab.bin"}
+                                           if cuda else {"vocab": loaded["vocab"]}))
 
         def pipeline(bf16, **flags):
             return CaptioningPipeline(trained_config(**flags), checkpoint_dir=run, beam_size=beam,
@@ -5729,6 +5778,87 @@ def data_parallel_phase(device, s, card: str, loaded) -> dict:
     return {"launches": launches, "kernels": kernels, "figures": figures}
 
 
+LAYOUTS = dict(global_batch=XE_BATCH, steps=6, images=64, beam=3, microbatches=4)
+LAYOUTS_RANK_TIMEOUT = 600
+
+
+def layouts_options(s, cuda: bool, backend: str = "gloo", capture=None):
+    """``parallel/layouts_dryrun.py``'s options at ``s``'s widths: every rank
+    on the card (over gloo: NCCL takes one rank a device), LAYOUTS' sizes,
+    the MoE of phase 17 (REMAINDER_EXPERTS experts)."""
+    from openviic_tpu_torch.parallel import layouts_dryrun
+
+    argv = ["--device", "cuda:0" if cuda else "cpu", "--backend", backend,
+            "--d-model", str(s["d_model"]), "--heads", str(s["heads"]),
+            "--layers", str(s["layers"]), "--d-ff", str(s["d_ff"]),
+            "--d-feature", str(s["d_feature"]), "--regions", str(s["n_regions"]),
+            "--vocab", str(s["vocab"]), "--max-len", str(s["max_len"]),
+            "--warmup", str(XE_WARMUP), "--experts", str(REMAINDER_EXPERTS),
+            "--timeout", str(LAYOUTS_RANK_TIMEOUT)]
+    for key, value in LAYOUTS.items():
+        argv += ["--" + key.replace("_", "-"), str(value)]
+    if capture is not None:
+        argv += ["--capture", capture]
+    return layouts_dryrun.parse(argv)
+
+
+def model_parallel_phase(device, s, card: str) -> dict:
+    """Phase 19: the model-parallel layouts across processes
+    (``parallel/layouts_dryrun.py``: four gloo ranks on the card, each case
+    against one process on the card), then ``head_topk`` on rank 0's vocab
+    shard at decode steps 0, 12 and 24 and ``fused_attention`` on rank 0's
+    first tensor-parallel encoder call and first pipeline-stage call,
+    each against its plain version and timed beside its bound; last, one
+    NCCL rank in this process, every axis of size 1, bit-equal to no
+    group.  The rehearsal runs that last check only, over gloo on the CPU.
+    Returns each kernel's launches in the phase, rank 0's kernel cases and
+    the figures."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch.parallel import layouts_dryrun
+
+    cuda = device.type == "cuda"
+    launches = {fn.__name__: {} for fn in counted_wrappers()}
+    kernels, figures = {}, {}
+    if cuda:
+        capture = tempfile.mkdtemp(prefix="openviic_layouts_capture_")
+        try:
+            figures = timed("model parallel (a)-(f): four gloo ranks on the card",
+                            lambda: layouts_dryrun.run(layouts_options(s, True,
+                                                                       capture=capture)))
+            captured = torch.load(os.path.join(capture, "captured.pt"), map_location=device,
+                                  weights_only=False)
+        finally:
+            shutil.rmtree(capture, ignore_errors=True)
+        for key, value in figures.items():
+            log(f"  {key}: {json.dumps(value)}")
+        head = captured["head_topk"]
+        last = max(head)
+        head = dict(head, last=(last, head[last]))
+        kernels = trained_kernel_cases(device, {"head_topk": head, "fused_attention_encoder":
+                                                captured["fused_attention_tp"]},
+                                       what="model parallel, rank 0's shard")
+        pipe = trained_kernel_cases(device, {"fused_attention_encoder":
+                                             captured["fused_attention_pipe"]},
+                                    what="model parallel, pipeline stage 0")
+        kernels["fused_attention"] += pipe["fused_attention"]
+        launches["head_topk"]["tp_decode_per_rank"] = figures["decode"]["head_topk_launches"]
+        launches["fused_attention"].update(
+            tp_encoder_per_rank=figures["pallas"]["launches"],
+            pipeline_per_stage=figures["pipe"]["flag_launches"])
+    single = timed(f"model parallel (g): one {'NCCL' if cuda else 'gloo'} rank in this process",
+                   lambda: layouts_dryrun.single_rank(
+                       layouts_options(s, cuda, "nccl" if cuda else "gloo")))
+    log(f"  one {single['backend']} rank, every axis of size 1: bit-equal to no group in "
+        f"{single['bit_equal']}")
+    figures["single_rank"] = single
+    for name in launches:  # 0 where a kernel does not run
+        for path in ("tp_decode_per_rank", "tp_encoder_per_rank", "pipeline_per_stage"):
+            launches[name].setdefault(path, 0)
+    return {"launches": launches, "kernels": kernels, "figures": figures}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5842,7 +5972,7 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-18 at tiny widths on the CPU")
+                        help="rehearse phases 3-19 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     parser.add_argument("--dp-trainer-rank", metavar="DIR",
@@ -5908,7 +6038,7 @@ def main() -> int:
 
 
 def all_phases(device, s, card: str):
-    """Phases 3-18.  Returns the per-kernel entries (none on the CPU), each
+    """Phases 3-19.  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -5936,11 +6066,12 @@ def all_phases(device, s, card: str):
     from openviic_tpu_torch.artifact import load_trained_artifact
 
     loaded = timed("load the trained artifact", lambda: load_trained_artifact(device="cpu"))
+    shown = loaded if device.type == "cuda" else rehearsal_artifact(loaded)
     try:
-        trained = timed("trained artifact decode", lambda: trained_phase(device, s, card, loaded))
+        trained = timed("trained artifact decode", lambda: trained_phase(device, s, card, shown))
         with quiet_port_logger():
             directory = timed("caption_directory of the trained artifact",
-                              lambda: directory_phase(device, s, card, loaded, trained))
+                              lambda: directory_phase(device, s, card, shown, trained))
     finally:  # XE and SCST run whatever the decode gave; a failure of any raises
         try:
             xe = timed("XE training", lambda: xe_phase(device, s, card, loaded))
@@ -5954,6 +6085,7 @@ def all_phases(device, s, card: str):
     rstnet = timed("RSTNet", lambda: rstnet_phase(device, s, card, loaded))
     remainder = timed("single-card remainder", lambda: remainder_phase(device, s, card))
     data_parallel = timed("data parallel", lambda: data_parallel_phase(device, s, card, loaded))
+    model_parallel = timed("model parallel", lambda: model_parallel_phase(device, s, card))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -6000,6 +6132,10 @@ def all_phases(device, s, card: str):
         e["data_parallel"] = data_parallel["launches"][e["name"]]
         e["data_parallel_cases"] = data_parallel["kernels"].get(e["name"], [])
     found[0]["data_parallel_figures"] = data_parallel["figures"]
+    for e in found:  # every kernel's launches on each model-parallel path, 0 where it does not run
+        e["model_parallel"] = model_parallel["launches"][e["name"]]
+        e["model_parallel_cases"] = model_parallel["kernels"].get(e["name"], [])
+    found[0]["model_parallel_figures"] = model_parallel["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

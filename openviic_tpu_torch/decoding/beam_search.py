@@ -30,6 +30,13 @@ default), full log-softmax distributions through ``_select_topk`` with the
 caches reordered physically every step.  Selection math is float32
 whatever the compute dtype.
 
+A tensor-parallel model (``parallel.tensor_parallel.shard_model`` over a
+``model`` axis) keeps its heads' share of the caches, and fast selection
+takes each rank's top-k and logsumexp over its vocab shard (the head
+kernel on the shard with ``head_kernel``), merged exactly across the ranks
+(``vocab_parallel_topk``); the layer kernels and the beam-select kernel
+are refused there.
+
 Dropout-active sampling (SCST's ``TRAINING.SCST_SAMPLE_DROPOUT``, the JAX
 ``train_dropout_rng``) runs the encoder and every step in train mode, each
 on a stream of its own derived from one seed; the whole-layer step kernels
@@ -56,7 +63,9 @@ import torch
 
 from openviic_tpu_torch import rng
 from openviic_tpu_torch.models.base import make_decode_cache
+from openviic_tpu_torch.ops.fused_decoder_step import fused_step_enabled
 from openviic_tpu_torch.ops.head_topk import head_topk
+from openviic_tpu_torch.parallel.tensor_parallel import vocab_parallel_topk
 
 
 def _topk_lowest_index(x: torch.Tensor, k: int):
@@ -325,6 +334,19 @@ class _Stream:
         # the full distributions: the fused selections never materialise them
         self.fast_select = beam_resident and not return_probs
         self.head_kernel = bool(head_kernel) and self.fast_select
+        # a tensor-parallel model (parallel.tensor_parallel.shard_model):
+        # fast selection merges each rank's vocab shard's top-k and lse
+        self.mesh = getattr(model, "parallel_mesh", None)
+        model_parallel = 1 if self.mesh is None else self.mesh.axis_size("model")
+        if model_parallel > 1:
+            refused = [name for name, on in (
+                ("resident_kernel", resident_kernel), ("attn_kernel", attn_kernel),
+                ("OPENVIIC_FUSED_STEP=1", fused_step_enabled() and not beam_resident)) if on]
+            if refused:
+                raise ValueError(f"{', '.join(refused)} under a 'model' mesh axis of size "
+                                 f"{model_parallel}: the layer kernels read whole layers and "
+                                 "the beam-select kernel is not run on a rank's heads")
+        self.vocab_parallel = model_parallel > 1 and self.fast_select
         self.model, self.beam_size, self.beam_resident = model, beam_size, beam_resident
         self.attn_kernel, self.resident_kernel, self.stream = attn_kernel, resident_kernel, stream
         param = next(model.parameters())
@@ -352,7 +374,7 @@ class _Stream:
         self.memory_mask = memory_mask
         n_rows = b_s * beam_size
         cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype,
-                                  device=device)
+                                  device=device, model_parallel=model_parallel)
         self.cache = model.prepare_cache(cache, memory)
         if language_table is not None:
             self.cache["language_table"] = language_table.to(device=device, dtype=dtype)
@@ -391,7 +413,7 @@ class _Stream:
             t, self.selected_words, self.cache, self.memory_mask, ancestry=self.ancestry,
             beam_select=beam_size if self.beam_resident else None,
             # fast select goes through raw logits + logsumexp
-            raw_head="hidden" if self.head_kernel else self.fast_select,
+            raw_head="hidden" if self.head_kernel or self.vocab_parallel else self.fast_select,
             resident_kernel=self.resident_kernel, attn_kernel=self.attn_kernel,
         )
         seq_logprob, seq_mask = self.seq_logprob, self.seq_mask
@@ -402,13 +424,16 @@ class _Stream:
         else:
             finished = torch.zeros((b_s, beam_size), dtype=torch.bool, device=device)
         if self.fast_select:
-            if self.head_kernel:
-                head_weight = model.decoder.fc.weight
-                vals, idxs, lse_rows = head_topk(
-                    head.to(torch.bfloat16).contiguous(),
-                    head_weight.to(torch.bfloat16).contiguous(),
-                    beam_size,
-                )
+            if self.head_kernel or self.vocab_parallel:
+                if self.vocab_parallel:
+                    vals, idxs, lse_rows = vocab_parallel_topk(
+                        head, model.decoder.fc, beam_size, kernel=self.head_kernel)
+                else:
+                    vals, idxs, lse_rows = head_topk(
+                        head.to(torch.bfloat16).contiguous(),
+                        model.decoder.fc.weight.to(torch.bfloat16).contiguous(),
+                        beam_size,
+                    )
                 lse = lse_rows.reshape(b_s, beam_size)
                 selected = _finish_select(
                     vals.reshape(b_s, beam_size, beam_size),

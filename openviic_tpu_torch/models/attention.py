@@ -68,7 +68,10 @@ def _resolve_ancestry(cache_arr: torch.Tensor, ancestry: torch.Tensor) -> torch.
 
 def promoted_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``linear(x)`` in the promoted dtype of ``x`` and the weights, as a
-    Flax ``Dense`` computes it (an f32 input to bf16 weights gives f32)."""
+    Flax ``Dense`` computes it (an f32 input to bf16 weights gives f32).  A
+    tensor-parallel linear (``parallel.tensor_parallel``) promotes itself."""
+    if getattr(linear, "promotes", False):
+        return linear(x)
     dtype = torch.promote_types(x.dtype, linear.weight.dtype)
     bias = None if linear.bias is None else linear.bias.to(dtype)
     return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
@@ -87,6 +90,41 @@ def residual_layer_norm(layer_norm: nn.LayerNorm, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _ring_dispatch(q, k, v, d_k: int, mask, bias):
+    """The sequence-parallel path (JAX's ``_ring_dispatch``): inside a
+    ``parallel.ring_attention`` context, bidirectional self-attention (nq
+    == nk, a length that the context's seq axis divides, a mask without a
+    query axis and without a head axis) runs as a K/V ring over that axis,
+    or, under ``mode="ulysses"``, as Ulysses where the axis divides the
+    heads.  Returns None when not eligible (decoder causal or cached
+    attention, per-head masks, indivisible lengths) or outside a context.
+    The context is read at each call (no trace to cache it)."""
+    from openviic_tpu_torch.parallel.ring_attention import (
+        current_ring_context,
+        ring_self_attention,
+    )
+
+    ctx = current_ring_context()
+    if ctx is None:
+        return None
+    nq, nk = q.shape[1], k.shape[1]
+    n_shards = ctx.mesh.axis_size(ctx.seq_axis)
+    if (nq != nk or nq % n_shards != 0
+            or (mask is not None and (mask.shape[2] != 1 or mask.shape[1] != 1))):
+        return None
+    key_mask = mask[:, 0, 0, :] if mask is not None else None
+    attend = ring_self_attention
+    if ctx.mode == "ulysses" and q.shape[2] % n_shards == 0:
+        from openviic_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+        attend = ulysses_self_attention
+    # a row whose every key is masked gives 0 here (NaN on the dense path);
+    # such rows are padding queries, which the encoders zero
+    out = attend(q, k, v, ctx.mesh, bias=bias, key_mask=key_mask, seq_axis=ctx.seq_axis,
+                 batch_axis=ctx.batch_axis, scale=1.0 / math.sqrt(d_k))
+    return out.to(q.dtype)
+
+
 def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
             bias: Optional[torch.Tensor] = None):
     """q (bs, nq, h, d_k), k/v (bs, nk, h, d), mask (bs, 1|h, nq|1, nk)
@@ -99,7 +137,13 @@ def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
     it), and ``ops.fused_attention``'s float32 output is returned uncast,
     as in the JAX package; a fully masked row is then uniform.  q, k and v
     of mixed dtypes (the augmented memory's f32 K/V under bf16 queries) go
-    to the kernel in their promoted dtype, since it takes one."""
+    to the kernel in their promoted dtype, since it takes one.
+
+    Inside a ``parallel.ring_attention`` context an eligible call takes
+    the sequence-parallel layout first (``_ring_dispatch``), as in JAX."""
+    ring = _ring_dispatch(q, k, v, d_k, mask, bias)
+    if ring is not None:
+        return ring
     if pallas_enabled():
         common = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
         q, k, v = q.to(common), k.to(common), v.to(common)
@@ -168,10 +212,20 @@ class ScaledDotProductAttention(_Projections):
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
 
     def project_qkv_fused(self, x):
-        """One matmul for q/k/v of the same input (decode hot path)."""
+        """One matmul for q/k/v of the same input (decode hot path), over
+        their weights concatenated once and kept until a parameter is
+        replaced or changed in place (data pointer and version counter)."""
         bs, n = x.shape[:2]
-        weight = torch.cat([self.fc_q.weight, self.fc_k.weight, self.fc_v.weight])
-        bias = torch.cat([self.fc_q.bias, self.fc_k.bias, self.fc_v.bias])
+        params = (self.fc_q.weight, self.fc_k.weight, self.fc_v.weight,
+                  self.fc_q.bias, self.fc_k.bias, self.fc_v.bias)
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        cached = getattr(self, "_qkv_pack", None)
+        if cached is None or cached[0] != key or torch.is_grad_enabled():
+            weight, bias = torch.cat(params[:3]), torch.cat(params[3:])
+            if not torch.is_grad_enabled():
+                self._qkv_pack = (key, weight, bias)
+        else:
+            weight, bias = cached[1:]
         qkv = nn.functional.linear(x, weight, bias)
         hk = self.h * self.d_k
         q = qkv[..., :hk].reshape(bs, n, self.h, self.d_k)

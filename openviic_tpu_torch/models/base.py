@@ -14,11 +14,12 @@ from openviic_tpu_torch.models.decoders import DecodeCache
 
 
 def make_decode_cache(decoder_config, vocab, batch_size: int,
-                      dtype=torch.float32, device="cpu") -> DecodeCache:
+                      dtype=torch.float32, device="cpu", model_parallel: int = 1) -> DecodeCache:
     """A zero DecodeCache from config shapes (no parameters needed); the
     cross-attention entries are filled by ``prepare_cache``.  ``Decoder``
     and ``MeshedDecoder`` share its layout; ``AdaptiveDecoder``'s has one
-    layer more, over ``ADAPTIVE_ATTENTION``."""
+    layer more, over ``ADAPTIVE_ATTENTION``.  A tensor-parallel model keeps
+    1 / ``model_parallel`` of the heads a rank."""
     arch = decoder_config.ARCHITECTURE
     if arch not in ("Decoder", "MeshedDecoder", "AdaptiveDecoder"):
         raise NotImplementedError(f"decode cache for {arch} is not ported yet")
@@ -29,7 +30,7 @@ def make_decode_cache(decoder_config, vocab, batch_size: int,
     layers = []
     for attention in attentions:
         self_cfg = attention.SELF_ATTENTION
-        shape = (batch_size, L, self_cfg.HEAD)
+        shape = (batch_size, L, self_cfg.HEAD // model_parallel)
         k = torch.zeros(shape + (self_cfg.D_KEY,), dtype=dtype, device=device)
         v = torch.zeros(shape + (self_cfg.D_VALUE,), dtype=dtype, device=device)
         layers.append({"self": {"k": k, "v": v}, "cross": None})
@@ -51,7 +52,8 @@ class BaseTransformer(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], raw_logits: bool = False):
         """Teacher-forced forward -> (bs, seq_len, vocab) f32 log-probs
-        (``raw_logits=True``: the head logits in compute dtype)."""
+        (``raw_logits=True``: the head logits in compute dtype;
+        ``"hidden"``: the (bs, seq_len, d_model) pre-head hidden state)."""
         encoder_features, encoder_padding_mask = self.encoder_forward(batch)
         return self.decoder(
             batch["caption_tokens"], encoder_features, encoder_padding_mask,

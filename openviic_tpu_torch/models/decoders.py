@@ -339,6 +339,8 @@ class _DecoderBase(nn.Module):
         for layer in self.layers:
             out = layer(out, encoder_features, encoder_features, pad_mask,
                         self_mask, encoder_attention_mask, **inputs)
+        if raw_logits == "hidden":  # the pre-head state (a vocab-parallel head's input)
+            return out
         out = self.fc(out)
         if raw_logits:
             return out

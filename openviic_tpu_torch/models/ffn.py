@@ -59,7 +59,15 @@ class MoEPositionWiseFeedForward(nn.Module):
     sum_e(share of tokens routed to e * mean router probability of e),
     detached: nothing consumes it (the JAX package sows it and its
     trainer leaves it out too), and a graph held on the module would stop
-    ``copy.deepcopy`` (the decode's ``ComputeShadow``)."""
+    ``copy.deepcopy`` (the decode's ``ComputeShadow``).
+
+    Under expert parallelism (``parallel.tensor_parallel.shard_model``)
+    the module holds the experts ``local_experts`` only and runs them on
+    the tokens routed to them; the other rows are zero and one all-reduce
+    over the expert axis combines the ranks' outputs.  The routing runs
+    replicated on every rank.  With dropout the experts' hidden masks are
+    drawn over the rank's experts only, so they differ from one
+    process's."""
 
     def __init__(self, config):
         super().__init__()
@@ -77,6 +85,10 @@ class MoEPositionWiseFeedForward(nn.Module):
         self.dropout_2 = nn.Dropout(config.DROPOUT)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
         self.aux_loss = None
+        # expert parallel (parallel/tensor_parallel.py): the [first, last)
+        # experts whose weights this rank holds, and (mesh, axis)
+        self.local_experts = (0, e)
+        self.expert_parallel = None
 
     def reset_with(self, generator: torch.Generator) -> None:
         """Per-expert ``nn.Linear`` draws, U(+-1/sqrt(fan_in)) for kernel
@@ -104,13 +116,23 @@ class MoEPositionWiseFeedForward(nn.Module):
         slot = torch.where(position < capacity, expert * capacity + position, spare)
         self.aux_loss = (e * torch.sum(onehot.float().mean(dim=0) * probs.mean(dim=0))).detach()
 
-        xe = xf.new_zeros((spare + 1, d)).index_copy(0, slot, xf)[:spare]
-        xe = xe.reshape(e, capacity, d)
+        xin, gate_in = xf, gate
+        if self.expert_parallel is not None:  # the replicated inputs of this rank's experts
+            from openviic_tpu_torch.parallel import collectives
+
+            xin, gate_in = (collectives.copy_to(t, *self.expert_parallel) for t in (xf, gate))
+        xe = xin.new_zeros((spare + 1, d)).index_copy(0, slot, xin)[:spare]
+        first, last = self.local_experts
+        xe = xe.reshape(e, capacity, d)[first:last]
         h = torch.relu(torch.bmm(xe, self.w1.float()) + self.b1.float()[:, None, :])
         h = self.dropout_2(h)
         ye = torch.bmm(h, self.w2.float()) + self.b2.float()[:, None, :]
-        ye = torch.cat([ye.reshape(spare, d), ye.new_zeros((1, d))])
-        out = self.dropout(gate[:, None] * ye[slot])
+        ye = torch.cat([ye.new_zeros((first * capacity, d)), ye.reshape(-1, d),
+                        ye.new_zeros(((e - last) * capacity + 1, d))])
+        out = gate_in[:, None] * ye[slot]
+        if self.expert_parallel is not None:  # the combine: each token from its expert's rank
+            out = collectives.all_reduce(out, *self.expert_parallel)
+        out = self.dropout(out)
         return residual_layer_norm(self.layer_norm, x, out.reshape(x.shape))
 
 

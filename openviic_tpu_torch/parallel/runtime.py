@@ -101,12 +101,13 @@ def barrier(tag: str) -> None:
         dist.barrier()
 
 
-def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """Rank ``src``'s ``obj`` on every rank (picklable host values)."""
+def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:
+    """Rank ``src``'s ``obj`` on every rank of ``group`` (the whole group by
+    default; picklable host values)."""
     if process_count() <= 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src, device=collective_device())
+    dist.broadcast_object_list(box, src=src, group=group, device=collective_device())
     return box[0]
 
 

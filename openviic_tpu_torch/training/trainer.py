@@ -146,7 +146,7 @@ class ScstSetup:
                  postprocess_pairs: Optional[Callable] = None,
                  optimizer_state: Optional[dict] = None,
                  language_table: Optional[Callable] = None,
-                 mesh: Optional[dp.DataMesh] = None):
+                 mesh: Optional[dp.Mesh] = None):
         self.model = model
         self.vocab = model.vocab
         self.device = next(model.parameters()).device
@@ -297,7 +297,7 @@ def multiprocess_refusal(config) -> None:
                          "(or DATASET.PAD_SIZES) so every host pads identically")
 
 
-def make_xe_steps(model, training, grad_accum: int, mesh: Optional[dp.DataMesh]):
+def make_xe_steps(model, training, grad_accum: int, mesh: Optional[dp.Mesh]):
     """(the XE step, the k-step call or None) for ``TRAINING``: across
     processes JAX's sharded step, which ignores ``LABEL_SMOOTHING``,
     ``MIXED_PRECISION`` and ``STEPS_PER_CALL``; else ``make_xe_step`` with

@@ -85,7 +85,8 @@ def test_port_modules_never_import_the_jax_stack():
 
 
 # the trained-artifact decode, the scorers, XE training, the native
-# scorers' binding, SCST, the data side, the trainer lifecycle and serving
+# scorers' binding, SCST, the data side, the trainer lifecycle, serving and
+# the parallel layouts
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
@@ -93,7 +94,10 @@ NEW_MODULES = (
     "training/__init__", "training/optim", "training/steps", "native/__init__", "rng",
     "training/device_reward", "training/trainer", "data/loader", "training/checkpoint",
     "utils/__init__", "utils/logging", "utils/metrics", "train", "serving", "server",
-    "data/extraction", "serve", "predict", "extract_features",
+    "data/extraction", "serve", "predict", "extract_features", "data/grain_loader",
+    "parallel/__init__", "parallel/runtime", "parallel/mesh", "parallel/dryrun",
+    "parallel/collectives", "parallel/tensor_parallel", "parallel/ring_attention",
+    "parallel/ulysses", "parallel/pipeline", "parallel/layouts_dryrun", "parallel/gloo_probe",
 )
 
 _IMPORT_ALL = """
