@@ -284,25 +284,57 @@ On the card it runs these phases, each printing its seconds:
    fused_attention on rank 0's first tensor-parallel and pipeline-stage
    calls against their plain versions, timed beside their bounds; (g) one
    NCCL rank in this process, every axis of size 1, bit-equal to no group;
-20. the last line: ``{"ok": true, "device": {...}}``.
+20. the trainer's backends (``backends_phase``): (a) in phase 13's child
+   process, phase 13's trainer with ``CHECKPOINT_BACKEND: orbax`` (the
+   DCP backend): XE, the switch and one SCST epoch, head_topk once a
+   decode step and beam_select_attention once a layer and step, the
+   seconds each save blocks the loop beside phase 13's native saves and
+   ``last_model.orbax``'s MiB; a second run resumed from
+   ``last_model.orbax`` after one epoch, equal bit for bit under
+   deterministic algorithms; ``CaptioningPipeline`` from
+   ``best_model.orbax`` (bf16, head kernel forced, attention kernel on)
+   with the captions and ids of the native checkpoint of the same weights
+   (``orbax_trainer_part``); (b) the flagship at full width with
+   ``UsualEmbedding`` over a seeded 300-d vector file of the vocab's words
+   (read as text, then from its ``.npz``), one request of 320 images at
+   beam 5, bf16: the tuned path, ``resident_kernel`` and
+   ``OPENVIIC_FUSED_STEP=1``, each against eager fast select (launches per
+   step, valid ids, score parity); head_topk and resident_layer_step on
+   their captured inputs against their plain versions; f32 on the card
+   against its host's CPU on 16 images; a pipeline from a checkpoint and a
+   ``vocab.bin`` carrying the vectors with equal captions
+   (``vectors_part``); (c) two child processes with
+   ``OPENVIIC_COMPILE_CACHE`` set: the first, started beside phase 2's
+   build, compiles every kernel there, the second, once the first has
+   ended, starts no nvcc and loads them (``cache_part``); (d) the
+   launcher (``parallel.launch.spawn``) on [the card, the card] over gloo:
+   one XE epoch of phase 13's data at a global batch of 60, losses within
+   1e-5 of one process, then one SCST epoch of 43-image batches (the two
+   odd ones whole on both ranks), each batch's mean reward within 1e-5 of
+   one process's; parameters bit-equal across the ranks, rank 0 alone
+   writing the checkpoint (``local_parallel_part``);
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families, two-stream, RSTNet, remainder, data-parallel
-and model-parallel phases, 0 where a kernel does not run); the line before
-that is the card's name and power limit.  Any failure raises, and the
-script exits non-zero without those lines.  ``--cpu`` runs phases 3-19 at tiny
+and cases in the families, two-stream, RSTNet, remainder, data-parallel,
+model-parallel and backends phases, 0 where a kernel does not run); the
+line before that is the card's name and power limit.  Any failure raises,
+and the script exits non-zero without those lines.  ``--cpu`` runs phases
+3-20 at tiny
 widths with the plain versions on the CPU (the artifact's first image;
 the serving cell at batch 8, 8 requests from 2 clients; XE,
 SCST and the trainer at tiny widths; the families, RSTNet and the
 remainder on 2 images and 6 steps, RSTNet's trainer on 4 images whose
 references are cut to 6 words; of phase 18 the dry run's one rank over gloo
 in this process, bit-equal to no group, and serving over ``["cpu",
-"cpu"]``; of phase 19 its check (g) over gloo) and ends with ``cpu
-rehearsal ok`` instead.  The script writes nothing outside
+"cpu"]``; of phase 19 its check (g) over gloo; phase 20's (a) and (b) at
+tiny widths, (c) as the build directory moved and given back in this
+process, (d) as one host-local gloo rank in this process) and ends with
+``cpu rehearsal ok`` instead.  The script writes nothing outside
 ``openviic_tpu_torch/_build/`` but the serving, trainer, RDR, import,
-data-parallel and model-parallel phases' temporary directories, which it
-deletes.
+data-parallel, model-parallel and backends phases' temporary directories,
+which it deletes.
 """
 
 from __future__ import annotations
@@ -3936,14 +3968,25 @@ def trainer_phase(device, s, card: str, loaded):
             "kernels": cases}
 
 
+def trainer_and_orbax(device, s, card: str, loaded):
+    """``trainer_phase``, then phase 20 (a) (``orbax_trainer_part``) in the
+    same process, under the result's "orbax" key."""
+    result = trainer_phase(device, s, card, loaded)
+    result["orbax"] = timed("backends (a): the DCP checkpoint backend's trainer and serving",
+                            lambda: orbax_trainer_part(device, s, card, loaded,
+                                                       result["head_topk"]["epochs"]))
+    return result
+
+
 def trainer_phase_apart(device, s, card: str, loaded):
-    """``trainer_phase``; on the card in a child process whose CUDA starts
-    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic cuBLAS
-    needs and which slows the XE step (``scripts/torch_trainer_costs.py``),
-    so that the other phases run without it.  The child's lines are printed
-    here; its result is its last line."""
+    """``trainer_and_orbax``; on the card in a child process whose CUDA
+    starts with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic
+    cuBLAS needs and which slows the XE step
+    (``scripts/torch_trainer_costs.py``), so that the other phases run
+    without it.  The child's lines are printed here; its result is its
+    last line."""
     if device.type != "cuda":
-        return trainer_phase(device, s, card, loaded)
+        return trainer_and_orbax(device, s, card, loaded)
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trainer-phase", card],
                           env=env, capture_output=True, text=True, timeout=900)
@@ -5859,6 +5902,701 @@ def model_parallel_phase(device, s, card: str) -> dict:
     return {"launches": launches, "kernels": kernels, "figures": figures}
 
 
+# ---------------------------------------------------------------- phase 20
+BACKENDS_EPOCHS = 2  # XE, the switch (PATIENCE 0), one SCST epoch
+BACKENDS_SERVE_IMAGES = 30  # phase 13's test images, served from both checkpoints
+VECTORS_NAME = "PhoW2VSyllable300"  # a registered 300-d class: the file's name and width
+VECTORS_SEED = 20
+LOCAL_RANK_TIMEOUT = 600
+LOCAL_LOSS_RTOL = 1e-5
+# phase 20 (d)'s SCST images a batch: 90 train images make batches of 43,
+# 43 and 4, so two run whole on both ranks (43 is odd) and one is split
+LOCAL_SCST_IMAGES = 43
+
+
+def directory_mib(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path)
+               for f in files) / 2**20
+
+
+def orbax_trainer_part(device, s, card: str, loaded, native_epochs: dict) -> dict:
+    """Phase 20 (a), in phase 13's process (on the card its child, whose
+    cuBLAS workspace makes the step deterministic): phase 13's trainer
+    config, data and weights with ``CHECKPOINT_BACKEND: orbax``, under
+    ``torch.use_deterministic_algorithms``:
+
+    1. U: ``start(max_epochs=BACKENDS_EPOCHS)``: XE, the switch, one SCST
+       epoch; head_topk once a decode step and beam_select_attention once
+       a layer and step (the card only); each epoch's seconds that the
+       save blocks the loop (the host copy; the write goes on behind)
+       beside phase 13's native saves (``native_epochs``), and
+       ``last_model.orbax``'s MiB;
+    2. R: ``start(max_epochs=1)``, then a new trainer resumes from
+       ``last_model.orbax`` for the rest: parameters, optimizer, generator
+       and loader counters equal to U's bit for bit;
+    3. ``CaptioningPipeline`` from U's ``best_model.orbax`` (bf16, head
+       kernel forced on the card, attention kernel on) against the native
+       ``best_model.ckpt`` of the same weights: captions and ids equal on
+       phase 13's test images, the kernels' launches per step.
+
+    The rehearsal runs it at tiny widths (random weights, 4 images)."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.serving import CaptioningPipeline
+    from openviic_tpu_torch.training import checkpoint as ckpt
+    from openviic_tpu_torch.training.orbax_backend import OrbaxBackend
+    from openviic_tpu_torch.utils import setup_logger
+
+    cuda = device.type == "cuda"
+    split = TRAINER_SPLIT if cuda else (2, 1, 1)
+    tmp = tempfile.mkdtemp(prefix="openviic_orbax_phase_")
+    failures = []
+    trainer_logger = setup_logger()
+    level = trainer_logger.level
+    trainer_logger.setLevel(logging.WARNING)
+    try:
+        data = os.path.join(tmp, "data")
+        trainer_dataset(data, loaded, split)
+
+        def config(run, backend="orbax", **training):
+            cfg = trainer_config(data, os.path.join(tmp, run), s, cuda, TRAINER_LOG_EVERY)
+            cfg = cfg.to_dict()
+            cfg["TRAINING"].update(CHECKPOINT_BACKEND=backend, **training)
+            return ConfigNode(cfg)
+
+        def make(run, fresh):
+            cfg = config(run)
+            run_dir = os.path.join(cfg.TRAINING.CHECKPOINT_PATH, TRAINER_NAME)
+            os.makedirs(run_dir, exist_ok=True)
+            if not os.path.exists(os.path.join(run_dir, "vocab.bin")):
+                shutil.copyfile(artifact.ARTIFACT_DIR / "vocab.bin",
+                                os.path.join(run_dir, "vocab.bin"))
+            tr = build_trainer(cfg, device=device)
+            if fresh and cuda:
+                tr.model.load_state_dict(loaded["state_dict"])
+            return tr
+
+        counted = counted_wrappers()
+        with deterministic_algorithms():
+            u = make("U", fresh=True)
+            n_layers = len(u.model.decoder.layers)
+            rec = {"epochs": {}}
+            clock_trainer(u, device, rec, lambda label: contextlib.nullcontext())
+            for fn in counted:
+                fn.launches = 0
+            steps0 = u.beam_searcher.steps
+            u.start(max_epochs=BACKENDS_EPOCHS)
+            steps = u.beam_searcher.steps - steps0
+            launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+            u_snap = trainer_snapshot(u)
+            epochs = [r for _, r in sorted(rec["epochs"].items())]
+            phases = [r.get("phase") for r in epochs]
+            save_s = [r.get("save", float("nan")) for r in epochs]
+            native_s = [r.get("save", float("nan")) for _, r in
+                        sorted(native_epochs.items(), key=lambda kv: int(kv[0]))]
+            last = os.path.join(u.checkpoint_path, OrbaxBackend.LAST_NAME)
+            mib = directory_mib(last)
+            log(f"  orbax trainer U: phases {phases}, losses "
+                f"{[round(r.get('loss', float('nan')), 5) for r in epochs]}; the save blocks "
+                f"the loop {[round(x, 4) for x in save_s]} s an epoch (native, phase 13: "
+                f"{[round(x, 4) for x in native_s]} s); last_model.orbax {mib:.1f} MiB "
+                f"({sorted(os.listdir(last))}); {steps} decode steps, launches {launches}")
+            want = ({"head_topk": steps, "beam_select_attention": n_layers * steps}
+                    if cuda else {})
+            if phases != ["xe", "scst"] or not np.all(np.isfinite([r["loss"] for r in epochs])):
+                failures.append(f"orbax trainer U: phases {phases}")
+            if launches != want or steps <= 0:
+                failures.append(f"orbax trainer launches {launches}, expected {want}")
+            r = make("R", fresh=True)
+            r.start(max_epochs=1)
+            del r
+            r = make("R", fresh=False)
+            r.start(max_epochs=BACKENDS_EPOCHS - 1)
+            gaps = snapshot_gaps(trainer_snapshot(r), u_snap)
+            del r
+            log(f"  orbax trainer R (start(max_epochs=1), then a new trainer from "
+                f"last_model.orbax) against U: equal bit for bit: {not gaps}")
+            if gaps:
+                failures.append(f"orbax trainer R against U: differs in {gaps[:5]}")
+
+        # serving from best_model.orbax against a native checkpoint of its weights
+        best = os.path.join(u.checkpoint_path, OrbaxBackend.BEST_NAME)
+        u.model.load_state_dict(OrbaxBackend().load_checkpoint(best)["model"])
+        native_dir = os.path.join(tmp, "native", TRAINER_NAME)
+        write_run(native_dir, u.model, vocab_file=artifact.ARTIFACT_DIR / "vocab.bin")
+        model_cfg = u.config.MODEL.to_dict()
+        del u
+        with open(os.path.join(data, "test.json")) as f:
+            test_ids = [im["id"] for im in json.load(f)["images"]][:BACKENDS_SERVE_IMAGES]
+        images = [{"region_features": np.load(os.path.join(data, "features", f"{i}.npy"),
+                                              allow_pickle=True).item()["region_features"]
+                   .astype(np.float32)} for i in test_ids]
+
+        def pipeline(backend, directory):
+            cfg = ConfigNode({"MODEL": model_cfg, "TRAINING": {
+                "CHECKPOINT_PATH": tmp, "CHECKPOINT_BACKEND": backend,
+                "EVALUATING_BEAM_SIZE": 3, "DECODE_HEAD_KERNEL": 1 if cuda else False,
+                "DECODE_ATTN_KERNEL": True}})
+            return CaptioningPipeline(cfg, checkpoint_dir=directory, batch_size=len(images),
+                                      device=device)
+
+        from_orbax = pipeline("orbax", os.path.dirname(best))
+        want_caps = pipeline("native", native_dir).caption_features(images, return_ids=True)
+        for fn in counted:
+            fn.launches = 0
+        steps0 = from_orbax.searcher.steps
+        got = from_orbax.caption_features(images, return_ids=True)
+        serve_steps = from_orbax.searcher.steps - steps0
+        serve_launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+        same = got[0] == want_caps[0] and np.array_equal(got[1], want_caps[1])
+        log(f"  pipeline from best_model.orbax (bf16, head kernel forced, attention kernel on) "
+            f"on {len(images)} test images: captions and ids equal to the native checkpoint's "
+            f"{same}; {serve_steps} steps, launches {serve_launches}")
+        want = ({"head_topk": serve_steps, "beam_select_attention": n_layers * serve_steps}
+                if cuda else {})
+        if not same or serve_launches != want:
+            failures.append(f"pipeline from best_model.orbax: equal {same}, launches "
+                            f"{serve_launches}, expected {want}")
+    finally:
+        trainer_logger.setLevel(level)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": {"trainer": launches, "serving": serve_launches},
+            "decode_steps": steps, "serve_steps": serve_steps, "layers": n_layers,
+            "save_blocks_s": save_s, "native_save_s": native_s, "last_model_mib": mib,
+            "phases": phases}
+
+
+def vectors_part(device, s, card: str) -> dict:
+    """Phase 20 (b): the flagship at ``s``'s widths with ``UsualEmbedding``
+    over pretrained vectors (``TEXT_EMBEDDING.WORD_EMBEDDING``,
+    D_EMBEDDING 300): a seeded 300-d vector file of the vocab's words,
+    VECTORS_NAME's file in a temporary cache, read once as text and once
+    from the ``.npz`` it leaves (equal); random weights from a seed, bf16,
+    beam ``s["beam"]``, one request of ``s["batch"]`` images: the tuned
+    path (head kernel forced, beam-select kernel on), ``resident_kernel``
+    and ``OPENVIIC_FUSED_STEP=1`` (non-resident), each against eager fast
+    select (launches per step, ids in the vocab, score parity); head_topk
+    and resident_layer_step on their inputs captured from these decodes
+    against their plain versions; f32 on the card against its host's CPU on
+    FAMILY_F32_IMAGES images (>= FAMILY_F32_AGREEMENT_MIN identical; the
+    card only); a pipeline from a checkpoint and a ``vocab.bin`` that
+    carries the vectors gives the in-memory pipeline's captions.  The
+    rehearsal: tiny widths, FAMILY_REHEARSAL's 2 images and 6 steps."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch.builders import META_WORD_EMBEDDING, build_model
+    from openviic_tpu_torch.config import ConfigNode
+    from openviic_tpu_torch.data import word_embedding  # noqa: F401  (registers the classes)
+    from openviic_tpu_torch.data.vocab import load_vocab
+    from openviic_tpu_torch.decoding import BeamSearcher
+    from openviic_tpu_torch.models import decoders as decoders_module
+    from openviic_tpu_torch.serving import CaptioningPipeline
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    if not cuda:
+        s = dict(s, **FAMILY_REHEARSAL)
+    name, beam = "vectors", s["beam"]
+    tmp = tempfile.mkdtemp(prefix="openviic_vectors_phase_")
+    try:
+        vocab = make_vocab(s)
+        cls = META_WORD_EMBEDDING.get(VECTORS_NAME)
+        rows = np.random.default_rng(VECTORS_SEED).normal(
+            size=(len(vocab) - 4, cls.dim)).astype(np.float32)
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, cls.filename), "w", encoding="utf-8") as f:
+            for word, row in zip(vocab.itos[4:], rows):
+                f.write(word + " " + " ".join(f"{x:.6f}" for x in row) + "\n")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        text = cls(cache=tmp)
+        text_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = cls(cache=tmp)
+        npz_s = time.perf_counter() - t0
+        if not (np.array_equal(text.vectors, cached.vectors) and text.stoi == cached.stoi):
+            raise AssertionError(f"{name}: the .npz cache differs from the text it was read from")
+        vocab.load_word_embeddings(cached)
+        log(f"  {name}: {len(text)} words x {text.dim} read as text in {text_s:.3f} s (written "
+            f"in {write_s:.3f} s, {os.path.getsize(os.path.join(tmp, cls.filename)) / 2**20:.1f}"
+            f" MiB), from the .npz in {npz_s:.3f} s, equal")
+
+        def config(kernels=True):
+            cfg = model_config(s, attn_kernel=kernels).to_dict()
+            cfg["MODEL"]["DECODER"]["TEXT_EMBEDDING"].update(
+                WORD_EMBEDDING=VECTORS_NAME, WORD_EMBEDDING_CACHE=tmp, D_EMBEDDING=text.dim)
+            cfg["TRAINING"].update(EVALUATING_BEAM_SIZE=beam, CHECKPOINT_PATH=tmp,
+                                   DECODE_HEAD_KERNEL=1 if kernels else False)
+            return ConfigNode(cfg)
+
+        rng = np.random.default_rng(21)
+        feats = rng.standard_normal((s["batch"], s["n_regions"], s["d_feature"]),
+                                    dtype=np.float32)
+        request = [{"region_features": f} for f in feats]
+        requests = [request]
+        pipe = CaptioningPipeline.from_state_dict(config(), vocab, batch_size=s["batch"],
+                                                  device=device, seed=41)
+        model = pipe.model
+        n_dec = len(model.decoder.layers)
+        if tuple(model.decoder.word_emb.vectors.shape) != (len(vocab), text.dim):
+            raise AssertionError(f"{name}: the embedding holds no vectors")
+        per_path = {}
+
+        def run(path, searcher, decode, **expect):
+            results, counts = drive(f"{name} {path}", device, s, vocab, requests, searcher,
+                                    decode, card, **expect)
+            per_path[path] = {k: v for k, v in counts.items() if v}
+            return results
+
+        def searched(searcher):
+            return searcher_decode(pipe, searcher, vocab, beam)
+
+        served = lambda r: pipe.caption_features(r, return_ids=True)  # noqa: E731
+        tuned = run("tuned", pipe.searcher, served,
+                    per_step={"head_topk": 1, "beam_select_attention": n_dec})
+        with capture_calls(beam_search_module, "head_topk", 1) as head_kept:
+            tuned = rescore(device, requests, searched(pipe.searcher), tuned, f"{name} tuned")
+        eager_searcher = BeamSearcher(model, torch.bfloat16)
+        eager = run("eager", eager_searcher, searched(eager_searcher))
+        agree = {"tuned": score_parity(f"{name} tuned", tuned, eager, "eager fast select")}
+        resident = BeamSearcher(model, torch.bfloat16, head_kernel=1, resident_kernel=True)
+        with capture_calls(decoders_module, "resident_layer_step", n_dec, 0) as res_kept:
+            res_b = run("(b) resident_kernel", resident, searched(resident),
+                        per_step={"head_topk": 1, "resident_layer_step": n_dec})
+        agree["(b)"] = score_parity(f"{name} (b)", res_b, eager, "eager fast select")
+        non_resident = BeamSearcher(model, torch.bfloat16, beam_resident=False)
+        with env_flag("OPENVIIC_FUSED_STEP"):
+            res_c = run("(c) non-resident, OPENVIIC_FUSED_STEP=1", non_resident,
+                        searched(non_resident), per_step={"fused_layer_step": n_dec})
+        agree["(c)"] = score_parity(f"{name} (c)", res_c, eager, "eager fast select")
+        cases = trained_kernel_cases(device, {"head_topk": head_kept,
+                                              "resident_layer_step": res_kept},
+                                     what=f"{name} decode")
+
+        f32_same = None
+        if cuda:
+            few = request[:FAMILY_F32_IMAGES]
+
+            def f32_captions(dev):
+                return CaptioningPipeline.from_state_dict(
+                    config(kernels=False), vocab, batch_size=len(few), use_bf16=False,
+                    device=dev, seed=41).caption_features(few)
+            card_caps, cpu_caps = f32_captions(device), f32_captions("cpu")
+            f32_same = float(np.mean([a == b for a, b in zip(card_caps, cpu_caps)]))
+            log(f"  {name} f32 decode of {len(few)} images: captions identical on the card "
+                f"and its host's CPU {f32_same:.4f}")
+            if f32_same < FAMILY_F32_AGREEMENT_MIN:
+                raise AssertionError(f"{name} f32 card against CPU: {f32_same:.4f} identical "
+                                     f"< {FAMILY_F32_AGREEMENT_MIN}")
+
+        # from a checkpoint whose vocab.bin carries the vectors
+        run_dir = os.path.join(tmp, "run")
+        write_run(run_dir, build_model(config().MODEL, vocab, device="cpu", seed=41), vocab)
+        saved = load_vocab(os.path.join(run_dir, "vocab.bin"))
+        loaded_pipe = CaptioningPipeline(config(), checkpoint_dir=run_dir,
+                                         batch_size=s["batch"], device=device)
+        same = (np.array_equal(saved.word_embeddings, vocab.word_embeddings)
+                and loaded_pipe.caption_features(request) == tuned[0][0])
+        log(f"  {name} pipeline from a checkpoint and a vocab.bin carrying the vectors: "
+            f"captions equal to the in-memory pipeline's {same}")
+        if not same:
+            raise AssertionError(f"{name}: the pipeline from the checkpoint captions otherwise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    figures = dict(launches=per_path, agreement=agree, f32_card_cpu_agreement=f32_same,
+                   text_read_s=text_s, npz_read_s=npz_s, words=len(text), dim=text.dim)
+    return {"launches": per_path, "kernels": cases, "figures": figures}
+
+
+def cache_child(out_file: str) -> None:
+    """Phase 20 (c)'s child process (``--cache-child FILE``): the build cache
+    from ``OPENVIIC_COMPILE_CACHE``, ``cuda_build.build()`` of every source
+    and a load of each library, counting the nvcc processes started; its
+    result in ``FILE``."""
+    from openviic_tpu_torch.ops import cuda_build
+    from openviic_tpu_torch.utils import maybe_enable_compilation_cache
+
+    starts = []
+    real = cuda_build.subprocess.Popen
+
+    def counted(cmd, *args, **kwargs):
+        starts.append(os.path.basename(cmd[-1]))
+        return real(cmd, *args, **kwargs)
+
+    cuda_build.subprocess.Popen = counted
+    t0 = time.perf_counter()
+    cache = maybe_enable_compilation_cache()
+    built = sorted(cuda_build.build())
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    libraries = [str(cuda_build.library_path(n)) for n in cuda_build.sources()]
+    for name in cuda_build.sources():
+        cuda_build.load(name)
+    load_s = time.perf_counter() - t0
+    with open(out_file, "w") as f:
+        json.dump({"cache": cache, "built": built, "nvcc_starts": starts, "build_s": build_s,
+                   "load_s": load_s, "libraries": libraries}, f)
+
+
+def start_cache_child() -> dict:
+    """Phase 20 (c)'s first child (``cache_child``), started beside the
+    build phase (its nvcc processes compete with the build's for the
+    host's cores): ``OPENVIIC_COMPILE_CACHE`` a new temporary directory."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="openviic_cache_phase_")
+    env = dict(os.environ, OPENVIIC_COMPILE_CACHE=os.path.join(tmp, "cache"))
+    out_file = os.path.join(tmp, "child0.json")
+    with open(os.path.join(tmp, "child0.err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cache-child",
+                                 out_file], env=env, stdout=subprocess.DEVNULL, stderr=err)
+    return {"tmp": tmp, "env": env, "proc": proc, "out": out_file, "t0": time.perf_counter()}
+
+
+def stop_cache_child(first: dict) -> None:
+    """End ``start_cache_child``'s process if it still runs, and delete its
+    directory."""
+    import shutil
+
+    if first["proc"].poll() is None:
+        first["proc"].kill()
+    first["proc"].wait()
+    shutil.rmtree(first["tmp"], ignore_errors=True)
+
+
+def cache_part(device, first=None) -> dict:
+    """Phase 20 (c): two child processes in turn with the same
+    ``OPENVIIC_COMPILE_CACHE`` (``cache_child``): the first
+    (``start_cache_child``'s, started beside the build phase) compiles
+    every source there, one nvcc each; the second, started here once the
+    first has ended, starts no nvcc and loads every library from there.
+    The rehearsal checks in this process that the cache moves the build
+    directory there and back (no nvcc on the CPU)."""
+    import tempfile
+    from pathlib import Path
+
+    from openviic_tpu_torch.ops import cuda_build
+    from openviic_tpu_torch.utils import maybe_enable_compilation_cache
+
+    if device.type != "cuda":
+        tmp = tempfile.mkdtemp(prefix="openviic_cache_phase_")
+        try:
+            with env_flag("OPENVIIC_COMPILE_CACHE", tmp):
+                moved = (maybe_enable_compilation_cache() == tmp
+                         and all(cuda_build.library_path(n).parent == Path(tmp)
+                                 for n in cuda_build.sources()))
+            with env_flag("OPENVIIC_COMPILE_CACHE", ""):
+                maybe_enable_compilation_cache()
+        finally:
+            os.rmdir(tmp)
+        if not moved or cuda_build.build_dir() != cuda_build.BUILD_DIR:
+            raise AssertionError("the build cache did not move the build directory there and "
+                                 "back")
+        log("  build cache: the libraries' paths moved under OPENVIIC_COMPILE_CACHE and back "
+            "(no nvcc on the CPU)")
+        return {}
+    runs = []
+    try:
+        first["proc"].wait(timeout=900)
+        first_s = time.perf_counter() - first["t0"]
+        if first["proc"].returncode != 0:
+            with open(os.path.join(first["tmp"], "child0.err")) as f:
+                raise AssertionError(f"build cache child 0 exited {first['proc'].returncode}: "
+                                     f"{f.read().strip().splitlines()[-20:]}")
+        with open(first["out"]) as f:
+            runs.append(dict(json.load(f), process_s=first_s))
+        out_file = os.path.join(first["tmp"], "child1.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cache-child",
+                               out_file], env=first["env"], capture_output=True, text=True,
+                              timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"build cache child 1 exited {proc.returncode}: "
+                                 f"{proc.stderr.strip().splitlines()[-20:]}")
+        with open(out_file) as f:
+            runs.append(dict(json.load(f), process_s=seconds))
+    finally:
+        stop_cache_child(first)
+    first_run, second = runs
+    sources = sorted(cuda_build.sources())
+    for i, r in enumerate(runs):
+        log(f"  build cache child {i}: {len(r['nvcc_starts'])} nvcc started, built "
+            f"{r['built']} in {r['build_s']:.3f} s, {len(r['libraries'])} libraries loaded in "
+            f"{r['load_s']:.3f} s; the process {r['process_s']:.3f} s"
+            + (" (beside the build phase, until this phase)" if i == 0 else ""))
+    if (first_run["built"] != sources
+            or sorted(first_run["nvcc_starts"]) != [f"{n}.cu" for n in sources]
+            or second["built"] or second["nvcc_starts"]
+            or not all(p.startswith(first_run["cache"]) for p in first_run["libraries"])
+            or second["libraries"] != first_run["libraries"]):
+        raise AssertionError(f"build cache: the first child built {first_run['built']}, the "
+                             f"second {second['built']} with nvcc {second['nvcc_starts']}")
+    return {"runs": runs}
+
+
+def local_config(data: str, checkpoint_path: str, s, cuda: bool):
+    """Phase 13's trainer config for (d): dropout 0, no mixed precision and
+    one step a call (the sharded step has neither), the host reward (the
+    ranks' own), the global batch XE_BATCH (the rehearsal: 4),
+    LOCAL_SCST_IMAGES SCST images a batch (the rehearsal: 1)."""
+    from openviic_tpu_torch.config import ConfigNode
+
+    cfg = trainer_config(data, checkpoint_path, s, cuda, TRAINER_LOG_EVERY).to_dict()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (0.0 if k == "DROPOUT" else walk(v)) for k, v in node.items()}
+        return node
+
+    cfg["MODEL"] = walk(cfg["MODEL"])
+    cfg["TRAINING"].update(MIXED_PRECISION=False, STEPS_PER_CALL=1, DEVICE_REWARD=False)
+    cfg["DATASET"]["FEATURE_BATCH_SIZE"] = XE_BATCH if cuda else 4
+    cfg["DATASET"]["DICT_BATCH_SIZE"] = (LOCAL_SCST_IMAGES if cuda else 1) * SCST_BEAM
+    return ConfigNode(cfg)
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name, tensor in sorted(model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(tensor.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def local_epochs(device, root: str, s) -> dict:
+    """One XE epoch, then one SCST epoch from the weights the XE epoch
+    started from (so that its samples do not hang on the XE epoch's
+    rounding), of ``local_config``'s trainer on ``root``'s data (the
+    artifact's weights on the card), then its checkpoint: the XE loss,
+    step and parameters' digest and seconds; the SCST loss, step and
+    digest, and each SCST iteration's images on this process and their
+    mean reward; the native saves this process made."""
+    from openviic_tpu_torch.artifact import load_trained_artifact
+    from openviic_tpu_torch.builders import build_trainer
+    from openviic_tpu_torch.parallel import runtime
+    from openviic_tpu_torch.training import checkpoint as ckpt
+    from openviic_tpu_torch.training import trainer as trainer_module
+
+    cuda = device.type == "cuda"
+    saves, iterations = [], []
+    real, real_iteration = ckpt.NativeBackend.save_checkpoint, trainer_module.scst_iteration
+
+    def counted(self, *args, **kwargs):
+        saves.append(os.path.basename(args[0]))
+        return real(self, *args, **kwargs)
+
+    def recorded(setup, batch, captions, marks=None):
+        loss, reward = real_iteration(setup, batch, captions, marks)
+        iterations.append((len(captions), reward))
+        return loss, reward
+
+    ckpt.NativeBackend.save_checkpoint = counted
+    trainer_module.scst_iteration = recorded
+    try:
+        tr = build_trainer(local_config(os.path.join(root, "data"), os.path.join(root, "run"),
+                                        s, cuda), device=device)
+        tr.train_dataloader.drop_last = True  # one process takes the ranks' batches
+        if cuda:
+            tr.model.load_state_dict(load_trained_artifact(device="cpu")["state_dict"])
+        start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        sync(device)
+        t0 = time.perf_counter()
+        loss = tr.train()
+        sync(device)
+        seconds = time.perf_counter() - t0
+        step, digest = int(tr.state["step"]), params_digest(tr.model)
+        tr.model.load_state_dict(start)
+        scst_loss = tr.train_scst()
+        tr.save_checkpoint({"val_loss": 0.0, "best_val_score": 0.0, "patience": 0,
+                            "use_rl": True})
+    finally:
+        ckpt.NativeBackend.save_checkpoint = real
+        trainer_module.scst_iteration = real_iteration
+    return {"rank": runtime.process_index(), "loss": loss, "step": step, "digest": digest,
+            "saves": saves, "seconds": seconds,
+            "scst": {"loss": scst_loss, "step": int(tr.state["step"]),
+                     "digest": params_digest(tr.model),
+                     "images": [n for n, _ in iterations],
+                     "rewards": [float(r) for _, r in iterations]},
+            "mesh": None if tr.mesh is None else tr.mesh.size,
+            "host_local": runtime.host_local()}
+
+
+def local_rank(device, root: str, s) -> None:
+    """Phase 20 (d)'s rank (``parallel.launch.spawn``): ``local_epochs``
+    with this process's matmul settings those of ``main``'s; its result in
+    ``root/rank<r>.json``."""
+    from openviic_tpu_torch.utils import setup_logger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_num_threads(1)
+    setup_logger().setLevel(logging.WARNING)
+    result = local_epochs(device, root, s)
+    with open(os.path.join(root, f"rank{result['rank']}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def rewards_close(ranks: list, one: dict) -> bool:
+    """Whether each SCST iteration's mean reward over the ranks (which hold
+    equal rows) is within LOCAL_LOSS_RTOL of one process's."""
+    got = np.mean([r["scst"]["rewards"] for r in ranks], axis=0)
+    want = np.asarray(one["scst"]["rewards"])
+    return len(got) == len(want) and bool(np.all(np.abs(got - want)
+                                                 <= LOCAL_LOSS_RTOL * np.abs(want)))
+
+
+def local_parallel_part(device, s, card: str, loaded) -> dict:
+    """Phase 20 (d): the launcher (``parallel.launch.spawn``) on [the card,
+    the card] over gloo (NCCL refuses two ranks on one device): each rank
+    reads its half of each global batch of XE_BATCH of phase 13's data,
+    one XE epoch, then one SCST epoch of LOCAL_SCST_IMAGES images a batch
+    (a batch the ranks do not divide runs whole on both), then the
+    checkpoint (``local_epochs``); against one process of the same
+    config: the XE losses within LOCAL_LOSS_RTOL, each SCST iteration's
+    mean reward (the ranks' mean) within LOCAL_LOSS_RTOL, the same steps
+    and SCST images, parameters bit-equal across the ranks after each
+    epoch, and rank 0 alone writes the checkpoint.  The SCST loss, whose
+    terms nearly cancel, is printed beside one process's (the CPU tests
+    hold it against JAX).  Both ranks must end within LOCAL_RANK_TIMEOUT.
+    The rehearsal runs one host-local gloo rank in this process at a
+    global batch of 4 (the spawn itself is the CPU tests'), its XE loss
+    and SCST rewards within LOCAL_LOSS_RTOL of one process's (the sharded
+    steps sum otherwise)."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch import artifact
+    from openviic_tpu_torch.parallel import launch
+    from openviic_tpu_torch.utils import setup_logger
+
+    import chip_smoke as importable  # the ranks find their function by this module's name
+
+    cuda = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="openviic_local_dp_")
+    logger = setup_logger()
+    level = logger.level
+    logger.setLevel(logging.WARNING)
+    try:
+        counts = trainer_dataset(os.path.join(tmp, "data"), loaded,
+                                 TRAINER_SPLIT if cuda else (2, 1, 1))
+        run_dir = os.path.join(tmp, "run", TRAINER_NAME)
+        os.makedirs(run_dir)
+        shutil.copyfile(artifact.ARTIFACT_DIR / "vocab.bin", os.path.join(run_dir, "vocab.bin"))
+        one = local_epochs(device, tmp, s)
+        shutil.rmtree(os.path.join(tmp, "run"))
+        os.makedirs(run_dir)
+        shutil.copyfile(artifact.ARTIFACT_DIR / "vocab.bin", os.path.join(run_dir, "vocab.bin"))
+        if not cuda:
+            from openviic_tpu_torch.parallel import runtime
+
+            runtime.initialize_distributed(device, backend="gloo",
+                                           init_method="file://" + os.path.join(tmp, "group"),
+                                           world_size=1, rank=0, host_local=True)
+            try:
+                rank = local_epochs(device, tmp, s)
+            finally:
+                runtime.shutdown()
+            log(f"  launcher rehearsal: one host-local gloo rank in this process, loss "
+                f"{rank['loss']} against one process's {one['loss']}; SCST rewards "
+                f"{rank['scst']['rewards']} against {one['scst']['rewards']}; saves "
+                f"{rank['saves']}")
+            if (abs(rank["loss"] - one["loss"]) > LOCAL_LOSS_RTOL * abs(one["loss"])
+                    or not rewards_close([rank], one)
+                    or rank["scst"]["images"] != one["scst"]["images"]
+                    or rank["saves"] != ["last_model.ckpt"]
+                    or not rank["host_local"] or rank["mesh"] != 1):
+                raise AssertionError(f"launcher rehearsal: {rank} against {one}")
+            return {"ranks": [rank], "one_process": one}
+        t0 = time.perf_counter()
+        context = launch.spawn(importable.local_rank, [str(device)] * 2, args=(tmp, s),
+                               backend="gloo", join=False)
+        deadline = time.monotonic() + LOCAL_RANK_TIMEOUT
+        try:
+            while not context.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the launched ranks ran past {LOCAL_RANK_TIMEOUT} s")
+        finally:
+            for p in context.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        launch_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        files = sorted(os.listdir(run_dir))
+    finally:
+        logger.setLevel(level)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gaps = [abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks]
+    scst = [r["scst"] for r in ranks]
+    log(f"  launcher on {[str(device)] * 2} over gloo: phase 13's data {counts}, global batch "
+        f"{XE_BATCH if cuda else 4}: losses {[r['loss'] for r in ranks]} against one "
+        f"process's {one['loss']} (relative {max(gaps):.3g}); steps "
+        f"{[r['step'] for r in ranks]} against {one['step']}; parameters equal across the "
+        f"ranks {ranks[0]['digest'] == ranks[1]['digest']}; the epoch "
+        f"{[round(r['seconds'], 3) for r in ranks]} s against {one['seconds']:.3f} s; saves "
+        f"{[r['saves'] for r in ranks]}; the launch {launch_s:.3f} s on {card}")
+    log(f"  SCST epoch: images a rank {scst[0]['images']} against one process's "
+        f"{one['scst']['images']}; rewards (the ranks' mean) "
+        f"{[(a + b) / 2 for a, b in zip(scst[0]['rewards'], scst[1]['rewards'])]} against "
+        f"{one['scst']['rewards']}; loss {[r['loss'] for r in scst]} against "
+        f"{one['scst']['loss']}; steps {[r['step'] for r in scst]} against "
+        f"{one['scst']['step']}; parameters equal across the ranks "
+        f"{scst[0]['digest'] == scst[1]['digest']}")
+    split = [n if n % 2 else n // 2 for n in one["scst"]["images"]]
+    if (max(gaps) > LOCAL_LOSS_RTOL or any(r["step"] != one["step"] for r in ranks)
+            or ranks[0]["digest"] != ranks[1]["digest"]
+            or not rewards_close(ranks, one)
+            or any(r["images"] != split or r["step"] != one["scst"]["step"] for r in scst)
+            or scst[0]["digest"] != scst[1]["digest"]
+            or [r["saves"] for r in ranks] != [["last_model.ckpt"], []]
+            or not all(r["host_local"] and r["mesh"] == 2 for r in ranks)
+            or "last_model.ckpt" not in files):
+        raise AssertionError(f"launcher: losses {[r['loss'] for r in ranks]} against "
+                             f"{one['loss']}, ranks {ranks}")
+    return {"ranks": ranks, "one_process": one, "launch_s": launch_s}
+
+
+def backends_phase(device, s, card: str, loaded, orbax: dict, cache_first=None) -> dict:
+    """Phase 20: (a) the DCP checkpoint backend's trainer and serving
+    (``orbax_trainer_part``, run in phase 13's process: ``orbax``), (b)
+    the flagship with pretrained vectors (``vectors_part``), (c) the build
+    cache (``cache_part``; on the card ``cache_first`` is its first child),
+    (d) the launcher (``local_parallel_part``).
+    Returns each kernel's launches on each path (0 where it does not run),
+    the kernels' cases and the figures."""
+    vectors = timed("backends (b): the flagship with pretrained vectors",
+                    lambda: vectors_part(device, s, card))
+    cache = timed("backends (c): the kernels' build cache",
+                  lambda: cache_part(device, cache_first))
+    local = timed("backends (d): the launcher over two ranks",
+                  lambda: local_parallel_part(device, s, card, loaded))
+    launches = {fn.__name__: {} for fn in counted_wrappers()}
+    for name in launches:
+        for path, counts in orbax["launches"].items():
+            launches[name][f"orbax {path}"] = counts.get(name, 0)
+        for path, counts in vectors["launches"].items():
+            launches[name][f"vectors {path}"] = counts.get(name, 0)
+    figures = {"orbax": {k: v for k, v in orbax.items() if k != "launches"},
+               "vectors": vectors["figures"], "cache": cache, "local": local}
+    return {"launches": launches, "kernels": vectors["kernels"], "figures": figures}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5972,12 +6710,15 @@ def occupancy_lines(s):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cpu", action="store_true",
-                        help="rehearse phases 3-19 at tiny widths on the CPU")
+                        help="rehearse phases 3-20 at tiny widths on the CPU")
     parser.add_argument("--trainer-phase", metavar="CARD",
                         help="run the trainer phase alone on the card (its child process)")
     parser.add_argument("--dp-trainer-rank", metavar="DIR",
                         help="run one rank of the data-parallel trainer on the card (a child "
                              "process of phase 18)")
+    parser.add_argument("--cache-child", metavar="FILE",
+                        help="build and load every kernel through the build cache (a child "
+                             "process of phase 20)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -6006,30 +6747,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     device = torch.device("cuda:0")
+    if args.cache_child:
+        cache_child(args.cache_child)
+        return 0
     if args.dp_trainer_rank:
         dp_trainer_rank(device, args.dp_trainer_rank)
         return 0
     if args.trainer_phase:
         from openviic_tpu_torch.artifact import load_trained_artifact
 
-        result = trainer_phase(device, FLAGSHIP, args.trainer_phase,
-                               load_trained_artifact(device="cpu"))
+        result = trainer_and_orbax(device, FLAGSHIP, args.trainer_phase,
+                                   load_trained_artifact(device="cpu"))
         print(json.dumps(result), flush=True)
         return 0
     smi = timed("device", nvidia_smi_line)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"  nvidia-smi: {smi}; torch: {kind}, {count} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    logs = timed("build", lambda: cuda_build.build(force=True))
-    log(f"  ptxas: {ptxas_summary(logs)}")
-    for line in occupancy_lines(FLAGSHIP):
-        log(f"  {line}")
-    for name in ("head_topk", "layer_step", "beam_select_attention", "geo_attention"):
-        log(f"  sass: {sass_counts(name)}")
-    if not any(c["HMMA"] and "geo_attention_mma" in f
-               for f, c in sass_table("geo_attention").items()):
-        raise AssertionError("the geo MMA kernels hold no HMMA (mma.sync) instruction")
-    entries = all_phases(device, FLAGSHIP, smi)
+    cache_first = start_cache_child()
+    try:
+        logs = timed("build", lambda: cuda_build.build(force=True))
+        log(f"  ptxas: {ptxas_summary(logs)}")
+        for line in occupancy_lines(FLAGSHIP):
+            log(f"  {line}")
+        for name in ("head_topk", "layer_step", "beam_select_attention", "geo_attention"):
+            log(f"  sass: {sass_counts(name)}")
+        if not any(c["HMMA"] and "geo_attention_mma" in f
+                   for f, c in sass_table("geo_attention").items()):
+            raise AssertionError("the geo MMA kernels hold no HMMA (mma.sync) instruction")
+        entries = all_phases(device, FLAGSHIP, smi, cache_first)
+    finally:
+        stop_cache_child(cache_first)
     log(f"total: {time.perf_counter() - t_start:.3f} s on {smi}")
     log(smi)
     log(json.dumps({"kernels": entries}))
@@ -6037,8 +6785,9 @@ def main() -> int:
     return 0
 
 
-def all_phases(device, s, card: str):
-    """Phases 3-19.  Returns the per-kernel entries (none on the CPU), each
+def all_phases(device, s, card: str, cache_first=None):
+    """Phases 3-20 (``cache_first``: phase 20 (c)'s first child on the
+    card).  Returns the per-kernel entries (none on the CPU), each
     with its launches on its decode path."""
     head = timed("kernel vs plain", lambda: kernel_phase(device, s))
     timed("head_topk k = 32, 128 vs plain", lambda: head_large_k_phase(device, s))
@@ -6086,6 +6835,8 @@ def all_phases(device, s, card: str):
     remainder = timed("single-card remainder", lambda: remainder_phase(device, s, card))
     data_parallel = timed("data parallel", lambda: data_parallel_phase(device, s, card, loaded))
     model_parallel = timed("model parallel", lambda: model_parallel_phase(device, s, card))
+    backends = timed("backends", lambda: backends_phase(device, s, card, loaded,
+                                                        trainer.pop("orbax"), cache_first))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -6136,6 +6887,10 @@ def all_phases(device, s, card: str):
         e["model_parallel"] = model_parallel["launches"][e["name"]]
         e["model_parallel_cases"] = model_parallel["kernels"].get(e["name"], [])
     found[0]["model_parallel_figures"] = model_parallel["figures"]
+    for e in found:  # every kernel's launches on each phase-20 path, 0 where it does not run
+        e["backends"] = backends["launches"][e["name"]]
+        e["backends_cases"] = backends["kernels"].get(e["name"], [])
+    found[0]["backends_figures"] = backends["figures"]
     for e in found:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -19,6 +19,7 @@ META_ATTENTION = Registry("ATTENTION")
 META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
 META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
 META_PRETRAINED_LANGUAGE_MODEL = Registry("PRETRAINED_LANGUAGE_MODEL")
+META_WORD_EMBEDDING = Registry("WORD_EMBEDDING")
 
 # Aliases resolving names and a typo shipped in the reference's configs.
 META_TRAINER.alias("ViTrainer", "viTrainer")
@@ -87,3 +88,18 @@ def build_vision_embedding(config):
 
 def build_pretrained_language_model(config):
     return META_PRETRAINED_LANGUAGE_MODEL.get(config.ARCHITECTURE)(config=config)
+
+
+def build_word_embedding(config):
+    """The pretrained vectors named by ``config.WORD_EMBEDDING`` (a name,
+    or a list of names for a list of them), read from
+    ``WORD_EMBEDDING_CACHE``; None when it is None."""
+    import openviic_tpu_torch.data.word_embedding  # noqa: F401  (registers the classes)
+
+    name = config.WORD_EMBEDDING
+    if name is None:
+        return None
+    cache = config.get("WORD_EMBEDDING_CACHE")
+    if isinstance(name, (list, tuple)):
+        return [META_WORD_EMBEDDING.get(n)(cache=cache) for n in name]
+    return META_WORD_EMBEDDING.get(name)(cache=cache)

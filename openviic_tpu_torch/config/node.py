@@ -42,6 +42,9 @@ class ConfigNode(Mapping):
             return [ConfigNode._convert(v) for v in value]
         return value
 
+    def __reduce__(self):  # pickles (to a spawned rank) as its tree
+        return (ConfigNode, (self.to_dict(), self._frozen))
+
     # -- attribute access -------------------------------------------------
     def __getattr__(self, name: str) -> Any:
         # __getattr__ is only called when normal lookup fails, so _data is

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -114,17 +114,18 @@ def grain_permutation(n: int, seed: int, rounds: int = SHUFFLE_ROUNDS) -> np.nda
 class GrainDataLoader(DataLoader):
     """The JAX package's ``GrainDataLoader`` (same arguments): ``DataLoader``'s,
     and ``shard_index`` / ``shard_count`` (default: this rank and the
-    group's size) and ``read_threads``."""
+    group's size) and ``read_threads``; and ``DataLoader``'s ``part`` of
+    each batch of the shard."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  pad_sizes: Optional[Dict[str, int]] = None, bucket: int = 8,
                  drop_last: bool = False, prefetch: int = 2,
                  shard_index: Optional[int] = None, shard_count: Optional[int] = None,
-                 read_threads: int = 2):
+                 read_threads: int = 2, part: Optional[Tuple[int, int]] = None):
         from openviic_tpu_torch.parallel import runtime
 
         super().__init__(dataset, batch_size, shuffle, seed, pad_sizes, bucket, drop_last,
-                         max(1, prefetch))
+                         max(1, prefetch), part)
         if shard_index is None:
             shard_index = runtime.process_index()
         if shard_count is None:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterable, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,10 +138,28 @@ def make_instance_batch(samples, pad_sizes: Optional[Dict[str, int]] = None,
     return InstanceList(samples, pad_sizes=pad_sizes)
 
 
+def rank_part(indices: np.ndarray, part: Optional[Tuple[int, int]]) -> np.ndarray:
+    """Rank ``r``'s contiguous share of a global batch's indices for
+    ``part = (r, ranks)`` (``parallel/mesh.py::batch_shard``'s rows); a
+    batch that the ranks do not divide stays whole, and every rank runs it
+    unsharded, as the JAX trainer runs such a batch off its mesh."""
+    if part is None or len(indices) % part[1]:
+        return indices
+    n = len(indices) // part[1]
+    return indices[part[0] * n:(part[0] + 1) * n]
+
+
 class DataLoader:
+    """Batches of ``dataset`` in epoch order.  ``part = (r, ranks)`` makes
+    every batch rank ``r``'s share of the global batch of ``batch_size``
+    (``rank_part``): every rank draws the same order and reads only its own
+    items, and bucket-pads its own rows (padded rows are masked, so only
+    rounding tells it from the global batch's padding)."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  pad_sizes: Optional[Dict[str, int]] = None, bucket: int = 8,
-                 drop_last: bool = False, prefetch: int = 2):
+                 drop_last: bool = False, prefetch: int = 2,
+                 part: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -150,6 +168,7 @@ class DataLoader:
         self.bucket = bucket
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.part = part
         self.epoch = 0
 
     def _items(self) -> int:
@@ -177,7 +196,7 @@ class DataLoader:
     def __iter__(self) -> Iterator[InstanceList]:
         order = self._order()
         self.epoch += 1
-        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
+        batches = [rank_part(order[i * self.batch_size:(i + 1) * self.batch_size], self.part)
                    for i in range(len(self))]
         if self.prefetch <= 0:
             for idxs in batches:

@@ -14,8 +14,12 @@ The JAX module's conventions are kept:
  - ``max_caption_length`` is the longest preprocessed caption + 2;
  - ``encode_caption`` and ``decode_caption`` as there.
 
-``VOCAB.USE_MAPPING``, ``WORD_EMBEDDING`` and ``PRETRAINED_LANGUAGE_MODEL``
-need downloads and raise ``NotImplementedError``."""
+``VOCAB.WORD_EMBEDDING`` (a name or a list of names of
+``data/word_embedding.py``, read from ``VOCAB.WORD_EMBEDDING_CACHE``) fills
+``word_embeddings``, the (vocab, dim) float32 vectors of every token, the
+names' vectors side by side (``load_word_embeddings``).
+``VOCAB.USE_MAPPING`` and ``PRETRAINED_LANGUAGE_MODEL`` need a
+``transformers`` tokenizer and raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -63,10 +67,10 @@ class Vocab:
         every word of at least ``MIN_FREQ`` occurrences by frequency, ties
         alphabetically."""
         voc = config.VOCAB
-        for key in ("PRETRAINED_LANGUAGE_MODEL", "WORD_EMBEDDING", "USE_MAPPING"):
+        for key in ("PRETRAINED_LANGUAGE_MODEL", "USE_MAPPING"):
             if voc.get(key):
                 raise NotImplementedError(
-                    f"DATASET.VOCAB.{key} needs a download and is not ported")
+                    f"DATASET.VOCAB.{key} needs a transformers tokenizer and is not ported")
         specials = [voc.PAD_TOKEN, voc.BOS_TOKEN, voc.EOS_TOKEN, voc.UNK_TOKEN]
         freqs, max_len = make_vocab(
             [config.JSON_PATH.TRAIN, config.JSON_PATH.DEV, config.JSON_PATH.TEST],
@@ -83,7 +87,12 @@ class Vocab:
             if freq < min_freq:
                 break
             itos.append(word)
-        return cls(itos, max_len, specials, freqs=freqs, tokenizer=voc.TOKENIZER)
+        vocab = cls(itos, max_len, specials, freqs=freqs, tokenizer=voc.TOKENIZER)
+        if voc.get("WORD_EMBEDDING") is not None:
+            from openviic_tpu_torch.builders import build_word_embedding
+
+            vocab.load_word_embeddings(build_word_embedding(voc))
+        return vocab
 
     def encode_caption(self, caption: List[str]) -> np.ndarray:
         """Caption tokens -> fixed-length padded id vector (int32): bos, the
@@ -112,6 +121,21 @@ class Vocab:
             caption = " ".join(words)
             captions.append(caption if join_words else caption.split())
         return captions
+
+    def load_word_embeddings(self, word_embeddings) -> None:
+        """Set ``word_embeddings`` to each token's vectors from
+        ``word_embeddings`` (a ``WordEmbedding`` or a list of them, side by
+        side), the token stripped of surrounding blanks; a token without a
+        vector gets ``unk_init``'s row."""
+        if not isinstance(word_embeddings, list):
+            word_embeddings = [word_embeddings]
+        total = sum(v.dim for v in word_embeddings)
+        self.word_embeddings = np.zeros((len(self), total), dtype=np.float32)
+        for i, token in enumerate(self.itos):
+            start = 0
+            for v in word_embeddings:
+                self.word_embeddings[i, start:start + v.dim] = v[token.strip()]
+                start += v.dim
 
     def extend(self, v: "Vocab", sort: bool = False) -> None:
         """Append ``v``'s words that this vocab lacks (sorted, with ``sort``)."""
@@ -145,19 +169,43 @@ def make_vocab(json_paths: Sequence[str], tokenizer=None):
     return freqs, max_len
 
 
+def _numpy_globals() -> dict:
+    """The globals a pickled ndarray names (its class, its dtype and the
+    function that rebuilds it, under numpy 1's and numpy 2's module paths;
+    ``_codecs.encode``, which rebuilds its bytes in a protocol-2 pickle)."""
+    import codecs
+    import importlib
+
+    try:  # numpy 2's path; numpy 1 has only numpy.core
+        multiarray = importlib.import_module("numpy._core.multiarray")
+        numeric = importlib.import_module("numpy._core.numeric")
+    except ImportError:
+        multiarray = importlib.import_module("numpy.core.multiarray")
+        numeric = importlib.import_module("numpy.core.numeric")
+    out = {("numpy", "ndarray"): np.ndarray, ("numpy", "dtype"): np.dtype,
+           ("_codecs", "encode"): codecs.encode}
+    for path in ("numpy.core", "numpy._core"):  # a pickle of either numpy
+        out[(f"{path}.multiarray", "_reconstruct")] = multiarray._reconstruct
+        out[(f"{path}.numeric", "_frombuffer")] = numeric._frombuffer
+    return out
+
+
 class _VocabUnpickler(pickle.Unpickler):
     """Reads the JAX package's pickled ``Vocab`` as the port's, and the
     port's own, and refuses every global besides the two containers they
-    hold."""
+    hold and the numpy globals of their ``word_embeddings`` array."""
 
     ALLOWED = {("openviic_tpu.data.vocab", "Vocab"): Vocab,
                ("openviic_tpu_torch.data.vocab", "Vocab"): Vocab,
                ("collections", "Counter"): collections.Counter,
                ("collections", "defaultdict"): collections.defaultdict}
+    ALLOWED_ARRAY = _numpy_globals()
 
     def find_class(self, module: str, name: str):
         if (module, name) in self.ALLOWED:
             return self.ALLOWED[(module, name)]
+        if (module, name) in self.ALLOWED_ARRAY:
+            return self.ALLOWED_ARRAY[(module, name)]
         raise pickle.UnpicklingError(f"vocab pickle names a refused global {module}.{name}")
 
 
@@ -168,4 +216,8 @@ def load_vocab(path) -> Vocab:
         vocab = _VocabUnpickler(f).load()
     if not isinstance(vocab, Vocab):
         raise pickle.UnpicklingError(f"{path} holds a {type(vocab).__name__}, not a Vocab")
+    vectors = getattr(vocab, "word_embeddings", None)
+    if vectors is not None and not (isinstance(vectors, np.ndarray)
+                                    and vectors.dtype == np.float32 and vectors.ndim == 2):
+        raise pickle.UnpicklingError(f"{path}: word_embeddings is not a float32 matrix")
     return vocab

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds).  Libraries go to ``openviic_tpu_torch/_build/``, named by a
-hash of the sources and flags, at first use; ``build`` starts one nvcc per
-source, all at once, and waits for them.  ``defines`` (``-D`` flags) build a
+takes seconds).  Libraries go to ``openviic_tpu_torch/_build/``, or to the
+build cache that ``utils.compile_cache`` sets (``set_build_dir``), named by
+a hash of the sources and flags, at first use; ``build`` starts one nvcc
+per source, all at once, and waits for them.  Each library is written to a
+temporary name and renamed into place, so a process that shares the
+directory never loads a half-written one.  ``defines`` (``-D`` flags) build a
 variant of a source for measurement; the port's own libraries take none.
 Nothing here runs at import."""
 
@@ -28,6 +31,23 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 600
 
 _loaded: Dict[tuple, ctypes.CDLL] = {}
+_build_dir: Optional[Path] = None  # the build cache, when one is set
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (None: ``BUILD_DIR``)."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path)
+
+
+def cache_dir() -> Optional[Path]:
+    """The directory that ``set_build_dir`` set (None: none is set)."""
+    return _build_dir
+
+
+def build_dir() -> Path:
+    """Where libraries are built and loaded from."""
+    return BUILD_DIR if _build_dir is None else _build_dir
 
 
 def nvcc_path() -> str:
@@ -51,7 +71,7 @@ def library_path(name: str, defines: Sequence[str] = ()) -> Path:
             digest.update(path.name.encode())
             digest.update(path.read_bytes())
     digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False,
@@ -61,13 +81,14 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False,
     nvcc process each, started together.  Returns each compiled source's
     ptxas report; raises if any fails."""
     names = list(sources() if names is None else names)
-    BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = nvcc_path()
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = None  # looked for only when a library must be compiled
     procs = {}
     for name in names:
         out = library_path(name, defines)
         if out.exists() and not force:
             continue
+        nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(

@@ -11,6 +11,11 @@ it the current card and never derives one from ``LOCAL_RANK``.  Nothing
 falls back: a card asked for and absent, or an NCCL group that does not
 start or fails its first collective, raises.
 
+A group that ``parallel/launch.py`` starts (``host_local=True``) is one
+host's cards driven as the JAX trainer drives one process's devices
+(``host_local()``); one started by ``torchrun`` stands for the JAX
+package's hosts.
+
 The helpers below are what the trainer and the data axis need from the
 group: ``process_index``, ``process_count``, ``barrier`` (the JAX trainer's
 ``_mh_barrier``), and small collectives over host values
@@ -31,17 +36,21 @@ logger = setup_logger()
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
+_host_local = False  # whether parallel/launch.py started the group
+
 
 def initialize_distributed(device, backend: Optional[str] = None,
                            init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
-                           rank: Optional[int] = None) -> bool:
+                           rank: Optional[int] = None, host_local: bool = False) -> bool:
     """Start the process group for ``device`` and return True, or return
     False in a single process (no ``init_method`` and not all of
     ``TORCHRUN_ENV`` set).  ``backend`` defaults to ``nccl`` for a card and
     ``gloo`` for the CPU; ``init_method`` (``tcp://localhost:<port>``) takes
     ``world_size`` and ``rank``, else torchrun's environment gives them.
+    ``host_local`` marks a group of one host's cards (``host_local()``).
     A group already started is kept (True)."""
+    global _host_local
     device = torch.device(device)
     if dist.is_initialized():
         return True
@@ -59,6 +68,7 @@ def initialize_distributed(device, backend: Optional[str] = None,
         rank = int(os.environ["RANK"])
     dist.init_process_group(backend, init_method=init_method, world_size=int(world_size),
                             rank=int(rank))
+    _host_local = bool(host_local)
     # the first collective: a group that cannot run one fails here, not at
     # the first gradient
     probe = torch.ones(1, device=collective_device())
@@ -69,6 +79,12 @@ def initialize_distributed(device, backend: Optional[str] = None,
     logger.info("torch.distributed started: rank %d of %d on %s over %s", dist.get_rank(),
                 dist.get_world_size(), device, backend)
     return True
+
+
+def host_local() -> bool:
+    """Whether the group is one host's cards started by ``parallel/launch.py``
+    (the JAX trainer's single-host mesh), not ``torchrun``'s hosts."""
+    return _host_local and dist.is_initialized()
 
 
 def process_index() -> int:
@@ -131,5 +147,7 @@ def any_across(flag: bool) -> bool:
 
 def shutdown() -> None:
     """Destroy the process group, if one was started."""
+    global _host_local
     if dist.is_initialized():
         dist.destroy_process_group()
+    _host_local = False

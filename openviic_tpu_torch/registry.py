@@ -46,3 +46,6 @@ class Registry:
                 f"Registered: {sorted(self._obj_map.keys())}"
             )
         return ret
+
+    def __contains__(self, name: str) -> bool:
+        return self._aliases.get(name, name) in self._obj_map

@@ -20,6 +20,11 @@ memory (or drawn from a seed) instead of a checkpoint.  For RSTNet's
 adaptive decoder it computes the language-signal table once, from the
 weights as loaded (f32), and hands it to every decode.
 
+The kernels' build cache is ``TRAINING.COMPILATION_CACHE_DIR`` or
+``OPENVIIC_COMPILE_CACHE`` (``utils/compile_cache.py``), as in the JAX
+pipeline.  ``TRAINING.CHECKPOINT_BACKEND: orbax`` serves from
+``best_model.orbax``.
+
 ``mesh`` (a list of devices, or ``"auto"`` for every visible card) serves
 over several devices as the JAX pipeline serves over a mesh's data axis:
 the weights are copied to each device, and each fixed-size batch is split
@@ -42,7 +47,7 @@ from openviic_tpu_torch.data.instance import Instance, InstanceList
 from openviic_tpu_torch.data.vocab import load_vocab
 from openviic_tpu_torch.decoding.beam_search import BeamSearcher
 from openviic_tpu_torch.training import checkpoint as ckpt
-from openviic_tpu_torch.utils import setup_logger
+from openviic_tpu_torch.utils import maybe_enable_compilation_cache, setup_logger
 
 logger = setup_logger()
 
@@ -100,6 +105,7 @@ class CaptioningPipeline:
         pipeline."""
         self.config = config
         self.vocab = vocab
+        maybe_enable_compilation_cache(config)  # before the first kernel builds
         devices = _mesh_devices(mesh) or [torch.device(device)]
         if batch_size % len(devices):
             raise ValueError(f"batch_size {batch_size} not divisible by the mesh data axis "

@@ -29,7 +29,10 @@ file (its own format, ``FROZEN_FORMAT``), which then holds only the
 trainable tensors and ``frozen_file``, the name to stitch them with on
 load.  The file on disk is held against the live tensors once per process
 and path, and rewritten when it differs (a stale file of another run).
-The JAX module's Orbax backend (ROADMAP A.8) is not ported."""
+
+``get_backend("orbax")`` is the asynchronous, collective backend of
+``training/orbax_backend.py`` (DCP directories ``last_model.orbax`` and
+``best_model.orbax``)."""
 
 from __future__ import annotations
 
@@ -192,8 +195,9 @@ def get_backend(name: str = "native"):
     """The checkpoint backend named by ``TRAINING.CHECKPOINT_BACKEND``."""
     name = (name or "native").lower()
     if name == "orbax":
-        raise NotImplementedError("TRAINING.CHECKPOINT_BACKEND: orbax is not ported "
-                                  "(ROADMAP A.8)")
+        from openviic_tpu_torch.training.orbax_backend import OrbaxBackend
+
+        return OrbaxBackend()
     if name == "native":
         return NativeBackend()
     raise ValueError(f"unknown checkpoint backend {name!r}")

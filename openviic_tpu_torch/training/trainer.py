@@ -8,8 +8,10 @@ steps.  ``start()`` trains XE epochs, each followed by the val loss and the
 val beam decode's scores; on ``PATIENCE`` epochs without a best score it
 switches to SCST with a fresh RL Adam, reloading the best checkpoint first
 when the switch epoch was not the best, and a second exhaustion ends
-training.  Every epoch writes ``last_model.ckpt`` (``best_model.ckpt`` on a
-best score), a run resumes from it bit for bit, and SIGTERM or SIGINT end
+training.  Every epoch writes ``last_model`` (``best_model`` on a best
+score) through the ``TRAINING.CHECKPOINT_BACKEND`` (``native``: one
+``.ckpt`` file; ``orbax``: ``training/orbax_backend.py``'s asynchronous DCP
+directories), a run resumes from it bit for bit, and SIGTERM or SIGINT end
 the run after the epoch in progress with its checkpoint.
 ``get_predictions`` writes ``test_results.json``.  ``viTrainer`` scores
 captions as they are; ``enTrainer`` PTB-tokenizes them first.
@@ -29,8 +31,20 @@ each rank scores its own SCST samples with the host CIDEr; every rank runs
 the full val and test loaders, and the best, patience, switch and stop
 decisions follow rank 0's scores, broadcast; rank 0 alone writes the
 checkpoints (each followed by a barrier), ``metrics.jsonl`` and
-``test_results.json``, and every rank loads.  A checkpoint holds no world
-size, so a run saved at one size resumes at another.
+``test_results.json``, and every rank loads; a collective checkpoint
+backend (``MULTIHOST_COLLECTIVE``: the orbax one) is called on every rank
+instead, as the JAX trainer does.  A checkpoint holds no world size, so a
+run saved at one size resumes at another.
+
+Over one host's cards (a group that ``parallel/launch.py`` starts, which
+``train.py`` does without ``torchrun``) the trainer is the JAX trainer on
+its single-host mesh: ``FEATURE_BATCH_SIZE`` is the global batch, whose
+order every rank draws with the same seed (the native loader allowed, no
+pinned shapes needed), reading only its own rows of each batch for the
+sharded XE and SCST steps (the loader's ``part``); an SCST batch that
+the ranks do not divide (the ragged last one) runs whole on every rank,
+as JAX runs it off the mesh.  ``GRAD_ACCUM > 1`` is refused with JAX's
+message.
 
 RSTNet's frozen language-model backbone (``optim.frozen_param_mask``)
 gets no Adam moments in either phase and is saved once, apart from the
@@ -40,17 +54,17 @@ for every eval decode and SCST iteration since the layers around the
 backbone train (not with dropout-active sampling, which needs the
 per-step language model in train mode).
 
-One process does not train over several cards (``TRAINING.DATA_PARALLEL``
-with more than one visible card raises: start one process a card with
-``torchrun --nproc_per_node``); the Orbax backend is not ported (ROADMAP
-A.8).  JAX-only keys: ``RNG_IMPL`` is checked and does nothing,
-``COMPILATION_CACHE_DIR`` does nothing."""
+One process does not train over several cards: with
+``TRAINING.DATA_PARALLEL`` over more than one visible card it raises,
+naming the launcher.  ``TRAINING.COMPILATION_CACHE_DIR`` (or
+``OPENVIIC_COMPILE_CACHE``) is the kernels' build cache
+(``utils/compile_cache.py``).  JAX-only key: ``RNG_IMPL`` is checked and
+does nothing."""
 
 from __future__ import annotations
 
 import itertools
 import json
-import math
 import os
 import pickle
 import signal
@@ -68,8 +82,8 @@ from openviic_tpu_torch.data.loader import DataLoader, device_prefetch
 from openviic_tpu_torch.data.vocab import Vocab, load_vocab
 from openviic_tpu_torch.decoding import BeamSearcher
 from openviic_tpu_torch.evaluation import Cider, PTBTokenizer, compute_scores
+from openviic_tpu_torch.parallel import launch, runtime
 from openviic_tpu_torch.parallel import mesh as dp
-from openviic_tpu_torch.parallel import runtime
 from openviic_tpu_torch.training import checkpoint as ckpt
 from openviic_tpu_torch.training.device_reward import DeviceCiderFull
 from openviic_tpu_torch.training.optim import (
@@ -88,7 +102,7 @@ from openviic_tpu_torch.training.steps import (
     make_xe_multi_step,
     make_xe_step,
 )
-from openviic_tpu_torch.utils import setup_logger
+from openviic_tpu_torch.utils import maybe_enable_compilation_cache, setup_logger
 from openviic_tpu_torch.utils.metrics import (
     MetricsLogger,
     Profiler,
@@ -253,19 +267,29 @@ def _wait(tensor: torch.Tensor) -> None:
 
 def _check_config(config, device: torch.device) -> None:
     """Check ``RNG_IMPL``; refuse ``TRAINING.DATA_PARALLEL`` over several
-    cards in one process (the port runs one process a card)."""
-    tr, ds = config.TRAINING, config.DATASET
+    cards in one process (a process drives one card: ``parallel/launch.py``
+    starts one a card)."""
+    tr = config.TRAINING
     rng_impl = str(tr.get("RNG_IMPL", "threefry"))
     if rng_impl not in ("threefry", "rbg", "unsafe_rbg"):
         raise ValueError(f"TRAINING.RNG_IMPL={rng_impl!r} not recognised")
     cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (runtime.process_count() == 1 and cards > 1
-            and math.gcd(int(ds.FEATURE_BATCH_SIZE), cards) > 1
-            and tr.get("DATA_PARALLEL", True)):
+    axis = launch.data_axis(config, cards)
+    if runtime.process_count() == 1 and axis > 1:
         raise ValueError(
-            f"TRAINING.DATA_PARALLEL over {cards} cards in one process: the port trains one "
-            f"process a card; start them with torchrun --nproc_per_node={cards}, or set "
-            "TRAINING.DATA_PARALLEL: false to train on one")
+            f"TRAINING.DATA_PARALLEL over {axis} cards in one process: a process drives one "
+            "card; run python -m openviic_tpu_torch.train, which starts one a card "
+            "(parallel.launch.spawn), or set TRAINING.DATA_PARALLEL: false to train on one")
+
+
+def host_local_refusal(config, world: int) -> None:
+    """The JAX trainer's conditions on its single-host mesh
+    (``openviic_tpu/training/trainer.py:243-257``) for a host-local group of
+    ``world`` ranks."""
+    if not config.TRAINING.get("DATA_PARALLEL", True):
+        raise ValueError("a host-local process group trains data parallel: set "
+                         "TRAINING.DATA_PARALLEL")
+    launch.data_axis(config, world)  # GRAD_ACCUM's refusal
 
 
 def _pad_sizes(ds) -> Dict[str, int]:
@@ -324,13 +348,18 @@ class BaseTrainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BaseTrainer: no CUDA device; pass device='cpu' to train on "
                                "the CPU")
+        maybe_enable_compilation_cache(config)  # before the first kernel builds
         _check_config(config, self.device)
         tr, ds = config.TRAINING, config.DATASET
         self._ckpt_io = ckpt.get_backend(str(tr.get("CHECKPOINT_BACKEND", "native")))
         # across processes (parallel/runtime.py) every rank runs this
-        # constructor; rank 0 alone writes files, each write behind a barrier
+        # constructor; rank 0 alone writes files, each write behind a barrier,
+        # but every rank calls into a collective checkpoint backend
         self._multiprocess = runtime.process_count() > 1
         self._writer = runtime.process_index() == 0
+        host_local = runtime.host_local()
+        self._ckpt_collective = self._multiprocess and bool(
+            getattr(self._ckpt_io, "MULTIHOST_COLLECTIVE", False))
 
         self.checkpoint_path = os.path.join(tr.CHECKPOINT_PATH, config.MODEL.NAME)
         os.makedirs(self.checkpoint_path, exist_ok=True)
@@ -362,33 +391,43 @@ class BaseTrainer:
         # the data axis across processes: each rank's loader batch is its
         # share of the global batch
         self.mesh = None
-        if self._multiprocess:
-            multiprocess_refusal(config)
+        if self._multiprocess or host_local:
+            if host_local:
+                host_local_refusal(config, runtime.process_count())
+            else:
+                multiprocess_refusal(config)
             self.mesh = dp.make_mesh()
-            logger.info("Data-parallel over %d processes", self.mesh.size)
-        # DATASET.LOADER: grain shards the train streams by rank; the eval
-        # streams stay whole on every rank, so every rank takes the same
-        # decisions.  DATASET.MAX_REGIONS pins every region key to one row
-        # count, DATASET.PAD_SIZES any key; other variable keys are
-        # bucket-padded
-        loader_cls, eval_kw = DataLoader, {}
+            logger.info("Data-parallel over %d %s", self.mesh.size,
+                        "local devices" if host_local else "processes")
+        # DATASET.LOADER: grain shards the train streams by rank; on one
+        # host every rank draws the global batches of either loader and
+        # reads its part of each (DataLoader's ``part``).  The eval streams
+        # stay whole on every rank, so every rank takes the same decisions.
+        # DATASET.MAX_REGIONS pins every region key to one row count,
+        # DATASET.PAD_SIZES any key; other variable keys are bucket-padded
+        loader_cls, eval_kw, train_kw = DataLoader, {}, {}
         if str(ds.get("LOADER", "native")).lower() == "grain":
             loader_cls, eval_kw = GrainDataLoader, {"shard_index": 0, "shard_count": 1}
+        if host_local:
+            train_kw = dict(eval_kw, part=(self.mesh.rank, self.mesh.size))
         pad_sizes = _pad_sizes(ds)
         kw = {"pad_sizes": pad_sizes} if pad_sizes else {}
         eval_kw.update(kw)
+        train_kw.update(kw)
         # grad accumulation needs every batch divisible by GRAD_ACCUM, and
         # the data axis equal batches on every rank, so the ragged last
-        # batch is dropped; else it is kept
+        # batch is dropped; else it is kept.  The SCST batches drop it
+        # across hosts only: on one host every rank runs it whole
         self.train_dataloader = loader_cls(self.train_dataset, ds.FEATURE_BATCH_SIZE,
                                            shuffle=True, seed=13,
                                            drop_last=self.mesh is not None or grad_accum > 1,
-                                           **kw)
+                                           **train_kw)
         self.val_dataloader = loader_cls(self.dev_dataset, ds.FEATURE_BATCH_SIZE, **eval_kw)
         self.test_dataloader = loader_cls(self.test_dataset, ds.FEATURE_BATCH_SIZE, **eval_kw)
         self.train_dict_dataloader = loader_cls(
             self.train_dict_dataset, max(1, ds.DICT_BATCH_SIZE // self.training_beam_size),
-            shuffle=True, seed=17, drop_last=self._multiprocess, **kw)
+            shuffle=True, seed=17, drop_last=self._multiprocess and not host_local,
+            **train_kw)
         self.val_dict_dataloader = loader_cls(
             self.dev_dict_dataset, max(1, ds.DICT_BATCH_SIZE // self.evaluating_beam_size),
             **eval_kw)
@@ -654,13 +693,16 @@ class BaseTrainer:
         # advances only in XE epochs and the dict loader only in SCST ones
         loader_epochs = {"train": int(self.train_dataloader.epoch),
                          "train_dict": int(self.train_dict_dataloader.epoch)}
-        if self._writer:  # the state is the same on every rank
+        # the state is the same on every rank: rank 0 writes it, unless the
+        # backend is collective (every rank then calls it, and it fences
+        # its own writes)
+        if self._writer or self._ckpt_collective:
             self._ckpt_io.save_checkpoint(
                 os.path.join(self.checkpoint_path, self._ckpt_io.LAST_NAME), self.model,
                 self.state, {"epoch": self.epoch, "loader_epochs": loader_epochs, **extras},
                 frozen_mask=self._frozen_mask)
-        if self._multiprocess:  # no rank loads before the file is whole
-            runtime.barrier("ckpt_save")
+        if self._multiprocess and not self._ckpt_collective:
+            runtime.barrier("ckpt_save")  # no rank loads before the file is whole
 
     def load_checkpoint(self, fname: str) -> Optional[Dict]:
         """Restore the checkpoint ``fname`` (None when absent): the weights
@@ -806,10 +848,10 @@ class BaseTrainer:
             self.save_checkpoint({"val_loss": val_loss, "best_val_score": best_val_score,
                                   "patience": patience, "use_rl": self.use_rl})
             if best:
-                if self._writer:
+                if self._writer or self._ckpt_collective:
                     self._ckpt_io.copy(last, best_file)
-                if self._multiprocess:  # the switch may load it next epoch on every rank
-                    runtime.barrier("ckpt_best")
+                if self._multiprocess and not self._ckpt_collective:
+                    runtime.barrier("ckpt_best")  # the switch may load it on every rank
             # a signal may reach some ranks only: all stop, or the others
             # would wait at the next collective
             stop = self._stop_requested

@@ -99,11 +99,19 @@ def test_vocab_extend_and_refusals(tiny_dataset_dir, tmp_path):
     got.extend(Vocab.from_config(other), sort=True)
     assert got.itos == want.itos and dict(got.stoi) == dict(want.stoi)
     for key, value in (("PRETRAINED_LANGUAGE_MODEL", "vinai/phobert-base"),
-                       ("WORD_EMBEDDING", "fasttext"), ("USE_MAPPING", True)):
+                       ("USE_MAPPING", True)):
         raw = make_dataset_config(tiny_dataset_dir).to_dict()
         raw["VOCAB"][key] = value
         with pytest.raises(NotImplementedError, match=key):
             Vocab.from_config(ConfigNode(raw))
+    # word vectors are ported (tests/test_torch_port_word_embedding.py): a
+    # name no class registers raises KeyError in both packages
+    raw = make_dataset_config(tiny_dataset_dir).to_dict()
+    raw["VOCAB"]["WORD_EMBEDDING"] = "fasttext"
+    for build in (lambda: Vocab.from_config(ConfigNode(raw)),
+                  lambda: JaxVocab(type(jax_cfg)(raw))):
+        with pytest.raises(KeyError, match="'fasttext'"):
+            build()
 
 
 def assert_items_equal(got, want):

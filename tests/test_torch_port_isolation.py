@@ -85,8 +85,9 @@ def test_port_modules_never_import_the_jax_stack():
 
 
 # the trained-artifact decode, the scorers, XE training, the native
-# scorers' binding, SCST, the data side, the trainer lifecycle, serving and
-# the parallel layouts
+# scorers' binding, SCST, the data side, the trainer lifecycle, serving, the
+# parallel layouts, the checkpoint backend, the build cache, the word
+# vectors and the host-local launcher
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
@@ -98,6 +99,7 @@ NEW_MODULES = (
     "parallel/__init__", "parallel/runtime", "parallel/mesh", "parallel/dryrun",
     "parallel/collectives", "parallel/tensor_parallel", "parallel/ring_attention",
     "parallel/ulysses", "parallel/pipeline", "parallel/layouts_dryrun", "parallel/gloo_probe",
+    "training/orbax_backend", "utils/compile_cache", "data/word_embedding", "parallel/launch",
 )
 
 _IMPORT_ALL = """

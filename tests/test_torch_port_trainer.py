@@ -422,8 +422,19 @@ def test_foreign_checkpoint_refused(tmp_path, tiny_dataset_dir):
     with pytest.raises(ValueError, match="another model"):
         tr.load_checkpoint(str(other))
     assert all(torch.equal(p, before[n]) for n, p in tr.model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ckpt.get_backend("orbax")
+    # the DCP backend (tests/test_torch_port_orbax_checkpoint.py) refuses a
+    # directory that holds these files; an unknown backend name raises
+    from openviic_tpu_torch.training.orbax_backend import OrbaxBackend
+
+    assert isinstance(ckpt.get_backend("orbax"), OrbaxBackend)
+    (tmp_path / "foreign.orbax").mkdir()
+    for path in (jax_file, other, evil):
+        (tmp_path / "foreign.orbax" / ".metadata").write_bytes(path.read_bytes())
+        with pytest.raises(ValueError, match="not a checkpoint of openviic_tpu_torch"):
+            ckpt.get_backend("orbax").load_checkpoint(str(tmp_path / "foreign.orbax"))
+        assert all(np.array_equal(a, b) for a, b in zip(np.random.get_state(), state))
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        ckpt.get_backend("nope")
 
 
 def test_numpy_rng_state_restored(tmp_path_factory, tiny_dataset_dir):
@@ -548,22 +559,25 @@ def test_max_regions_pins_static_shapes(tmp_path_factory, tiny_dataset_dir):
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_dir,
                                                 monkeypatch):
-    """Without a card the default device raises; the Orbax backend raises
-    NotImplementedError naming its ROADMAP item; RNG_IMPL and GRAD_ACCUM
-    are checked.  DATASET.LOADER: grain, refused until data parallel across
-    processes was ported, now builds the host-sharded loaders (one shard
-    in one process, the eval streams whole).  One process over several
-    cards is refused, naming torchrun.  The adaptive decoder and a frozen
+    """Without a card the default device raises; RNG_IMPL and GRAD_ACCUM
+    are checked.  The Orbax backend, refused until it was ported, now
+    builds (the DCP backend); COMPILATION_CACHE_DIR, ignored until then,
+    moves the kernels' build directory.  DATASET.LOADER: grain, refused
+    until data parallel across processes was ported, now builds the
+    host-sharded loaders (one shard in one process, the eval streams
+    whole).  One process over several cards is refused, naming the
+    launcher that starts one a card.  The adaptive decoder and a frozen
     backbone, refused until RSTNet was ported, now build: the backbone's
     parameters are kept out of the XE Adam."""
     from openviic_tpu_torch.data.grain_loader import GrainDataLoader
+    from openviic_tpu_torch.ops import cuda_build
+    from openviic_tpu_torch.training.orbax_backend import OrbaxBackend
 
     tmp = tmp_path_factory.mktemp("refuse")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_trainer(ConfigNode(config_dict(tmp, tiny_dataset_dir)))
-    cases = [({"TRAINING": {"CHECKPOINT_BACKEND": "orbax"}}, NotImplementedError, "A.8"),
-             ({"TRAINING": {"RNG_IMPL": "mersenne"}}, ValueError, "RNG_IMPL"),
+    cases = [({"TRAINING": {"RNG_IMPL": "mersenne"}}, ValueError, "RNG_IMPL"),
              ({"TRAINING": {"GRAD_ACCUM": 3}}, ValueError, "GRAD_ACCUM")]
     for patch, exc, match in cases:
         cfg = config_dict(tmp, tiny_dataset_dir)
@@ -583,15 +597,25 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_d
     assert (tr.train_dataloader.shard_index, tr.train_dataloader.shard_count) == (0, 1)
     assert (tr.val_dict_dataloader.shard_index, tr.val_dict_dataloader.shard_count) == (0, 1)
     assert not tr.train_dataloader.drop_last and not tr.train_dict_dataloader.drop_last
-    cfg = config_dict(tmp, tiny_dataset_dir, RNG_IMPL="rbg", COMPILATION_CACHE_DIR="/nowhere")
-    assert build_trainer(ConfigNode(cfg), device="cpu").model is not None
+    cfg = config_dict(tmp, tiny_dataset_dir, CHECKPOINT_BACKEND="orbax")
+    assert isinstance(build_trainer(ConfigNode(cfg), device="cpu")._ckpt_io, OrbaxBackend)
+    monkeypatch.delenv("OPENVIIC_COMPILE_CACHE", raising=False)
+    cuda_build.set_build_dir(None)
+    cache = tmp / "kernel_cache"
+    cfg = config_dict(tmp, tiny_dataset_dir, RNG_IMPL="rbg", COMPILATION_CACHE_DIR=str(cache))
+    try:
+        assert build_trainer(ConfigNode(cfg), device="cpu").model is not None
+        assert cuda_build.build_dir() == cache and cache.is_dir()
+    finally:
+        cuda_build.set_build_dir(None)
 
     from openviic_tpu_torch.training import trainer as trainer_module
 
     # data parallel over more than one card in one process (batch 4 shares a
-    # factor with 4 cards): one process a card, under torchrun
+    # factor with 4 cards): one process a card, which the launcher starts
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(ValueError, match="torchrun --nproc_per_node=4"):
+    with pytest.raises(ValueError, match="over 4 cards in one process.*"
+                                         "python -m openviic_tpu_torch.train"):
         trainer_module._check_config(ConfigNode(cfg), torch.device("cuda"))
     cfg["TRAINING"]["DATA_PARALLEL"] = False
     trainer_module._check_config(ConfigNode(cfg), torch.device("cuda"))
