@@ -313,13 +313,37 @@ On the card it runs these phases, each printing its seconds:
    odd ones whole on both ranks), each batch's mean reward within 1e-5 of
    one process's; parameters bit-equal across the ranks, rank 0 alone
    writing the checkpoint (``local_parallel_part``);
-21. the last line: ``{"ok": true, "device": {...}}``.
+21. tensor parallelism on every family (``tensor_parallel_families_phase``):
+   ``parallel/layouts_dryrun.py --family all`` at the yamls' full widths
+   (random weights from a seed), four gloo ranks on the card, the families
+   alternating between two {model 2} meshes (ranks 0-1 and 2-3), each case
+   against one process on the card: every family (the flagship, AoA, the
+   augmented memory, M², CAMO with its one-head encoder attention gathered
+   to the whole head, the ORT with the trig embedding off and on, DLCT,
+   RSTNet through its signal table built on each rank, and phase 17's MoE
+   and ``LSTMTextEmbedding`` flagship): one f32 XE step at a batch of 16
+   (loss within 1e-5), the f32 eager decode of 16 images (tokens equal),
+   the bf16 tuned decode of 64 images at beam 3 (head_topk on each rank's
+   vocab shard, beam_select_attention on its 4 heads, the fast kernel; the
+   mean best-beam log-prob within 0.5% and, teacher-forced along its
+   captions, each token's log-prob within 0.25 of one process's on 99% of
+   the tokens); the flagship's path (b) (``resident_layer_step`` on every
+   rank from the layers' weights gathered whole, whose gather is timed
+   once) and path (c) with ``OPENVIIC_FUSED_STEP=1`` at {model 2} and path
+   (a) at {model 4} (2 heads a rank: the general beam-select kernel); the
+   ORT trig-on under ``OPENVIIC_GEO_FUSED=1`` (the geometry kernel on the
+   rank's heads of ``fc_gs``): each within 0.5% of one process's score on
+   the same path and every kernel launched once a layer and step (geo: a
+   layer and request) on every rank; then those four kernels on rank 0's
+   inputs captured at step 12 (geo: its first call) against their plain
+   versions, timed beside their bounds;
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
 and cases in the families, two-stream, RSTNet, remainder, data-parallel,
-model-parallel and backends phases, 0 where a kernel does not run); the
-line before that is the card's name and power limit.  Any failure raises,
+model-parallel (phases 19 and 21) and backends phases, 0 where a kernel
+does not run); the line before that is the card's name and power limit.  Any failure raises,
 and the script exits non-zero without those lines.  ``--cpu`` runs phases
 3-20 at tiny
 widths with the plain versions on the CPU (the artifact's first image;
@@ -330,7 +354,8 @@ references are cut to 6 words; of phase 18 the dry run's one rank over gloo
 in this process, bit-equal to no group, and serving over ``["cpu",
 "cpu"]``; of phase 19 its check (g) over gloo; phase 20's (a) and (b) at
 tiny widths, (c) as the build directory moved and given back in this
-process, (d) as one host-local gloo rank in this process) and ends with
+process, (d) as one host-local gloo rank in this process; phase 21 is
+left to the CPU tests) and ends with
 ``cpu rehearsal ok`` instead.  The script writes nothing outside
 ``openviic_tpu_torch/_build/`` but the serving, trainer, RDR, import,
 data-parallel, model-parallel and backends phases' temporary directories,
@@ -1776,6 +1801,39 @@ def pixel_boxes(gen, bs, n, live):
     return boxes * (torch.arange(n)[None] < live[:, None])[..., None]
 
 
+def geo_library(q, k, v, boxes, wg, bg, mask, scale):
+    """The materialised path the geometry kernel replaces, as one yardstick:
+    the box embedding, fc_gs and SDPA with the f32 bias (timed only)."""
+    from openviic_tpu_torch.models.geometry import box_relational_embedding
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        emb = box_relational_embedding(boxes.float(), dim_g=wg.shape[0])
+        wts = torch.relu(emb @ wg.float() + bg.float()).permute(0, 3, 1, 2)
+        bias = torch.log(torch.clamp_min(wts, 1e-6)) + mask_bias(mask)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias.to(q.dtype), scale=scale)
+    return library
+
+
+def geo_bound(q, dim_g: int) -> dict:
+    """The geometry kernel's work on q (bs, n, h, d) at ``dim_g``: its bf16
+    products (q.k and p.v), the f32 fold of the sin/cos planes, the
+    transcendentals (sin/cos, the displacements' logs, each bias's log and
+    exp) and the bytes (q, k, v, out; boxes and mask); ``unit_bound``'s
+    bound of them."""
+    bs, n, h, d = q.shape
+    pairs = bs * n * n
+    work = dict(mma=2.0 * pairs * h * 2 * d, fold=2.0 * pairs * h * 2 * 4 * (dim_g // 8),
+                sincos=pairs * 2 * 4 * (dim_g // 8),
+                nbytes=4 * bs * n * h * d * q.element_size() + bs * n * (4 * 4 + 1))
+    work["sfu"] = work["sincos"] + pairs * (2 + 2 * h)
+    work["bound_ms"], work["bound_by"], work["times"] = unit_bound(
+        work["nbytes"], bf16_flops=work["mma"], f32_flops=work["fold"], sfu_ops=work["sfu"])
+    return work
+
+
 def geo_attention_phase(device, s):
     """ops.geo_fused_attention against its plain version at the ORT encoder
     shape (images x regions padded to 8, the trig embedding's dim_g =
@@ -1788,7 +1846,6 @@ def geo_attention_phase(device, s):
     everywhere; then its time beside its bound, the plain version's and the
     composite of box_relational_embedding + fc_gs + SDPA with the
     materialised bias."""
-    from openviic_tpu_torch.models.geometry import box_relational_embedding
     from openviic_tpu_torch.ops.geo_attention import (
         geo_fused_attention, geo_fused_attention_reference, kernel_route)
 
@@ -1832,28 +1889,15 @@ def geo_attention_phase(device, s):
             timed_case = args
     if device.type != "cuda":
         return None
-    q, k, v, boxes, wg, bg, mask, scale = timed_case
-    bs, n, h, d = q.shape
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def library():  # the materialised path: embedding, fc_gs, SDPA with the bias
-        emb = box_relational_embedding(boxes, dim_g=dim_g)
-        wts = torch.relu(emb @ wg + bg).permute(0, 3, 1, 2)
-        bias = torch.log(torch.clamp_min(wts, 1e-6)) + mask_bias(mask)
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias.to(q.dtype), scale=scale)
-
+    q = timed_case[0]
+    library = geo_library(*timed_case)
     ms = time_cuda(lambda: geo_fused_attention(*timed_case), 20, graph=True)
     plain_ms = time_cuda(lambda: geo_fused_attention_reference(*timed_case), 3, graph=True)
     library_ms = time_cuda(library, 20, graph=True)
     costs = host_costs(lambda: geo_fused_attention(*timed_case), 20)
-    pairs = bs * n * n
-    mma = 2.0 * pairs * h * 2 * d  # q.k and p.v: bf16 operands, f32 accumulation
-    fold = 2.0 * pairs * h * 2 * 4 * (dim_g // 8)  # the f32 fold of the sin/cos planes
-    sincos = pairs * 2 * 4 * (dim_g // 8)
-    sfu = sincos + pairs * (2 + 2 * h)  # and the displacements' logs, each bias's log and exp
-    nbytes = 4 * bs * n * h * d * 2 + bs * n * (4 * 4 + 1)
-    bound_ms, bound_by, times = unit_bound(nbytes, bf16_flops=mma, f32_flops=fold, sfu_ops=sfu)
+    work = geo_bound(q, dim_g)
+    mma, fold, sfu, sincos, nbytes = (work[k] for k in ("mma", "fold", "sfu", "sincos", "nbytes"))
+    bound_ms, bound_by, times = work["bound_ms"], work["bound_by"], work["times"]
     log(f"  geo_fused_attention at {tuple(q.shape)}: kernel {ms:.4f} ms (launched from Python: "
         f"{costs['launch_ms']:.4f} ms, host {costs['host_ms']:.4f} ms per call), plain "
         f"{plain_ms:.4f} ms, embedding+fc_gs+SDPA {library_ms:.4f} ms, bound "
@@ -4023,74 +4067,28 @@ FAMILY_F32_AGREEMENT_MIN = 0.99
 LAYER_KERNEL_FAMILIES = ("augmented_memory", "camo")
 
 
+# the yamls' run names (NAME), by family
+FAMILY_RUN_NAMES = {"aoa": "aoa_region_x152++", "augmented_memory": "aug_mem_region_x152++",
+                    "meshed_memory": "m2_region_x152++",
+                    "camo": "camo_transformer_region_x152_faster_rcnn",
+                    "dlct": "dlct_region_grid_x152++", "rstnet": "rstnet_region_x152++"}
+
+
 def family_model(name: str, s) -> dict:
-    """The MODEL tree of ``configs/<FAMILIES[name]>.yaml`` at the widths of
-    ``s``: at FLAGSHIP's the yaml's own tree
+    """The MODEL tree of ``configs/<FAMILIES[name]>.yaml`` (DLCT's
+    dlct_fixed, RSTNet's rstnet_fixed, the frozen language model at
+    ``s["lm_hidden"]`` over ``s["lm_vocab"]`` ids) at the widths of ``s``:
+    ``parallel/layouts_dryrun.py``'s ``family_model`` at dropout 0.1 under
+    the yaml's NAME.  At FLAGSHIP's widths that is the yaml's own tree
     (``tests/test_torch_port_families_configs.py`` holds it to that), since
     the card's machine has no PyYAML to read it."""
-    d, h, ff = s["d_model"], s["heads"], s["d_ff"]
-    aoa = name == "aoa"
-    memory = "AugmentedMemoryScaledDotProductAttention"
+    from openviic_tpu_torch.parallel import layouts_dryrun
 
-    def attn(arch="ScaledDotProductAttention", heads=h, stateful=False, slots=False):
-        node = {"ARCHITECTURE": arch, "HEAD": heads, "D_MODEL": d, "D_KEY": d // h,
-                "D_VALUE": d // h, "D_FF": ff, "D_FEATURE": ff, "USE_AOA": aoa,
-                "CAN_BE_STATEFUL": stateful, "DROPOUT": 0.1}
-        return dict(node, MEMORY=40) if slots else node
-
-    if name == "dlct":
-        return dlct_model(s, attn)
-    if name == "rstnet":
-        return rstnet_model(s, attn)
-    run_name, architecture, encoder, decoder, enc_attention = {
-        "aoa": ("aoa_region_x152++", "StandardTransformerUsingRegion", "Encoder", "Decoder",
-                attn(slots=True)),
-        "augmented_memory": ("aug_mem_region_x152++", "MeshedMemoryTransformer", "Encoder",
-                             "Decoder", attn(memory, slots=True)),
-        "meshed_memory": ("m2_region_x152++", "MeshedMemoryTransformer", "MultilevelEncoder",
-                          "MeshedDecoder", attn(memory, slots=True)),
-        "camo": ("camo_transformer_region_x152_faster_rcnn", "CamoTransformer",
-                 "CrossAttentionMultiLevelEncoder", "Decoder", attn(heads=1, slots=True)),
-    }[name]
-    dec_attention = {"SELF_ATTENTION": attn(stateful=True), "ENC_ATTENTION": attn()}
-    if architecture == "MeshedMemoryTransformer":
-        dec_attention.update(N_ENCODER_LAYERS=FAMILY_LAYERS, D_MODEL=d)
-    return {
-        "ARCHITECTURE": architecture, "NAME": run_name, "DEVICE": "tpu",
-        "VISION_EMBEDDING": {"ARCHITECTURE": "FeatureEmbedding", "D_FEATURE": s["d_feature"],
-                             "D_MODEL": d, "DROPOUT": 0.1},
-        "ENCODER": {"ARCHITECTURE": encoder, "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
-                    "SELF_ATTENTION": enc_attention},
-        "DECODER": {"ARCHITECTURE": decoder, "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
-                    "ATTENTION": dec_attention,
-                    "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
-                                       "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
-                                       "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1}},
-    }
-
-
-def dlct_model(s, attn) -> dict:
-    """``configs/dlct_fixed.yaml``'s MODEL at the widths of ``s``: regions
-    of ``d_feature``, grids of twice that (1024 and 2048 at FLAGSHIP), its
-    three encoder levels of four geometric attentions, 8 encoder heads."""
-    d = s["d_model"]
-    geometric = attn("AugmentedGeometryScaledDotProductAttention")
-    return {
-        "ARCHITECTURE": "DLCTTransformer", "NAME": "dlct_region_grid_x152++", "DEVICE": "tpu",
-        "VISION_EMBEDDING": {"ARCHITECTURE": "GeometricDualFeatureEmbedding",
-                             "D_REGION_FEATURE": s["d_feature"],
-                             "D_GRID_FEATURE": 2 * s["d_feature"], "D_MODEL": d,
-                             "DROPOUT": 0.1},
-        "ENCODER": {"ARCHITECTURE": "DualCollaborativeLevelEncoder", "D_MODEL": d,
-                    "LAYERS": FAMILY_LAYERS, "HEAD": s["heads"], "TRIGNOMETRIC_EMBEDDING": True,
-                    "SELF_ATTENTION": geometric, "CROSS_ATTENTION": dict(geometric)},
-        "DECODER": {"ARCHITECTURE": "Decoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
-                    "ATTENTION": {"SELF_ATTENTION": attn(stateful=True),
-                                  "ENC_ATTENTION": attn()},
-                    "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
-                                       "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
-                                       "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1}},
-    }
+    widths = argparse.Namespace(d_model=s["d_model"], heads=s["heads"], d_ff=s["d_ff"],
+                                layers=FAMILY_LAYERS, d_feature=s["d_feature"],
+                                lm_hidden=s["lm_hidden"], lm_vocab=s["lm_vocab"])
+    return dict(layouts_dryrun.family_model(widths, name, dropout=0.1),
+                NAME=FAMILY_RUN_NAMES[name])
 
 
 def family_config(name: str, s, kernels: bool = True):
@@ -4701,38 +4699,6 @@ RSTNET_SCST_ITERATIONS = 3  # the rehearsal: 1
 RSTNET_SCST_BATCH = 60  # the yaml's DICT_BATCH_SIZE
 RSTNET_TRAINER_SPLIT = (60, 12, 6)  # phase 13's artifact images: train, dev, test by id
 RSTNET_TRAINER_NAME = "rstnet_trainer_phase"
-
-
-def rstnet_model(s, attn) -> dict:
-    """``configs/rstnet_fixed.yaml``'s MODEL at the widths of ``s``: the
-    flagship's encoder (40 memory slots in its attention's tree, unused by
-    plain SDPA), 3 decoder layers and the adaptive one, and the frozen
-    PhoBERT-architecture language model at ``s["lm_hidden"]`` (768) over
-    ``s["lm_vocab"]`` ids (64 001), ``token`` signals."""
-    d = s["d_model"]
-    adaptive = "AdaptiveScaledDotProductAttention"
-    return {
-        "ARCHITECTURE": "StandardTransformerUsingRegion", "NAME": "rstnet_region_x152++",
-        "DEVICE": "tpu",
-        "VISION_EMBEDDING": {"ARCHITECTURE": "FeatureEmbedding", "D_FEATURE": s["d_feature"],
-                             "D_MODEL": d, "DROPOUT": 0.1},
-        "ENCODER": {"ARCHITECTURE": "Encoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
-                    "SELF_ATTENTION": attn(slots=True)},
-        "DECODER": {
-            "ARCHITECTURE": "AdaptiveDecoder", "D_MODEL": d, "LAYERS": FAMILY_LAYERS,
-            "ATTENTION": {"SELF_ATTENTION": attn(stateful=True), "ENC_ATTENTION": attn()},
-            "TEXT_EMBEDDING": {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d,
-                               "D_EMBEDDING": 300, "WORD_EMBEDDING": None,
-                               "WORD_EMBEDDING_CACHE": None, "DROPOUT": 0.1},
-            "ADAPTIVE_ATTENTION": {"SELF_ATTENTION": attn(adaptive, stateful=True),
-                                   "ENC_ATTENTION": attn(adaptive)},
-            "LANGUAGE_MODEL": {
-                "SIGNAL_MODE": "token", "ARCHITECTURE": "PhoBERTModel",
-                "PRETRAINED_NAME": "vinai/phobert-base", "HIDDEN_SIZE": s["lm_hidden"],
-                "D_MODEL": d, "MAX_LEN": 54, "VOCAB_SIZE": s["lm_vocab"], "PADDING_IDX": 0,
-                "BACKBONE_LAYERS": 2, "BACKBONE_HEADS": 8, "ATTENTION": attn()},
-        },
-    }
 
 
 def events_ms(device, fn):
@@ -5902,6 +5868,122 @@ def model_parallel_phase(device, s, card: str) -> dict:
     return {"launches": launches, "kernels": kernels, "figures": figures}
 
 
+# ---------------------------------------------------------------- phase 21
+TP_FAMILY_BATCH = 16  # phase 21's f32 XE step
+TP_FAMILY_F32_IMAGES = 16
+
+
+def geo_captured_case(device, call, what: str) -> dict:
+    """``geo_fused_attention`` on a call captured from a decode, against its
+    plain version under the geo phase's gate, timed beside its bound and
+    the materialised path (box embedding + fc_gs + SDPA)."""
+    from openviic_tpu_torch.ops.geo_attention import (
+        geo_fused_attention, geo_fused_attention_reference, kernel_route)
+
+    args, kwargs = call
+    args = tuple(args) + (kwargs["sm_scale"],)
+    q, k, v, wg = args[0], args[1], args[2], args[4]
+    got, want = geo_fused_attention(*args), geo_fused_attention_reference(*args)
+    sync(device)
+    err, ulps, _ = ulp_errors(got, want)
+    beyond = float(((got.float() - want.float()).abs()
+                    > GEO_ULPS * bf16_ulp(want.float().abs().clamp_min(ULP_FLOOR))).float().mean())
+    dim_g = wg.shape[0]
+    route = kernel_route(*(t.to(torch.bfloat16) for t in (q, k, v)), dim_g // 8)
+    log(f"  geo_fused_attention, {what}: q {tuple(q.shape)} {str(q.dtype)[6:]}, fc_g "
+        f"{tuple(wg.shape)} at strides {wg.stride()} (route {route}): max |err| {err:.3g} = "
+        f"{ulps:.2f} bf16 ulps, {beyond:.2e} beyond {GEO_ULPS}")
+    if not torch.isfinite(got).all() or err > GEO_ATOL or beyond > 1 - GEO_SHARE:
+        raise AssertionError(f"geo_fused_attention, {what}: max |err| {err:.3g}, {beyond:.4f} "
+                             f"of the elements beyond {GEO_ULPS} bf16 ulps")
+    work = geo_bound(q, dim_g)
+    bound_ms, bound_by = work["bound_ms"], work["bound_by"]
+    r = dict(case=f"{what} q {tuple(q.shape)}", max_abs_err=err, route=route,
+             ms=time_cuda(lambda: geo_fused_attention(*args), 20, graph=True),
+             plain_ms=time_cuda(lambda: geo_fused_attention_reference(*args), 3, graph=True),
+             bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=time_cuda(geo_library(*args), 20, graph=True))
+    log(f"  geo_fused_attention {r['case']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        f"ms, library {r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return r
+
+
+def tensor_parallel_families_phase(device, s, card: str) -> dict:
+    """Phase 21: tensor parallelism on every family and the decode's kernels
+    under a ``model`` axis (``parallel/layouts_dryrun.py --family all``:
+    four gloo ranks on the card, two {model 2} meshes side by side and one
+    {model 4}, each case against one process on the card), then rank 0's
+    captured inputs of the four kernels that run there anew (the
+    beam-select kernel at {model 2}, its fast kernel, and {model 4}, its
+    general one; both layer steps from the weights gathered whole; the
+    geometry kernel on the rank's heads) against their plain versions,
+    timed beside their bounds.  The card only: the rehearsal leaves it to
+    the CPU tests (``tests/test_torch_port_tensor_parallel_families.py``).
+    Returns each kernel's launches a rank, rank 0's kernel cases and the
+    figures."""
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch.parallel import layouts_dryrun
+
+    launches = {fn.__name__: {} for fn in counted_wrappers()}
+    if device.type != "cuda":
+        log("  tensor-parallel families: on the card only (the CPU tests hold them to JAX)")
+        return {"launches": launches, "kernels": {}, "figures": {}}
+    capture = tempfile.mkdtemp(prefix="openviic_tp_families_capture_")
+    try:
+        opts = layouts_options(s, True, capture=capture)
+        opts.family, opts.family_batch, opts.f32_images = "all", TP_FAMILY_BATCH, \
+            TP_FAMILY_F32_IMAGES
+        opts.lm_hidden, opts.lm_vocab = s["lm_hidden"], s["lm_vocab"]
+        figures = layouts_dryrun.run(opts)
+        captured = torch.load(os.path.join(capture, "captured.pt"), map_location=device,
+                              weights_only=False)
+    finally:
+        shutil.rmtree(capture, ignore_errors=True)
+    for name, fig in figures["families"].items():
+        log(f"  {name}: {json.dumps(fig)}")
+    log(f"  paths: {json.dumps(figures['paths'])}")
+    log(f"  one process {figures['references_s']:.1f} s, the ranks {figures['ranks_s']:.1f} s")
+    t = layouts_dryrun.CAPTURE_STEPS[1]
+
+    def one_step(key, kernel):
+        (index, call), = captured[key].items()
+        return {kernel: {t: call, "last": (t, call)}}
+
+    kernels = {}
+    for key, kernel, what in (
+            ("flagship_tuned", "beam_select_attention", "tensor parallel {model 2}, rank 0"),
+            ("flagship_tuned_model4", "beam_select_attention",
+             "tensor parallel {model 4}, rank 0"),
+            ("flagship_resident", "resident_layer_step", "tensor parallel {model 2}, rank 0"),
+            ("flagship_fused", "fused_layer_step", "tensor parallel {model 2}, rank 0")):
+        for name, rows in trained_kernel_cases(device, one_step(key, kernel), what=what).items():
+            kernels.setdefault(name, []).extend(rows)
+    (_, geo_call), = captured["ort_trig_geo"].items()
+    kernels["geo_fused_attention"] = [geo_captured_case(
+        device, geo_call, "tensor parallel {model 2}, rank 0's heads")]
+    flagship = figures["families"]["flagship"]["paths"]
+    launches["beam_select_attention"].update(
+        tp_model2_per_rank=flagship["tuned"]["launches"]["beam_select_attention"],
+        tp_model4_per_rank=figures["paths"]["tuned_model4"]["launches"]["beam_select_attention"],
+        tp_families_per_rank={n: f["paths"]["tuned"]["launches"]["beam_select_attention"]
+                              for n, f in figures["families"].items()})
+    launches["head_topk"]["tp_families_per_rank"] = {
+        n: f["paths"]["tuned"]["launches"]["head_topk"] for n, f in figures["families"].items()}
+    launches["resident_layer_step"]["tp_model2_per_rank"] = \
+        flagship["resident"]["launches"]["resident_layer_step"]
+    launches["fused_layer_step"]["tp_model2_per_rank"] = \
+        flagship["fused"]["launches"]["fused_layer_step"]
+    launches["geo_fused_attention"]["tp_model2_per_rank"] = \
+        figures["families"]["ort_trig"]["paths"]["geo"]["launches"]["geo_fused_attention"]
+    for name, counts in launches.items():
+        total = sum(sum(v.values()) if isinstance(v, dict) else v for v in counts.values())
+        if name != "fused_attention" and not total:
+            raise AssertionError(f"{name} was not launched under the model axis: {counts}")
+    return {"launches": launches, "kernels": kernels, "figures": figures}
+
+
 # ---------------------------------------------------------------- phase 20
 BACKENDS_EPOCHS = 2  # XE, the switch (PATIENCE 0), one SCST epoch
 BACKENDS_SERVE_IMAGES = 30  # phase 13's test images, served from both checkpoints
@@ -6837,6 +6919,8 @@ def all_phases(device, s, card: str, cache_first=None):
     model_parallel = timed("model parallel", lambda: model_parallel_phase(device, s, card))
     backends = timed("backends", lambda: backends_phase(device, s, card, loaded,
                                                         trainer.pop("orbax"), cache_first))
+    tp_families = timed("tensor-parallel families",
+                        lambda: tensor_parallel_families_phase(device, s, card))
     if device.type != "cuda":
         return []
     scst_cases = scst.pop("kernels")
@@ -6887,6 +6971,10 @@ def all_phases(device, s, card: str, cache_first=None):
         e["model_parallel"] = model_parallel["launches"][e["name"]]
         e["model_parallel_cases"] = model_parallel["kernels"].get(e["name"], [])
     found[0]["model_parallel_figures"] = model_parallel["figures"]
+    for e in found:  # phase 21's launches a rank and cases join phase 19's
+        e["model_parallel"].update(tp_families["launches"][e["name"]])
+        e["model_parallel_cases"] += tp_families["kernels"].get(e["name"], [])
+    found[0]["tp_families_figures"] = tp_families["figures"]
     for e in found:  # every kernel's launches on each phase-20 path, 0 where it does not run
         e["backends"] = backends["launches"][e["name"]]
         e["backends_cases"] = backends["kernels"].get(e["name"], [])

@@ -34,8 +34,12 @@ A tensor-parallel model (``parallel.tensor_parallel.shard_model`` over a
 ``model`` axis) keeps its heads' share of the caches, and fast selection
 takes each rank's top-k and logsumexp over its vocab shard (the head
 kernel on the shard with ``head_kernel``), merged exactly across the ranks
-(``vocab_parallel_topk``); the layer kernels and the beam-select kernel
-are refused there.
+(``vocab_parallel_topk``).  Every decode flag runs there, as in the JAX
+package under GSPMD: ``attn_kernel`` on the rank's heads, and a layer
+whose steps run a whole-layer kernel (``resident_kernel``,
+``OPENVIIC_FUSED_STEP=1``) keeps every head in its caches and runs the
+kernel whole on every rank from its weights gathered once
+(``models/decoders.py``).
 
 Dropout-active sampling (SCST's ``TRAINING.SCST_SAMPLE_DROPOUT``, the JAX
 ``train_dropout_rng``) runs the encoder and every step in train mode, each
@@ -63,7 +67,6 @@ import torch
 
 from openviic_tpu_torch import rng
 from openviic_tpu_torch.models.base import make_decode_cache
-from openviic_tpu_torch.ops.fused_decoder_step import fused_step_enabled
 from openviic_tpu_torch.ops.head_topk import head_topk
 from openviic_tpu_torch.parallel.tensor_parallel import vocab_parallel_topk
 
@@ -338,14 +341,6 @@ class _Stream:
         # fast selection merges each rank's vocab shard's top-k and lse
         self.mesh = getattr(model, "parallel_mesh", None)
         model_parallel = 1 if self.mesh is None else self.mesh.axis_size("model")
-        if model_parallel > 1:
-            refused = [name for name, on in (
-                ("resident_kernel", resident_kernel), ("attn_kernel", attn_kernel),
-                ("OPENVIIC_FUSED_STEP=1", fused_step_enabled() and not beam_resident)) if on]
-            if refused:
-                raise ValueError(f"{', '.join(refused)} under a 'model' mesh axis of size "
-                                 f"{model_parallel}: the layer kernels read whole layers and "
-                                 "the beam-select kernel is not run on a rank's heads")
         self.vocab_parallel = model_parallel > 1 and self.fast_select
         self.model, self.beam_size, self.beam_resident = model, beam_size, beam_resident
         self.attn_kernel, self.resident_kernel, self.stream = attn_kernel, resident_kernel, stream
@@ -373,9 +368,12 @@ class _Stream:
             memory_mask = _expand_to_beams(memory_mask, beam_size)
         self.memory_mask = memory_mask
         n_rows = b_s * beam_size
+        # the layers that run a whole-layer kernel keep every head
+        whole_heads = model.decoder.kernel_layers(beam_resident, resident_kernel, attn_kernel)
         cache = make_decode_cache(model.config.DECODER, vocab, n_rows, dtype=dtype,
-                                  device=device, model_parallel=model_parallel)
-        self.cache = model.prepare_cache(cache, memory)
+                                  device=device, model_parallel=model_parallel,
+                                  whole_heads=whole_heads)
+        self.cache = model.prepare_cache(cache, memory, whole_heads)
         if language_table is not None:
             self.cache["language_table"] = language_table.to(device=device, dtype=dtype)
 

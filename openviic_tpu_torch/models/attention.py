@@ -165,7 +165,19 @@ def _attend(q, k, v, d_k: int, mask: Optional[torch.Tensor],
 
 class _Projections(nn.Module):
     """The q/k/v/o projections every attention kernel has (xavier kernels,
-    zero biases; the JAX ``_ProjectionMixin``)."""
+    zero biases; the JAX ``_ProjectionMixin``).
+
+    Under a ``model`` mesh axis (``parallel.tensor_parallel.shard_model``)
+    the projections are column- and row-parallel and one of two layouts
+    holds: ``head_parallel`` (mesh, axis), ``h`` being then the rank's h /
+    P heads, whose columns of the memory slots and geometry it reads too;
+    or ``gathered_heads`` (mesh, axis), where the axis does not divide the
+    heads: the rank's columns of q, k and v are all-gathered to whole
+    heads (``_whole``), every rank attends all of them, and ``output``
+    hands the row-parallel ``fc_o`` the rank's columns of the result."""
+
+    head_parallel = None
+    gathered_heads = None
 
     def __init__(self, config):
         super().__init__()
@@ -176,21 +188,55 @@ class _Projections(nn.Module):
         self.fc_v = XavierLinear(self.d_model, self.h * self.d_v)
         self.fc_o = XavierLinear(self.h * self.d_v, self.d_model)
 
+    def _whole(self, x):
+        """A projection's (..., columns) output on whole heads: under
+        ``gathered_heads`` the ranks' columns all-gathered, else ``x``."""
+        if self.gathered_heads is None:
+            return x
+        from openviic_tpu_torch.parallel import collectives
+
+        return collectives.all_gather(x, *self.gathered_heads, x.dim() - 1)
+
+    def _head_columns(self, x):
+        """The rank's heads' columns (last dim) of a replicated (..., h *
+        d) tensor under ``head_parallel`` (its gradient all-gathered back),
+        else ``x``."""
+        if self.head_parallel is None:
+            return x
+        from openviic_tpu_torch.parallel import collectives
+
+        return collectives.split(x, *self.head_parallel, x.dim() - 1)
+
+    def whole_head_cache(self, x):
+        """(rows, n, h, d) K or V on every head: under ``head_parallel`` the
+        ranks' heads all-gathered (the layer kernels' cross K/V), else
+        ``x``."""
+        if self.head_parallel is None:
+            return x
+        from openviic_tpu_torch.parallel import collectives
+
+        return collectives.all_gather(x, *self.head_parallel, 2)
+
     def project_q(self, queries):
         bs, nq = queries.shape[:2]
-        return self.fc_q(queries).reshape(bs, nq, self.h, self.d_k)
+        return self._whole(self.fc_q(queries)).reshape(bs, nq, self.h, self.d_k)
 
     def project_kv(self, x):
         """K and V of ``x`` in the promoted dtype of ``x`` and the weights
         (DLCT's cross-attentions read an f32 stream at bf16 weights)."""
         bs, n = x.shape[:2]
-        k = promoted_linear(self.fc_k, x).reshape(bs, n, self.h, self.d_k)
-        v = promoted_linear(self.fc_v, x).reshape(bs, n, self.h, self.d_v)
+        k = self._whole(promoted_linear(self.fc_k, x)).reshape(bs, n, self.h, self.d_k)
+        v = self._whole(promoted_linear(self.fc_v, x)).reshape(bs, n, self.h, self.d_v)
         return k, v
 
     def output(self, out):
         bs, nq = out.shape[:2]
-        return promoted_linear(self.fc_o, out.reshape(bs, nq, self.h * self.d_v))
+        out = out.reshape(bs, nq, self.h * self.d_v)
+        if self.gathered_heads is not None:
+            from openviic_tpu_torch.parallel import collectives
+
+            out = collectives.split(out, *self.gathered_heads, 2)
+        return promoted_linear(self.fc_o, out)
 
 
 @META_ATTENTION.register()
@@ -201,8 +247,9 @@ class ScaledDotProductAttention(_Projections):
         """``inputs``: other attentions' per-query inputs (the adaptive
         decoder's ``language_signals``), unused here as in the JAX package."""
         q = self.project_q(queries)
-        k = self.fc_k(keys).reshape(keys.shape[0], keys.shape[1], self.h, self.d_k)
-        v = self.fc_v(values).reshape(values.shape[0], values.shape[1], self.h, self.d_v)
+        k = self._whole(self.fc_k(keys)).reshape(keys.shape[0], keys.shape[1], self.h, self.d_k)
+        v = self._whole(self.fc_v(values)).reshape(values.shape[0], values.shape[1], self.h,
+                                                   self.d_v)
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
 
     def attend_cached(self, queries, k, v, attention_mask, **inputs):
@@ -227,11 +274,9 @@ class ScaledDotProductAttention(_Projections):
         else:
             weight, bias = cached[1:]
         qkv = nn.functional.linear(x, weight, bias)
-        hk = self.h * self.d_k
-        q = qkv[..., :hk].reshape(bs, n, self.h, self.d_k)
-        k = qkv[..., hk : 2 * hk].reshape(bs, n, self.h, self.d_k)
-        v = qkv[..., 2 * hk :].reshape(bs, n, self.h, self.d_v)
-        return q, k, v
+        q, k, v = (self._whole(c) for c in qkv.split([p.shape[0] for p in params[:3]], dim=-1))
+        return (q.reshape(bs, n, self.h, self.d_k), k.reshape(bs, n, self.h, self.d_k),
+                v.reshape(bs, n, self.h, self.d_v))
 
     def attend_projected(self, q, k, v, attention_mask):
         return self.output(_attend(q, k, v, self.d_k, attention_mask))
@@ -340,8 +385,11 @@ class AugmentedMemoryScaledDotProductAttention(_Projections):
             dtype = torch.promote_types(slots.dtype, torch.float32)
             root = torch.sqrt(torch.tensor(float(n), dtype=dtype, device=slots.device))
             return (root * slots.to(dtype)).expand(bs, -1, -1)
-        k = torch.cat([self.fc_k(keys), scaled(self.m_k, self.d_k)], dim=1)
-        v = torch.cat([self.fc_v(values), scaled(self.m_v, self.m)], dim=1)
+        # the rank's heads' columns of the slots, or whole heads gathered
+        k = torch.cat([self._whole(self.fc_k(keys)),
+                       scaled(self._head_columns(self.m_k), self.d_k)], dim=1)
+        v = torch.cat([self._whole(self.fc_v(values)),
+                       scaled(self._head_columns(self.m_v), self.m)], dim=1)
         k = k.reshape(bs, nk + self.m, self.h, self.d_k)
         v = v.reshape(bs, nk + self.m, self.h, self.d_v)
         if attention_mask is not None:  # the slots are never masked
@@ -377,7 +425,7 @@ class AdaptiveScaledDotProductAttention(_Projections):
         bs, nq = queries.shape[:2]
         nk = k.shape[1]
         q = self.project_q(queries).float()
-        s = self.fc_s(language_signals).reshape(bs, nq, self.h, self.d_k).float()
+        s = self._whole(self.fc_s(language_signals)).reshape(bs, nq, self.h, self.d_k).float()
         scale = math.sqrt(self.d_k)
         att = torch.einsum("bqhd,bkhd->bhqk", q, k.float()) / scale
         if attention_mask is not None:

@@ -14,12 +14,16 @@ from openviic_tpu_torch.models.decoders import DecodeCache
 
 
 def make_decode_cache(decoder_config, vocab, batch_size: int,
-                      dtype=torch.float32, device="cpu", model_parallel: int = 1) -> DecodeCache:
+                      dtype=torch.float32, device="cpu", model_parallel: int = 1,
+                      whole_heads=()) -> DecodeCache:
     """A zero DecodeCache from config shapes (no parameters needed); the
     cross-attention entries are filled by ``prepare_cache``.  ``Decoder``
     and ``MeshedDecoder`` share its layout; ``AdaptiveDecoder``'s has one
     layer more, over ``ADAPTIVE_ATTENTION``.  A tensor-parallel model keeps
-    1 / ``model_parallel`` of the heads a rank."""
+    1 / ``model_parallel`` of the heads a rank where that divides them,
+    except in the layers that ``whole_heads`` (a bool a layer) marks, whose
+    decode runs a whole-layer kernel on every head; an attention whose
+    heads the axis does not divide attends whole heads, and keeps them."""
     arch = decoder_config.ARCHITECTURE
     if arch not in ("Decoder", "MeshedDecoder", "AdaptiveDecoder"):
         raise NotImplementedError(f"decode cache for {arch} is not ported yet")
@@ -28,9 +32,10 @@ def make_decode_cache(decoder_config, vocab, batch_size: int,
     if arch == "AdaptiveDecoder":
         attentions.append(decoder_config.ADAPTIVE_ATTENTION)
     layers = []
-    for attention in attentions:
+    for i, attention in enumerate(attentions):
         self_cfg = attention.SELF_ATTENTION
-        shape = (batch_size, L, self_cfg.HEAD // model_parallel)
+        whole = self_cfg.HEAD % model_parallel or (i < len(whole_heads) and whole_heads[i])
+        shape = (batch_size, L, self_cfg.HEAD if whole else self_cfg.HEAD // model_parallel)
         k = torch.zeros(shape + (self_cfg.D_KEY,), dtype=dtype, device=device)
         v = torch.zeros(shape + (self_cfg.D_VALUE,), dtype=dtype, device=device)
         layers.append({"self": {"k": k, "v": v}, "cross": None})
@@ -60,8 +65,9 @@ class BaseTransformer(nn.Module):
             raw_logits=raw_logits,
         )
 
-    def prepare_cache(self, cache: DecodeCache, encoder_features) -> DecodeCache:
-        return self.decoder.prepare_cache(cache, encoder_features)
+    def prepare_cache(self, cache: DecodeCache, encoder_features,
+                      whole_heads=()) -> DecodeCache:
+        return self.decoder.prepare_cache(cache, encoder_features, whole_heads)
 
     @torch.no_grad()
     def compute_language_table(self):

@@ -21,7 +21,13 @@ and ``OPENVIIC_FUSED_STEP=1`` on the non-resident path
 layer with the Attention-on-Attention gate, which they do not implement.
 A layer whose FFN is the Switch MoE passes the same gates, as in the JAX
 package, whose weight pack then fails; the port raises ``ValueError``
-there (``MOE_LAYER_KERNEL``).
+there (``MOE_LAYER_KERNEL``).  Under a ``model`` mesh axis
+(``parallel.tensor_parallel``) a layer kernel runs the whole layer on every
+rank's rows, as JAX's ``pallas_call`` runs on every device from the sharded
+parameters gathered: the pack gathers the layer's weights whole once (kept
+until a parameter changes), the layer's self K/V cache holds every head
+(``make_decode_cache``'s ``whole_heads``, ``_DecoderBase.kernel_layers``)
+and ``prepare_cache`` gathers its cross K/V along the heads once a decode.
 
 The Meshed-Memory decoder's layers cross-attend each of the encoder's N
 levels (memory (bs, N, n, d)) with one shared ``enc_attn`` and fuse them
@@ -114,8 +120,13 @@ class DecoderLayer(nn.Module):
         ff = self.pwff(enc_att)
         return ff.masked_fill(self_padding_mask[:, 0, 0, :, None], 0.0)
 
-    def prepare_cache(self, memory) -> DecodeCache:
-        return {"cross": self.enc_attn.precompute_cache(memory)}
+    def prepare_cache(self, memory, whole_heads: bool = False) -> DecodeCache:
+        """The cross K/V of ``memory``; with ``whole_heads`` on every head,
+        a tensor-parallel rank's gathered (for a layer kernel)."""
+        cross = self.enc_attn.precompute_cache(memory)
+        if whole_heads:
+            cross = {k: self.enc_attn.attention.whole_head_cache(v) for k, v in cross.items()}
+        return {"cross": cross}
 
     def step(self, queries, layer_cache, decode_index, self_attention_mask,
              enc_attention_mask, ancestry=None, resident_kernel=False,
@@ -125,19 +136,17 @@ class DecoderLayer(nn.Module):
         ``attn_kernel``), as in the JAX package: with ``resident_kernel``
         and no option but ``beam_select``/``mask_axis`` the whole step runs
         as ``ops.resident_layer_step``; with ``OPENVIIC_FUSED_STEP=1``, no
-        option and no ancestry, as ``ops.fused_layer_step``.  The self K/V
-        cache is updated in place either way.  In train mode (dropout-active
-        sampling) neither whole-layer kernel runs, since neither implements
-        dropout (the JAX package's gate, ``decoders.py:83-98``); the
-        beam-select attention kernel still does, as dropout acts after the
-        attention."""
-        if (not self.training and resident_kernel
-                and self._can_resident_step(kwargs, ancestry, is_pad_t)):
+        option and no ancestry, as ``ops.fused_layer_step``
+        (``takes_layer_kernel``).  The self K/V cache is updated in place
+        either way."""
+        if (resident_kernel and ancestry is not None and is_pad_t is not None
+                and kwargs.get("beam_select") is not None
+                and self.takes_layer_kernel(kwargs, resident=True)):
             return self._resident_step(
                 queries, layer_cache, decode_index, self_attention_mask,
                 enc_attention_mask, ancestry, is_pad_t,
             )
-        if not self.training and self._can_fuse_step(kwargs, ancestry):
+        if ancestry is None and self.takes_layer_kernel(kwargs, resident=False):
             return self._fused_step(
                 queries, layer_cache, decode_index, self_attention_mask, enc_attention_mask,
             )
@@ -156,40 +165,60 @@ class DecoderLayer(nn.Module):
         return all(type(mha.attention).__name__ == "ScaledDotProductAttention"
                    and not mha.use_aoa for mha in (self.self_attn, self.enc_attn))
 
+    def takes_layer_kernel(self, options, resident: bool) -> bool:
+        """The whole-layer kernels' gate, for ``step`` and for the decode
+        that sizes its caches before the first step
+        (``_DecoderBase.kernel_layers``): eval mode (neither kernel
+        implements dropout, the JAX package's gate, ``decoders.py:83-98``;
+        the beam-select attention kernel still runs in train mode, as
+        dropout acts after the attention), a layer the kernels implement,
+        and attention options (``options``, by name) of ``beam_select`` and
+        at most ``mask_axis`` for ``resident_layer_step`` (``resident``: an
+        ``attn_kernel`` option keeps the unfused step, whose self-attention
+        then runs through the beam-select kernel, the JAX precedence,
+        ``decoders.py:118-128``), none for ``fused_layer_step`` under
+        ``OPENVIIC_FUSED_STEP=1``."""
+        if self.training or not self._kernel_layer():
+            return False
+        if resident:
+            return "beam_select" in options and set(options) <= {"beam_select", "mask_axis"}
+        return not options and fused_step_enabled()
+
     # -- beam-resident whole-layer step (ops/resident_layer_step.py) -----
-    def _can_resident_step(self, kwargs, ancestry, is_pad_t) -> bool:
-        # an ``attn_kernel`` option keeps the unfused step, whose
-        # self-attention then runs through the beam-select kernel (the JAX
-        # package's precedence, decoders.py:118-128)
-        return (
-            ancestry is not None
-            and is_pad_t is not None
-            and kwargs.get("beam_select") is not None
-            and set(kwargs) <= {"beam_select", "mask_axis"}
-            and self._kernel_layer()
-        )
+
+    def _kernel_heads(self, layer_cache) -> int:
+        """The heads of the layer's caches, which a layer kernel reads whole;
+        a rank's share of them under a ``model`` axis raises, naming the
+        shape."""
+        sc, cc = layer_cache["self"], layer_cache["cross"]
+        attention = self.self_attn.attention
+        split = attention.head_parallel
+        whole = attention.h * (1 if split is None else split[0].axis_size(split[1]))
+        if sc["k"].shape[2] != whole or cc["k"].shape[-2] != whole:
+            raise ValueError(f"a whole-layer kernel reads all {whole} heads; the layer's caches "
+                             f"hold {tuple(sc['k'].shape)} and cross {tuple(cc['k'].shape)} "
+                             "(make_decode_cache's whole_heads)")
+        return whole
 
     def _resident_step(self, queries, layer_cache, decode_index, self_attention_mask,
                        enc_attention_mask, ancestry, is_pad_t):
         sc, cc = layer_cache["self"], layer_cache["cross"]
+        n_heads = self._kernel_heads(layer_cache)
         y, k_new, v_new = resident_layer_step(
             queries, sc["k"], sc["v"], cc["k"], cc["v"], ancestry,
             self_attention_mask, enc_attention_mask, is_pad_t, decode_index,
-            self.fused_weights(queries.dtype), n_heads=sc["k"].shape[2],
+            self.fused_weights(queries.dtype), n_heads=n_heads,
         )
         sc["k"][:, decode_index] = k_new
         sc["v"][:, decode_index] = v_new
         return y
 
     # -- non-resident whole-layer step (OPENVIIC_FUSED_STEP=1) -----------
-    def _can_fuse_step(self, kwargs, ancestry) -> bool:
-        return (fused_step_enabled() and not kwargs and ancestry is None
-                and self._kernel_layer())
-
     def _fused_step(self, queries, layer_cache, decode_index, self_attention_mask,
                     enc_attention_mask):
         sc, cc = layer_cache["self"], layer_cache["cross"]
-        n, L, h = sc["k"].shape[:3]
+        h = self._kernel_heads(layer_cache)
+        n, L = sc["k"].shape[:2]
         M = cc["k"].shape[1]
 
         def flat(c):  # (rows, S, h, d) -> (rows, S, D), a view
@@ -208,8 +237,10 @@ class DecoderLayer(nn.Module):
         """The whole-layer kernels' weight dict (the JAX ``_fused_weights``:
         (in, out) kernels, q | k | v concatenated), in ``dtype``, contiguous.
         Built once and kept until a parameter is replaced or changed in
-        place (checked by data pointer and version counter).  A MoE FFN,
-        which the kernels do not implement, raises ``MOE_LAYER_KERNEL``."""
+        place (checked by data pointer and version counter); a
+        tensor-parallel layer's shards are all-gathered whole then
+        (``whole_weights``), collectively.  A MoE FFN, which the kernels do
+        not implement, raises ``MOE_LAYER_KERNEL``."""
         if isinstance(self.pwff, MoEPositionWiseFeedForward):
             raise ValueError(MOE_LAYER_KERNEL)
         params = tuple(self.parameters())
@@ -217,29 +248,31 @@ class DecoderLayer(nn.Module):
         cached = getattr(self, "_fused_pack", None)
         if cached is not None and cached[0] == key:
             return cached[1]
+        self._fused_pack = (key, self.whole_weights(dtype))
+        return self._fused_pack[1]
+
+    def whole_weights(self, dtype) -> Dict[str, torch.Tensor]:
+        """``fused_weights``' dict built anew: each linear made whole
+        (``parallel.tensor_parallel.whole_linear``: a rank's shards
+        all-gathered), then transposed, concatenated and cast."""
+        from openviic_tpu_torch.parallel.tensor_parallel import whole_linear
+
         sa, ca, ff = self.self_attn, self.enc_attn, self.pwff
-
-        def kernel(linear):
-            return linear.weight.detach().t()
-
         with torch.no_grad():
+            (wq, bq), (wk, bk), (wv, bv), (wo, bo), (wqc, bqc), (woc, boc), (w1, b1), (w2, b2) = (
+                whole_linear(linear) for linear in (
+                    sa.attention.fc_q, sa.attention.fc_k, sa.attention.fc_v, sa.attention.fc_o,
+                    ca.attention.fc_q, ca.attention.fc_o, ff.fc1, ff.fc2))
             pack = {
-                "wqkv": torch.cat([kernel(sa.attention.fc_q), kernel(sa.attention.fc_k),
-                                   kernel(sa.attention.fc_v)], dim=1),
-                "bqkv": torch.cat([sa.attention.fc_q.bias, sa.attention.fc_k.bias,
-                                   sa.attention.fc_v.bias]),
-                "wo": kernel(sa.attention.fc_o), "bo": sa.attention.fc_o.bias,
-                "wqc": kernel(ca.attention.fc_q), "bqc": ca.attention.fc_q.bias,
-                "woc": kernel(ca.attention.fc_o), "boc": ca.attention.fc_o.bias,
-                "w1": kernel(ff.fc1), "b1": ff.fc1.bias,
-                "w2": kernel(ff.fc2), "b2": ff.fc2.bias,
+                "wqkv": torch.cat([wq.t(), wk.t(), wv.t()], dim=1),
+                "bqkv": torch.cat([bq, bk, bv]),
+                "wo": wo.t(), "bo": bo, "wqc": wqc.t(), "bqc": bqc, "woc": woc.t(), "boc": boc,
+                "w1": w1.t(), "b1": b1, "w2": w2.t(), "b2": b2,
                 "ln1s": sa.layer_norm.weight, "ln1b": sa.layer_norm.bias,
                 "ln2s": ca.layer_norm.weight, "ln2b": ca.layer_norm.bias,
                 "ln3s": ff.layer_norm.weight, "ln3b": ff.layer_norm.bias,
             }
-            pack = {k: v.detach().to(dtype).contiguous() for k, v in pack.items()}
-        self._fused_pack = (key, pack)
-        return pack
+            return {k: v.detach().to(dtype).contiguous() for k, v in pack.items()}
 
 
 # the JAX package's failure that ``resident_kernel`` meets on this decoder
@@ -350,6 +383,9 @@ class _DecoderBase(nn.Module):
         """Per-query attention inputs of the teacher-forced pass (none)."""
         return {}
 
+    # the names of ``_step_attention_inputs``
+    step_input_names = frozenset()
+
     def _step_attention_inputs(self, tokens_t, cache: DecodeCache) -> Dict[str, Any]:
         """Per-query attention inputs of a decode step (none)."""
         return {}
@@ -362,13 +398,28 @@ class _DecoderBase(nn.Module):
 
         return make_decode_cache(self.config, self.vocab, batch_size, dtype, device)
 
-    def prepare_cache(self, cache: DecodeCache, encoder_features) -> DecodeCache:
-        """Project cross-attention K/V once per decode."""
-        layers = [
-            dict(lc, **layer.prepare_cache(encoder_features))
-            for layer, lc in zip(self.layers, cache["layers"])
-        ]
+    def prepare_cache(self, cache: DecodeCache, encoder_features,
+                      whole_heads=()) -> DecodeCache:
+        """Project cross-attention K/V once per decode; a layer that
+        ``whole_heads`` marks (``kernel_layers``: its decode runs a layer
+        kernel, whose self cache ``make_decode_cache`` gave every head) gets
+        its cross K/V on every head too, a tensor-parallel rank's gathered."""
+        layers = []
+        for i, (layer, lc) in enumerate(zip(self.layers, cache["layers"])):
+            extra = {"whole_heads": True} if i < len(whole_heads) and whole_heads[i] else {}
+            layers.append(dict(lc, **layer.prepare_cache(encoder_features, **extra)))
         return {**cache, "layers": layers}
+
+    def kernel_layers(self, beam_select: bool, resident_kernel: bool, attn_kernel: bool):
+        """For each layer, whether the steps that ``decode_step`` makes with
+        these flags run a whole-layer kernel: ``DecoderLayer.takes_layer_kernel``
+        on the names of the attention options ``step`` passes the layers."""
+        options = set(self.step_input_names)
+        if beam_select:
+            options |= {"beam_select", "mask_axis"} | ({"attn_kernel"} if attn_kernel else set())
+        resident = beam_select and resident_kernel
+        return [isinstance(layer, DecoderLayer) and (resident or not beam_select)
+                and layer.takes_layer_kernel(options, resident) for layer in self.layers]
 
     def _step_masks(self, tokens_t, t: int, cache: DecodeCache, ancestry=None):
         """Record this step's pad flag (in place) and build the
@@ -472,6 +523,8 @@ class AdaptiveDecoder(_DecoderBase):
         flat = torch.where(flat == self.padding_idx, self.vocab.bos_idx, flat)
         signals = self.language_model.signals(flat)
         return {"language_signals": signals.reshape(b_s, seq_len, -1)}
+
+    step_input_names = frozenset({"language_signals"})
 
     def _step_attention_inputs(self, tokens_t, cache: DecodeCache) -> Dict[str, Any]:
         table = cache.get("language_table")

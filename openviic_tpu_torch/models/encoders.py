@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from openviic_tpu_torch.builders import META_ENCODER
-from openviic_tpu_torch.models.attention import MultiHeadAttention, promoted_linear
+from openviic_tpu_torch.models.attention import MultiHeadAttention
 from openviic_tpu_torch.models.ffn import make_pwff
 from openviic_tpu_torch.models.geometry import box_relational_embedding
 from openviic_tpu_torch.models.initializers import PerHeadXavierLinear, TorchLinear
@@ -21,11 +21,28 @@ from openviic_tpu_torch.models.positional import sinusoid_positional_embedding
 from openviic_tpu_torch.ops.geo_attention import geo_fused_enabled
 
 
-def relu_geometry(fc_gs: nn.Linear, boxes: torch.Tensor, d_g: int, trig: bool) -> torch.Tensor:
+def geometry_heads(fc_gs: nn.Linear, head_parallel=None):
+    """``fc_gs``'s (weight (h, d_g), bias (h,)): under ``head_parallel``
+    (mesh, axis) the rank's heads' rows of each (their gradients
+    all-gathered back, as they are replicated parameters), else whole."""
+    weight, bias = fc_gs.weight, fc_gs.bias
+    if head_parallel is not None:
+        from openviic_tpu_torch.parallel import collectives
+
+        weight, bias = (collectives.split(t, *head_parallel, 0) for t in (weight, bias))
+    return weight, bias
+
+
+def relu_geometry(fc_gs: nn.Linear, boxes: torch.Tensor, d_g: int, trig: bool,
+                  head_parallel=None) -> torch.Tensor:
     """Per-head geometry weights relu(fc_gs(box_relational_embedding(boxes)))
-    of (bs, n, 4) boxes, as (bs, h, n, n)."""
+    of (bs, n, 4) boxes, as (bs, h, n, n); under ``head_parallel`` the
+    rank's heads only (``geometry_heads``)."""
     emb = box_relational_embedding(boxes, dim_g=d_g, trignometric_embedding=trig)
-    return torch.relu(promoted_linear(fc_gs, emb).permute(0, 3, 1, 2))
+    weight, bias = geometry_heads(fc_gs, head_parallel)
+    dtype = torch.promote_types(emb.dtype, weight.dtype)
+    out = nn.functional.linear(emb.to(dtype), weight.to(dtype), bias.to(dtype))
+    return torch.relu(out.permute(0, 3, 1, 2))
 
 
 class EncoderLayer(nn.Module):
@@ -108,7 +125,12 @@ class GeometricEncoder(Encoder):
     d_model / heads with the trig embedding, else 4), its columns
     initialised as h separate Linear(d_g, 1) layers.  With
     ``OPENVIIC_GEO_FUSED``, the trig embedding and d_g % 8 == 0 the bias is
-    built inside ``ops.geo_fused_attention`` from the boxes instead."""
+    built inside ``ops.geo_fused_attention`` from the boxes instead.  Under
+    a ``model`` axis that divides the heads (``head_parallel``, set by
+    ``parallel.tensor_parallel.shard_model``) d_g stays that of the whole
+    head count and both paths take the rank's heads of ``fc_gs``."""
+
+    head_parallel = None
 
     def __init__(self, config):
         super().__init__(config)
@@ -118,13 +140,16 @@ class GeometricEncoder(Encoder):
         self.fc_gs = PerHeadXavierLinear(self.d_g, self.n_heads)
 
     def geometry_weights(self, boxes: torch.Tensor) -> torch.Tensor:
-        """(bs, n, 4) boxes -> (bs, h, n, n) non-negative weights."""
-        return relu_geometry(self.fc_gs, boxes, self.d_g, self.trignometric_embedding)
+        """(bs, n, 4) boxes -> (bs, h, n, n) non-negative weights (the
+        rank's heads under ``head_parallel``)."""
+        return relu_geometry(self.fc_gs, boxes, self.d_g, self.trignometric_embedding,
+                             self.head_parallel)
 
     def forward(self, features, boxes, padding_mask):
         if geo_fused_enabled() and self.trignometric_embedding and self.d_g % 8 == 0:
+            weight, bias = geometry_heads(self.fc_gs, self.head_parallel)
             return super().forward(features, padding_mask, geometry_fused={
-                "boxes": boxes, "kernel": self.fc_gs.weight.t(), "bias": self.fc_gs.bias,
+                "boxes": boxes, "kernel": weight.t(), "bias": bias,
             })
         return super().forward(features, padding_mask,
                                relative_geometry_weights=self.geometry_weights(boxes))
@@ -144,7 +169,11 @@ class DualCollaborativeLevelEncoder(nn.Module):
     their padded query rows are zeroed by the plain padding masks.  Returns
     the concatenated stream (bs, n_r + n_g, d) and its padding mask (bs, 1,
     1, n_r + n_g).  The layers are ``region``, ``grid``, ``region2grid``
-    and ``grid2region`` (the JAX ``region_<i>`` ...)."""
+    and ``grid2region`` (the JAX ``region_<i>`` ...).  Under a ``model``
+    axis that divides the heads (``head_parallel``) the geometry weights
+    are the rank's heads', as ``GeometricEncoder``'s."""
+
+    head_parallel = None
 
     def __init__(self, config):
         super().__init__()
@@ -170,7 +199,7 @@ class DualCollaborativeLevelEncoder(nn.Module):
                 grid_features, grid_boxes, grid_padding_mask, grid2all_mask):
         n_r = region_features.shape[1]
         g = relu_geometry(self.fc_gs, torch.cat([region_boxes, grid_boxes], dim=1), self.d_g,
-                          self.trignometric_embedding)  # (bs, h, n, n)
+                          self.trignometric_embedding, self.head_parallel)  # (bs, h, n, n)
         regions = (self.layer_norm_region(region_features)
                    + self._pos(region_features)).to(region_features.dtype)
         grids = (self.layer_norm_grid(grid_features)

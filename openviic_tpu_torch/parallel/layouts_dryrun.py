@@ -39,9 +39,46 @@ references on the same device alone.  Random weights from a seed, dropout
  (f) a Switch MoE encoder of ``--experts`` experts at {expert 4}: forward
      within 1e-5, gradients as (e).
 
+With ``--family NAME[,NAME...]`` (``all``: every name of ``FAMILY_NAMES``)
+it runs the families' cases instead (``families_run``), each family at
+the widths given (``family_model``: at the flagship's widths, each its
+yaml's tree at dropout 0), its ``model`` axis over ranks 0-1 or 2-3 (the
+families alternate between the two), every case against one process:
+
+ (g) each family at {model 2}: one f32 XE step at ``--family-batch``
+     (the loss within ``LOSS_RTOL``); the f32 decode of ``--f32-images``
+     images on the eager path (tokens equal); the bf16 decode of
+     ``--images`` images on the tuned path (``head_kernel=1`` and
+     ``attn_kernel``, each rank's vocab shard and heads): the mean
+     best-beam log-prob within ``SCORE_RTOL`` and, teacher-forced along
+     the ranks' best captions, each token's log-prob within
+     ``FORCED_ATOL`` of one process's on ``FORCED_SHARE`` of the tokens
+     (the same bar along the captions of each path of (h) and (i));
+     RSTNet decodes through its signal table, built on each rank;
+ (h) the flagship (``flagship`` among the names) at {model 2} on ranks
+     0-1: path (b), ``resident_kernel`` (``resident_layer_step`` on every
+     rank, the layer's weights gathered once a decode), and path (c),
+     non-resident under ``OPENVIIC_FUSED_STEP=1`` (``fused_layer_step``),
+     each at bf16 with the head kernel; then path (a) at {model 4} over
+     all four ranks (``beam_select_attention`` on one head of two, its
+     general kernel; at {model 2}, (g)'s tuned path runs its fast kernel);
+     each within ``SCORE_RTOL`` of one process's on the same path and
+     under (g)'s forced bar along its own captions, every kernel launched
+     once a layer and step on each rank.  These kernels take bf16 tensors
+     only on the card, so their paths run at bf16, where a rounding of the
+     sharded sums can move a near tie, and no path of (h) is held to
+     equal tokens;
+ (i) the ORT with the trig embedding (``ort_trig``) at {model 2} under
+     ``OPENVIIC_GEO_FUSED=1``: ``geo_fused_attention`` once a layer on
+     the rank's heads, within ``SCORE_RTOL`` of one process's and under
+     (g)'s forced bar.
+
 With ``--capture DIR`` rank 0 keeps the kernels' inputs: ``head_topk`` at
 decode steps 0, 12 and 24 of (b) and ``fused_attention``'s first call of
-(c) and of (e)'s flagged forward, in ``DIR/captured.pt``.  It prints one
+(c) and of (e)'s flagged forward, in ``DIR/captured.pt`` (the families'
+run: each layer kernel's and the beam-select kernel's inputs at step
+``CAPTURE_STEPS[1]`` of its path, the {model 4} one too, and the geometry
+kernel's first call).  It prints one
 JSON summary (ms a step, a decode or a forward; bytes each axis moved;
 the ops staged through the host; launches) and ``layouts dryrun ok``; any
 failure raises.  ``single_rank(options)`` is the check of one rank in this
@@ -99,6 +136,12 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--beam", type=int, default=3)
     p.add_argument("--microbatches", type=int, default=4)
     p.add_argument("--experts", type=int, default=4)
+    p.add_argument("--family", default=None,
+                   help="run the families' cases: comma-separated FAMILY_NAMES, or all")
+    p.add_argument("--family-batch", type=int, default=4, help="the families' XE batch")
+    p.add_argument("--f32-images", type=int, default=4, help="the families' f32 decode")
+    p.add_argument("--lm-hidden", type=int, default=32, help="RSTNet's language model width")
+    p.add_argument("--lm-vocab", type=int, default=320, help="RSTNet's language model vocab")
     p.add_argument("--threads", type=int, default=0, help="torch threads a process (0: torch's)")
     p.add_argument("--timeout", type=float, default=600.0, help="seconds for the ranks")
     p.add_argument("--capture", default=None, help="keep rank 0's kernel inputs here")
@@ -110,18 +153,113 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
 # ------------------------------------------------------------- inputs
 
 
+FAMILY_NAMES = ("flagship", "aoa", "augmented_memory", "meshed_memory", "camo", "ort",
+                "ort_trig", "dlct", "rstnet", "moe_lstm")
+GRID_SIDE = 7  # DLCT's grid: 7 x 7 cells
+
+
+def family_model(opts, family: str = "flagship", dropout: float = 0.0) -> dict:
+    """The MODEL tree of ``family`` at the options' widths: at the
+    flagship's widths (d_model 512, 8 heads, d_ff 2048, 3 + 3 layers,
+    1024-d features; RSTNet's language model at ``--lm-hidden`` 768 over
+    ``--lm-vocab`` 64 001) the tree of its yaml under ``configs/``
+    (``tests/test_torch_port_families_configs.py`` holds it to that):
+    ``flagship`` standard_transformer_using_region (the dry run's
+    artifact tree), ``aoa`` attention_on_attention, ``augmented_memory``,
+    ``meshed_memory``, ``camo`` (a one-head encoder attention of d_k
+    d_model / heads), ``ort`` object_relation_transformer and ``ort_trig``
+    the same with the trig embedding, ``dlct`` dlct_fixed, ``rstnet``
+    rstnet_fixed; ``moe_lstm`` is the flagship with an ``--experts``-expert
+    Switch MoE on every FFN and ``LSTMTextEmbedding``.  ``dropout``: every
+    DROPOUT of the families built here (the yamls' is 0.1); the flagship
+    and ``moe_lstm`` keep the dry run's 0."""
+    d, h, ff, layers = opts.d_model, opts.heads, opts.d_ff, opts.layers
+
+    def attn(arch="ScaledDotProductAttention", heads=h, stateful=False, slots=False,
+             aoa=False):
+        node = {"ARCHITECTURE": arch, "HEAD": heads, "D_MODEL": d, "D_KEY": d // h,
+                "D_VALUE": d // h, "D_FF": ff, "D_FEATURE": ff, "USE_AOA": aoa,
+                "CAN_BE_STATEFUL": stateful, "DROPOUT": dropout}
+        return dict(node, MEMORY=40) if slots else node
+
+    text = {"ARCHITECTURE": "UsualEmbedding", "D_MODEL": d, "D_EMBEDDING": 300,
+            "WORD_EMBEDDING": None, "WORD_EMBEDDING_CACHE": None, "DROPOUT": dropout}
+
+    def tree(architecture, encoder, decoder, enc_attention, dec_attention, vision=None, **extra):
+        return {
+            "ARCHITECTURE": architecture, "NAME": f"layouts_{family}", "DEVICE": "tpu",
+            "VISION_EMBEDDING": vision or {"ARCHITECTURE": "FeatureEmbedding",
+                                           "D_FEATURE": opts.d_feature, "D_MODEL": d,
+                                           "DROPOUT": dropout},
+            "ENCODER": dict({"ARCHITECTURE": encoder, "D_MODEL": d, "LAYERS": layers,
+                             "SELF_ATTENTION": enc_attention}, **extra),
+            "DECODER": {"ARCHITECTURE": decoder, "D_MODEL": d, "LAYERS": layers,
+                        "ATTENTION": dec_attention, "TEXT_EMBEDDING": text},
+        }
+
+    if family in ("flagship", "moe_lstm"):  # the dry run's own tree, dropout 0
+        model = dryrun._config(opts).to_dict()
+        if family == "moe_lstm":
+            model["ENCODER"]["SELF_ATTENTION"]["MOE_EXPERTS"] = opts.experts
+            model["DECODER"]["ATTENTION"]["ENC_ATTENTION"]["MOE_EXPERTS"] = opts.experts
+            model["DECODER"]["TEXT_EMBEDDING"].update(ARCHITECTURE="LSTMTextEmbedding",
+                                                      D_EMBEDDING=d)
+        return model
+    dec = {"SELF_ATTENTION": attn(stateful=True), "ENC_ATTENTION": attn()}
+    if family in ("ort", "ort_trig"):  # its yaml's attentions name no D_FEATURE
+        def bare(node):
+            return {k: v for k, v in node.items() if k != "D_FEATURE"}
+        return tree("ObjectRelationTransformer", "GeometricEncoder", "Decoder",
+                    bare(attn("AugmentedGeometryScaledDotProductAttention")),
+                    {k: bare(v) for k, v in dec.items()},
+                    TRIGNOMETRIC_EMBEDDING=family == "ort_trig")
+    if family == "aoa":
+        return tree("StandardTransformerUsingRegion", "Encoder", "Decoder",
+                    attn(slots=True, aoa=True),
+                    {"SELF_ATTENTION": attn(stateful=True, aoa=True),
+                     "ENC_ATTENTION": attn(aoa=True)})
+    memory = "AugmentedMemoryScaledDotProductAttention"
+    if family == "augmented_memory":
+        return tree("MeshedMemoryTransformer", "Encoder", "Decoder",
+                    attn(memory, slots=True), dict(dec, N_ENCODER_LAYERS=layers, D_MODEL=d))
+    if family == "meshed_memory":
+        return tree("MeshedMemoryTransformer", "MultilevelEncoder", "MeshedDecoder",
+                    attn(memory, slots=True), dict(dec, N_ENCODER_LAYERS=layers, D_MODEL=d))
+    if family == "camo":
+        return tree("CamoTransformer", "CrossAttentionMultiLevelEncoder", "Decoder",
+                    attn(heads=1, slots=True), dec)
+    if family == "dlct":
+        geometric = attn("AugmentedGeometryScaledDotProductAttention")
+        return tree("DLCTTransformer", "DualCollaborativeLevelEncoder", "Decoder", geometric,
+                    dec, vision={"ARCHITECTURE": "GeometricDualFeatureEmbedding",
+                                 "D_REGION_FEATURE": opts.d_feature,
+                                 "D_GRID_FEATURE": 2 * opts.d_feature, "D_MODEL": d,
+                                 "DROPOUT": dropout},
+                    HEAD=h, TRIGNOMETRIC_EMBEDDING=True, CROSS_ATTENTION=dict(geometric))
+    if family == "rstnet":
+        adaptive = "AdaptiveScaledDotProductAttention"
+        out = tree("StandardTransformerUsingRegion", "Encoder", "AdaptiveDecoder",
+                   attn(slots=True), dec)
+        out["DECODER"].update(
+            ADAPTIVE_ATTENTION={"SELF_ATTENTION": attn(adaptive, stateful=True),
+                                "ENC_ATTENTION": attn(adaptive)},
+            LANGUAGE_MODEL={
+                "SIGNAL_MODE": "token", "ARCHITECTURE": "PhoBERTModel",
+                "PRETRAINED_NAME": "vinai/phobert-base", "HIDDEN_SIZE": opts.lm_hidden,
+                "D_MODEL": d, "MAX_LEN": 54, "VOCAB_SIZE": opts.lm_vocab, "PADDING_IDX": 0,
+                "BACKBONE_LAYERS": 2, "BACKBONE_HEADS": 8, "ATTENTION": attn()})
+        return out
+    raise ValueError(f"unknown family {family!r}; the dry run's are {FAMILY_NAMES}")
+
+
 def _model_config(opts, family: str = "flagship"):
     from openviic_tpu_torch.config import ConfigNode
 
-    model = dryrun._config(opts).to_dict()
-    if family == "ort":
-        model["ARCHITECTURE"] = "ObjectRelationTransformer"
-        model["ENCODER"].update(ARCHITECTURE="GeometricEncoder", TRIGNOMETRIC_EMBEDDING=False)
-        model["ENCODER"]["SELF_ATTENTION"]["ARCHITECTURE"] = (
-            "AugmentedGeometryScaledDotProductAttention")
-    if family == "moe":
+    if family == "moe":  # the MoE encoder of case (f)
+        model = dryrun._config(opts).to_dict()
         model["ENCODER"]["SELF_ATTENTION"]["MOE_EXPERTS"] = opts.experts
-    return ConfigNode(model)
+        return ConfigNode(model)
+    return ConfigNode(family_model(opts, family))
 
 
 def _model(opts, device, family: str = "flagship", seed: int = 0):
@@ -456,6 +594,359 @@ def rank_run(opts, out_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------- the families
+
+
+# the families' decode paths (bf16): name -> (environment flag, beam_search flags)
+FAMILY_PATHS = {
+    "tuned": (None, dict(head_kernel=1, attn_kernel=True)),  # path (a)
+    "resident": (None, dict(head_kernel=1, resident_kernel=True)),  # path (b)
+    "fused": ("OPENVIIC_FUSED_STEP", dict(head_kernel=False, beam_resident=False)),  # (c)
+    "geo": ("OPENVIIC_GEO_FUSED", dict(head_kernel=1, attn_kernel=True)),
+}
+# what each kernel path of (h) and (i) launches, a layer and step (geo: a
+# layer and request)
+PATH_KERNELS = {"tuned": "beam_select_attention", "resident": "resident_layer_step",
+                "fused": "fused_layer_step", "geo": "geo_fused_attention"}
+
+
+def families_of(opts) -> List[str]:
+    names = list(FAMILY_NAMES) if opts.family == "all" else opts.family.split(",")
+    unknown = [n for n in names if n not in FAMILY_NAMES]
+    if unknown:
+        raise ValueError(f"unknown families {unknown}; the dry run's are {FAMILY_NAMES}")
+    return names
+
+
+def family_streams(opts, family: str, n: int, seed: int) -> Dict[str, torch.Tensor]:
+    """``n`` images of ``family``'s input streams (f32, on the CPU):
+    ``--regions`` regions of ``--d-feature`` with a ragged count of zero
+    rows; the ORT's boxes in pixels of a 640 x 480 image; DLCT's
+    normalized region boxes and a 7 x 7 grid of twice the width with its
+    cells' boxes."""
+    from openviic_tpu_torch.models.geometry import get_grids_position
+
+    rng = np.random.default_rng(seed)
+    r = opts.regions
+    feats = rng.normal(size=(n, r, opts.d_feature)).astype(np.float32)
+    live = [r - i % 3 for i in range(n)]
+    for i in range(n):
+        feats[i, live[i]:] = 0.0
+    out = {"region_features": feats}
+    if family.startswith("ort"):
+        x0, y0 = rng.uniform(0, 560, (n, r)), rng.uniform(0, 400, (n, r))
+        w, h = rng.uniform(4, 80, (n, r)), rng.uniform(4, 80, (n, r))
+        out["region_boxes"] = np.stack([x0, y0, x0 + w, y0 + h], axis=-1).astype(np.float32)
+    if family == "dlct":
+        lo = rng.uniform(0.0, 0.7, (n, r, 2))
+        hi = np.minimum(lo + rng.uniform(0.05, 0.5, (n, r, 2)), 1.0)
+        out["region_boxes"] = np.concatenate([lo, hi], axis=-1).astype(np.float32)
+        cells = GRID_SIDE * GRID_SIDE
+        out["grid_features"] = rng.normal(size=(n, cells, 2 * opts.d_feature)).astype(np.float32)
+        out["grid_boxes"] = get_grids_position(n, cells, (GRID_SIDE, GRID_SIDE)).astype(
+            np.float32)
+    for key in ("region_boxes",):
+        if key in out:
+            for i in range(n):
+                out[key][i, live[i]:] = 0.0
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def family_xe_batch(opts, family: str, vocab) -> Dict[str, torch.Tensor]:
+    """``--family-batch`` images of ``family``'s streams and ragged captions."""
+    batch = family_streams(opts, family, opts.family_batch, seed=11)
+    captions = dryrun.global_batch(argparse.Namespace(**dict(
+        vars(opts), global_batch=opts.family_batch)), vocab, 0)
+    batch.update(caption_tokens=captions["caption_tokens"],
+                 shifted_right_caption_tokens=captions["shifted_right_caption_tokens"])
+    return batch
+
+
+def _family_decode(model, streams, opts, device, dtype=None, table=None, **flags):
+    from openviic_tpu_torch.decoding import beam_search
+
+    tokens, logprobs = beam_search(model, {k: v.to(device) for k, v in streams.items()},
+                                   beam_size=opts.beam, early_exit=False, compute_dtype=dtype,
+                                   language_table=table, **flags)
+    return tokens.cpu(), logprobs.float().sum(-1).cpu()
+
+
+def _family_forced(model, streams, tokens, vocab, device) -> torch.Tensor:
+    """Each token's log-prob (f32) teacher-forced along ``tokens`` through
+    ``model`` (its own dtype), NaN past the first <eos>."""
+    dtype = next(model.parameters()).dtype
+    tokens = tokens.to(device)
+    bos = torch.full_like(tokens[:, :1], vocab.bos_idx)
+    batch = {k: v.to(device, dtype) for k, v in streams.items()}
+    batch["caption_tokens"] = torch.cat([bos, tokens[:, :-1]], dim=1)
+    picked = model(batch).float().gather(-1, tokens[..., None])[..., 0]
+    eos = (tokens == vocab.eos_idx).int()
+    return picked.masked_fill(torch.cumsum(eos, dim=1) - eos > 0, float("nan")).cpu()
+
+
+def _family_xe_loss(model, batch, device, mesh=None) -> float:
+    """The loss of one f32 XE step from the model's weights, at a learning
+    rate of 0 so that the decodes after it read the same weights (on the
+    ``mesh`` the sharded step, which shards the model)."""
+    from openviic_tpu_torch.parallel import mesh as mp
+    from openviic_tpu_torch.training.steps import init_xe_state
+
+    mesh = mesh or mp.make_mesh()
+    state = init_xe_state(model, torch.optim.SGD(model.parameters(), lr=0.0), seed=42)
+    mp.shard_state(model, state, mesh)
+    _, loss = mp.make_sharded_xe_step(model, mesh)(state, {k: v.to(device)
+                                                           for k, v in batch.items()})
+    model.zero_grad(set_to_none=True)
+    return float(loss)
+
+
+def _family_paths(family: str) -> List[str]:
+    return ["tuned"] + (["resident", "fused"] if family == "flagship" else []) + (
+        ["geo"] if family == "ort_trig" else [])
+
+
+def family_references(opts, device):
+    """One process's side of (g)-(i), alone on ``device``; and each
+    family's bf16 model, for the forced pass along the ranks' captions."""
+    vocab = dryrun._vocab(opts)
+    out, models = {}, {}
+    for family in families_of(opts):
+        model = _model(opts, device, family)
+        streams = family_streams(opts, family, opts.images, seed=7)
+        res = {"xe_loss": _family_xe_loss(model, family_xe_batch(opts, family, vocab), device)}
+        with torch.no_grad():
+            table = model.compute_language_table()
+            small = {k: v[:opts.f32_images] for k, v in streams.items()}
+            (res["f32"], res["f32_ms"]) = _timed(device, lambda: _family_decode(
+                model, small, opts, device, table=table))
+            models[family] = bf16 = _bf16(model)
+            table16 = None if table is None else table.to(torch.bfloat16)
+            for path in _family_paths(family):
+                env, flags = FAMILY_PATHS[path]
+                with (dryrun_env(env) if env else contextlib.nullcontext()):
+                    res[path], res[f"{path}_ms"] = _timed(device, lambda: _family_decode(
+                        bf16, streams, opts, device, table=table16, **flags))
+        out[family] = res
+        del model
+    return out, models
+
+
+def _family_meshes(opts, mp):
+    """Every mesh of the families' run, made in one order on every rank:
+    {model 2} over ranks 0-1 and over 2-3, {model 4} over all four."""
+    return mp.make_mesh({"model": 2}, [0, 1]), mp.make_mesh({"model": 2}, [2, 3]), \
+        mp.make_mesh({"model": 4}, [0, 1, 2, 3])
+
+
+def _launch_counts():
+    from openviic_tpu_torch.ops.beam_select_attention import beam_select_attention
+    from openviic_tpu_torch.ops.fused_decoder_step import fused_layer_step
+    from openviic_tpu_torch.ops.geo_attention import geo_fused_attention
+    from openviic_tpu_torch.ops.head_topk import head_topk
+    from openviic_tpu_torch.ops.resident_layer_step import resident_layer_step
+
+    return {fn.__name__: fn.launches for fn in (head_topk, beam_select_attention,
+                                                resident_layer_step, fused_layer_step,
+                                                geo_fused_attention)}
+
+
+def _launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def _path_capture(stack, path: str, keep: dict, capture: bool, n_layers: int):
+    """Enter a ``_capture`` of the kernel that ``path`` launches: the first
+    layer's call at step ``CAPTURE_STEPS[1]`` (geo: its first call)."""
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.models import decoders as decoders_module
+
+    kernel = PATH_KERNELS[path]
+    module = decoders_module if kernel.endswith("layer_step") else attention_module
+    calls = (0,) if path == "geo" else (CAPTURE_STEPS[1] * n_layers,)
+    stack.enter_context(_capture(module, kernel, keep, calls if capture else ()))
+
+
+def family_rank_run(opts, out_dir: str) -> dict:
+    """One rank's side of (g)-(i) (see the module's docstring)."""
+    from openviic_tpu_torch.parallel import mesh as mp
+    from openviic_tpu_torch.parallel import runtime, tensor_parallel
+
+    device = torch.device(opts.device)
+    rank = runtime.process_index()
+    vocab = dryrun._vocab(opts)
+    capture = opts.capture is not None and rank == 0
+    captured: dict = {}
+    pairs = _family_meshes(opts, mp)
+    res: dict = {"rank": rank, "families": {}, "paths": {}}
+    names = families_of(opts)
+    for i, family in enumerate(names):
+        mesh = pairs[i % 2]
+        if mesh.coords is None:
+            continue
+        streams = family_streams(opts, family, opts.images, seed=7)
+        model = _model(opts, device, family)  # sharded by the XE step's shard_state
+        fam = {"xe_loss": _family_xe_loss(model, family_xe_batch(opts, family, vocab), device,
+                                          mesh)}
+        with torch.no_grad():
+            table = model.compute_language_table()
+            small = {k: v[:opts.f32_images] for k, v in streams.items()}
+            fam["f32"], fam["f32_ms"] = _timed(device, lambda: _family_decode(
+                model, small, opts, device, table=table))
+            bf16 = _bf16(model)
+            table16 = None if table is None else table.to(torch.bfloat16)
+            for path in _family_paths(family):
+                env, flags = FAMILY_PATHS[path]
+                keep: dict = {}
+                before = _launch_counts()
+                with contextlib.ExitStack() as stack:
+                    if env:
+                        stack.enter_context(dryrun_env(env))
+                    _path_capture(stack, path, keep, capture, opts.layers)
+                    fam[path], fam[f"{path}_ms"] = _timed(device, lambda: _family_decode(
+                        bf16, streams, opts, device, table=table16, **flags))
+                fam[f"{path}_launches"] = _launched(before)
+                if keep:
+                    captured[f"{family}_{path}"] = keep
+                if path == "resident":  # the layers' weights gathered whole, once a decode
+                    moved = mesh.moved["model"].get("all_gather", 0)
+                    _, fam["gather_ms"] = _timed(device, lambda: [
+                        layer.whole_weights(torch.bfloat16) for layer in bf16.decoder.layers])
+                    fam["gather_bytes"] = mesh.moved["model"]["all_gather"] - moved
+            fam["forced"] = {path: _family_forced(bf16, streams, fam[path][0], vocab, device)
+                             for path in _family_paths(family)}
+            fam["heads"] = {n: m.h for n, m in model.named_modules()
+                            if hasattr(m, "fc_q") and hasattr(m, "d_k")}
+        res["families"][family] = fam
+    mesh = pairs[2]
+    if "flagship" in names:  # path (a) at {model 4}: one head of two a rank
+        model = _model(opts, device, "flagship")
+        tensor_parallel.shard_model(model, mesh)
+        streams = family_streams(opts, "flagship", opts.images, seed=7)
+        keep, before = {}, _launch_counts()
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            _path_capture(stack, "tuned", keep, capture, opts.layers)
+            out, ms = _timed(device, lambda: _family_decode(
+                _bf16(model), streams, opts, device, **FAMILY_PATHS["tuned"][1]))
+        with torch.no_grad():
+            forced = _family_forced(_bf16(model), streams, out[0], vocab, device)
+        res["paths"]["tuned_model4"] = dict(decode=out, ms=ms, launches=_launched(before),
+                                            heads=model.decoder.layers[0].self_attn.attention.h,
+                                            forced=forced)
+        if keep:
+            captured["flagship_tuned_model4"] = keep
+    if capture:
+        torch.save(captured, os.path.join(opts.capture, "captured.pt"))
+    return res
+
+
+def family_check(opts, refs: dict, ranks: List[dict]) -> dict:
+    """Every rank's (g)-(i) against one process's: the figures, with every
+    failure under ``failures``."""
+    failures: List[str] = []
+    fig: dict = {"families": {}, "paths": {}}
+    cuda = torch.device(opts.device).type == "cuda"
+    steps = dryrun._vocab(opts).max_caption_length
+    names = families_of(opts)
+    for i, family in enumerate(names):
+        want = refs[family]
+        members = [r for r in ranks if family in r["families"]]
+        if len(members) != 2:
+            failures.append(f"{family}: run on {len(members)} ranks, not 2")
+            continue
+        row: dict = {}
+        for r in members:
+            got = r["families"][family]
+            gap = abs(got["xe_loss"] - want["xe_loss"]) / abs(want["xe_loss"])
+            if gap > LOSS_RTOL:
+                failures.append(f"{family} rank {r['rank']}: XE loss gap {gap:.3g}")
+            if not torch.equal(got["f32"][0], want["f32"][0]):
+                failures.append(f"{family} rank {r['rank']}: f32 tokens differ on "
+                                f"{int((got['f32'][0] != want['f32'][0]).any(-1).sum())} images")
+            for path in [p for p in PATH_KERNELS if p in got]:
+                score_gap = abs(float(got[path][1].mean()) / float(want[path][1].mean()) - 1)
+                kernel = PATH_KERNELS[path]
+                # RSTNet's decoder turns every kernel flag off, as in JAX
+                per = 0 if family == "rstnet" else opts.layers * (1 if path == "geo" else steps)
+                launched = got[f"{path}_launches"][kernel]
+                if score_gap > SCORE_RTOL or launched != (per if cuda else 0):
+                    failures.append(f"{family} {path} rank {r['rank']}: score gap "
+                                    f"{score_gap:.3g}, {kernel} launched {launched} times, "
+                                    f"{per} expected")
+                row.setdefault(path, dict(
+                    ms=got[f"{path}_ms"], single_ms=want[f"{path}_ms"], score_gap=score_gap,
+                    agreement=float((got[path][0] == want[path][0]).all(-1).float().mean()),
+                    launches=got[f"{path}_launches"]))
+        got0 = members[0]["families"][family]
+        shares, maxima = {}, {}
+        for path, forced in got0["forced"].items():
+            shares[path], maxima[path] = _forced_bar(forced, want["forced"][path])
+            if shares[path] < FORCED_SHARE:
+                failures.append(f"{family} {path}: forced log-probs within {FORCED_ATOL} on "
+                                f"{shares[path]:.4f}")
+        fig["families"][family] = dict(
+            ranks=[r["rank"] for r in members], xe_loss=got0["xe_loss"],
+            single_xe_loss=want["xe_loss"], f32_ms=got0["f32_ms"], single_f32_ms=want["f32_ms"],
+            forced_share=shares, forced_max=maxima, heads=got0["heads"],
+            paths=row, **{k: got0[k] for k in ("gather_ms", "gather_bytes") if k in got0})
+    if "flagship" in names:
+        want = refs["flagship"]["tuned"]
+        for r in ranks:
+            got = r["paths"]["tuned_model4"]
+            score_gap = abs(float(got["decode"][1].mean()) / float(want[1].mean()) - 1)
+            launched = got["launches"]["beam_select_attention"]
+            if score_gap > SCORE_RTOL or launched != (opts.layers * steps if cuda else 0):
+                failures.append(f"tuned at model 4 rank {r['rank']}: score gap {score_gap:.3g}, "
+                                f"beam_select_attention launched {launched} times")
+        got = ranks[0]["paths"]["tuned_model4"]
+        share, gap = _forced_bar(got["forced"], refs["flagship"]["forced"]["tuned_model4"])
+        if share < FORCED_SHARE:
+            failures.append(f"tuned at model 4: forced log-probs within {FORCED_ATOL} on "
+                            f"{share:.4f}")
+        fig["paths"]["tuned_model4"] = dict(
+            ms=got["ms"], single_ms=refs["flagship"]["tuned_ms"], heads=got["heads"],
+            launches=got["launches"], forced_share=share, forced_max=gap,
+            agreement=float((got["decode"][0] == want[0]).all(-1).float().mean()))
+    fig["failures"] = failures
+    return fig
+
+
+def _forced_bar(got: torch.Tensor, want: torch.Tensor):
+    """The share of the live tokens whose forced log-probs are within
+    ``FORCED_ATOL``, and the largest gap."""
+    gap = (got - want)[~torch.isnan(got)].abs()
+    return float((gap <= FORCED_ATOL).float().mean()), float(gap.max())
+
+
+def families_run(opts, out_dir: str) -> dict:
+    """(g)-(i): one process's references, the four ranks, the checks."""
+    device = torch.device(opts.device)
+    t0 = time.perf_counter()
+    refs, models = family_references(opts, device)
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    procs = dryrun.start(["-m", "openviic_tpu_torch.parallel.layouts_dryrun",
+                          *_worker_argv(opts, out_dir)], NPROCS, out_dir)
+    dryrun.wait(procs, out_dir, opts.timeout)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(NPROCS)]
+    ranks_s = time.perf_counter() - t0
+    vocab = dryrun._vocab(opts)
+    with torch.no_grad():  # one process along each path's bf16 captions on the ranks
+        for family, want in refs.items():
+            first = next(r for r in ranks if family in r["families"])["families"][family]
+            model, streams = models.pop(family), family_streams(opts, family, opts.images, 7)
+            want["forced"] = {path: _family_forced(model, streams, first[path][0], vocab, device)
+                              for path in _family_paths(family)}
+            if family == "flagship":
+                want["forced"]["tuned_model4"] = _family_forced(
+                    model, streams, ranks[0]["paths"]["tuned_model4"]["decode"][0], vocab,
+                    device)
+            del model
+    fig = family_check(opts, refs, ranks)
+    fig.update(references_s=refs_s, ranks_s=ranks_s)
+    return fig
+
+
 # ------------------------------------------------------------- checks
 
 
@@ -620,6 +1111,12 @@ def run(opts) -> dict:
         device = torch.device(opts.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"layouts dryrun: --device {opts.device} and no CUDA device")
+        if opts.family:
+            fig = families_run(opts, out_dir)
+            failures = fig.pop("failures")
+            if failures:
+                raise AssertionError(f"{'; '.join(failures)} (figures: {json.dumps(fig)})")
+            return fig
         t0 = time.perf_counter()
         refs = references(opts, device)
         refs_s = time.perf_counter() - t0
@@ -719,7 +1216,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         runtime.initialize_distributed(device, backend=opts.backend)
         try:
-            result = rank_run(opts, opts.out)
+            result = (family_rank_run if opts.family else rank_run)(opts, opts.out)
         finally:
             runtime.shutdown()
         torch.save(result, os.path.join(opts.out, f"rank{result['rank']}.pt"))

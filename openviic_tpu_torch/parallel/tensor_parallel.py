@@ -28,13 +28,22 @@ output dim.  A spec is a tuple of axis names or None, one per leading dim;
 
 Each rank keeps only its shard of a sharded parameter (``shard_model``)
 and of the optimizer tensors shaped like it (``shard_optimizer_state``).
-Tensor parallelism covers the flagship's modules
-(``StandardTransformerUsingRegion``: ``Encoder``, ``Decoder``, plain
-scaled dot-product attention, dense FFNs); another family under a
-``model`` axis raises a ``ValueError`` naming it, and so does a head
-count, FFN width or vocab that the axis does not divide (JAX shards the
-flattened projection and lets XLA reshard the heads, so it runs such a
-shape; the port's heads stay whole on a rank)."""
+The rules match parameter names, as JAX's match paths, so every family is
+sharded: each ``Linear`` whose weight a rule shards becomes the column-,
+row- or vocab-parallel linear below, whatever module holds it (an
+attention's ``fc_q``, RSTNet's ``fc_s`` and its language model's
+``encoder_layer``); what no rule matches stays whole on every rank (AoA's
+gates, the memory slots, M²'s ``fc_alpha_*``, CAMO's MLP, the ORT's and
+DLCT's ``fc_gs``, the language model's backbone, a Switch MoE FFN under
+``model`` alone).  An attention whose head count the axis divides attends
+with its h / P heads (its memory slots' and geometry's columns of those
+heads, ``head_parallel``); one whose head count the axis does not divide
+(CAMO's one-head encoder attention) keeps JAX's layout: q, k and v come
+out column-sharded and are all-gathered to whole heads, every rank
+attends all of them, and the row-parallel ``fc_o`` multiplies the rank's
+columns of the output (``gathered_heads``).  A flattened width, FFN width
+or vocab that the axis does not divide is refused with a ``ValueError``
+naming the weight, as JAX refuses to place such an array."""
 
 from __future__ import annotations
 
@@ -64,8 +73,6 @@ EP_RULES = [
     (re.compile(r"pwff\.(w1|w2)$"), ("expert", None, None)),
     (re.compile(r"pwff\.(b1|b2)$"), ("expert", None)),
 ]
-
-TP_FAMILIES = ("StandardTransformerUsingRegion",)
 
 
 def param_shardings(model: nn.Module, mesh) -> Dict[str, Spec]:
@@ -156,42 +163,60 @@ class VocabParallelLinear(ColumnParallelLinear):
         return collectives.all_gather(self.local(x), self.mesh, self.axis, x.dim() - 1)
 
 
-def _check_tp_family(model: nn.Module) -> None:
-    from openviic_tpu_torch.models.attention import ScaledDotProductAttention
-    from openviic_tpu_torch.models.decoders import Decoder
-    from openviic_tpu_torch.models.encoders import Encoder
-    from openviic_tpu_torch.models.ffn import PositionWiseFeedForward
-
-    family = type(model).__name__
-    ok = (family in TP_FAMILIES and type(model.encoder) is Encoder
-          and type(model.decoder) is Decoder)
-    if ok:
-        for mha in (m for m in model.modules() if hasattr(m, "use_aoa")):
-            ok = ok and not mha.use_aoa and type(mha.attention) is ScaledDotProductAttention
-        ok = ok and all(type(layer.pwff) is PositionWiseFeedForward
-                        for layer in [*model.encoder.layers, *model.decoder.layers])
-    if not ok:
-        raise ValueError(f"tensor parallelism over a 'model' mesh axis covers the flagship "
-                         f"family {TP_FAMILIES[0]} (Encoder, Decoder, plain attention, dense "
-                         f"FFNs); {family} is not ported to it")
-
-
 def _cut(param: nn.Parameter, spec: Spec, mesh, name: str) -> None:
     with torch.no_grad():
         param.data = local_shard(param.data, spec, mesh, name).clone()
 
 
+def _parallel_linears(model: nn.Module, specs: Dict[str, Spec], mesh) -> None:
+    """Swap each ``Linear`` whose weight a model-axis rule shards for the
+    parallel linear of its spec: the output dim sharded, column-parallel
+    (the decoder's vocab head, vocab-parallel); the input dim, row-parallel."""
+    swaps = []
+    for name, module in model.named_modules():
+        for child_name, child in module.named_children():
+            full = f"{name}.{child_name}" if name else child_name
+            spec = specs.get(f"{full}.weight")
+            if not isinstance(child, nn.Linear) or "model" not in (spec or ()):
+                continue
+            if spec == (None, "model"):
+                cls = RowParallelLinear
+            else:
+                cls = VocabParallelLinear if full.endswith("decoder.fc") else ColumnParallelLinear
+            swaps.append((module, child_name, cls(child, mesh)))
+    for module, child_name, linear in swaps:
+        setattr(module, child_name, linear)
+
+
+def _head_layouts(model: nn.Module, mesh) -> None:
+    """Each sharded attention on the rank's h / P heads (``head_parallel``)
+    where the axis divides its heads, else on whole heads gathered
+    (``gathered_heads``); the geometric encoders' ``fc_gs`` on the heads of
+    their attentions, which share their head count."""
+    from openviic_tpu_torch.models.attention import _Projections
+
+    tp, axis = mesh.axis_size("model"), (mesh, "model")
+    for module in model.modules():
+        if isinstance(module, _Projections) and isinstance(module.fc_q, ColumnParallelLinear):
+            if module.h % tp:
+                module.gathered_heads = axis
+            else:
+                module.h //= tp
+                module.head_parallel = axis
+        elif hasattr(module, "fc_gs") and module.n_heads % tp == 0:
+            module.head_parallel = axis
+
+
 def shard_model(model: nn.Module, mesh) -> Dict[str, Spec]:
     """Keep each matched parameter's shard only (in place, the same
     ``Parameter`` objects) and make the modules compute on it: under a
-    ``model`` axis of size > 1 the attention on its h / P heads, the
-    column- and row-parallel linears and the vocab-parallel head; under an
-    ``expert`` axis of size > 1 each Switch MoE FFN on its E / P experts.
-    Returns ``param_shardings(model, mesh)`` as it was before the cut.
-    The model records the mesh (``model.parallel_mesh``); a second call
-    does nothing."""
-    from openviic_tpu_torch.models.attention import ScaledDotProductAttention
-    from openviic_tpu_torch.models.ffn import MoEPositionWiseFeedForward, PositionWiseFeedForward
+    ``model`` axis of size > 1 the column-, row- and vocab-parallel linears
+    and each attention on its heads' share (see the module's docstring);
+    under an ``expert`` axis of size > 1 each Switch MoE FFN on its E / P
+    experts.  Returns ``param_shardings(model, mesh)`` as it was before
+    the cut.  The model records the mesh (``model.parallel_mesh``); a
+    second call does nothing."""
+    from openviic_tpu_torch.models.ffn import MoEPositionWiseFeedForward
 
     if getattr(model, "parallel_mesh", None) is not None:
         return model.parallel_specs
@@ -199,12 +224,6 @@ def shard_model(model: nn.Module, mesh) -> Dict[str, Spec]:
     tp, ep = mesh.axis_size("model"), mesh.axis_size("expert")
     names = {id(p): n for n, p in model.named_parameters()}
     # every refusal before anything is cut
-    if tp > 1:
-        _check_tp_family(model)
-        for module in model.modules():
-            if type(module) is ScaledDotProductAttention and module.h % tp:
-                raise ValueError(f"{names[id(module.fc_q.weight)]}: {module.h} heads not "
-                                 f"divisible by mesh axis 'model' of size {tp}")
     for module in model.modules():
         if ep > 1 and isinstance(module, MoEPositionWiseFeedForward) and module.n_experts % ep:
             raise ValueError(f"{names[id(module.w1)]}: {module.n_experts} experts not "
@@ -212,16 +231,8 @@ def shard_model(model: nn.Module, mesh) -> Dict[str, Spec]:
     for name, p in model.named_parameters():
         local_shard(p.data, specs[name], mesh, name)
     if tp > 1:
-        for module in list(model.modules()):
-            if type(module) is ScaledDotProductAttention:
-                for attr in ("fc_q", "fc_k", "fc_v"):
-                    setattr(module, attr, ColumnParallelLinear(getattr(module, attr), mesh))
-                module.fc_o = RowParallelLinear(module.fc_o, mesh)
-                module.h //= tp
-            elif type(module) is PositionWiseFeedForward:
-                module.fc1 = ColumnParallelLinear(module.fc1, mesh)
-                module.fc2 = RowParallelLinear(module.fc2, mesh)
-        model.decoder.fc = VocabParallelLinear(model.decoder.fc, mesh)
+        _parallel_linears(model, specs, mesh)
+        _head_layouts(model, mesh)
     if ep > 1:
         for module in model.modules():
             if isinstance(module, MoEPositionWiseFeedForward):
@@ -264,6 +275,20 @@ def full_tensors(tensors: Dict[str, torch.Tensor], model: nn.Module, mesh
                     t = collectives.all_gather(t, mesh, axis, dim)
             out[name] = t.cpu()
     return out
+
+
+def whole_linear(linear: nn.Module):
+    """(weight, bias) of ``linear`` made whole, detached: a parallel
+    linear's shards all-gathered over its axis (collectively: every rank of
+    the axis calls it), a plain ``Linear``'s as they are."""
+    weight, bias = linear.weight.detach(), linear.bias
+    bias = None if bias is None else bias.detach()
+    if isinstance(linear, ColumnParallelLinear):
+        weight = collectives.all_gather(weight, linear.mesh, linear.axis, 0)
+        bias = None if bias is None else collectives.all_gather(bias, linear.mesh, linear.axis, 0)
+    elif isinstance(linear, RowParallelLinear):
+        weight = collectives.all_gather(weight, linear.mesh, linear.axis, 1)
+    return weight, bias
 
 
 def vocab_parallel_nll_sum(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int,

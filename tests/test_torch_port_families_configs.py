@@ -8,7 +8,9 @@ still to port (none is left), raises ``NotImplementedError`` naming its
 ROADMAP item.  The two configs that misspell their architecture
 (``dlct-transformer.yaml``, ``rstnet.yaml``: ``StandardStranformerUsingRegion``)
 build as the standard transformer in both packages, through the same
-alias.  And ``chip_smoke.py``'s in-code trees of the four region families,
+alias.  ``shard_model`` at {model 2} refuses none of them (every family
+runs under tensor parallelism, as JAX's rules shard every family).  And
+``chip_smoke.py``'s in-code trees of the four region families,
 of DLCT and of RSTNet (the card's machine has no PyYAML) equal their
 yamls' ``MODEL``."""
 
@@ -87,6 +89,25 @@ def test_yaml_builds_in_the_port_at_its_widths(path):
     assert set(state) == set(model.state_dict())
 
 
+@pytest.mark.parametrize("path", YAMLS)
+def test_yaml_shards_at_model_2(path):
+    """Each matched parameter keeps half of its sharded dim, the rest whole;
+    every attention's projections are sharded."""
+    from openviic_tpu_torch.parallel.mesh import Mesh
+    from openviic_tpu_torch.parallel.tensor_parallel import shard_model
+
+    model = build_port_model(_model(path), make_vocab(size=40), device="cpu", init=False)
+    full = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    specs = shard_model(model, Mesh({"model": 2}, [0, 1], 0, {}, {}))
+    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    for name, spec in specs.items():
+        want = tuple(size // 2 if axis == "model" else size
+                     for size, axis in zip(full[name], spec + (None,) * len(full[name])))
+        assert local[name] == want, name
+    assert any(n.endswith("fc_q.weight") and s for n, s in specs.items())
+    assert all(s == ("model", None) for n, s in specs.items() if n.endswith("fc_q.weight"))
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke_configs", ROOT / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
@@ -107,3 +128,28 @@ def test_chip_smoke_trees_equal_the_yamls(family):
     tuned = _model(f"configs/tpu/{yaml}.yaml").to_dict()  # its NAME ends in _tpu
     assert {k: v for k, v in got.items() if k != "NAME"} == \
         {k: v for k, v in tuned.items() if k != "NAME"}
+
+
+LAYOUTS_FAMILIES = {"aoa": "attention_on_attention", "augmented_memory":
+                    "augmented_memory_transformer", "meshed_memory": "meshed_memory_transformer",
+                    "camo": "camo_transformer", "ort": "object_relation_transformer",
+                    "dlct": "dlct_fixed", "rstnet": "rstnet_fixed"}
+
+
+@pytest.mark.parametrize("family", list(LAYOUTS_FAMILIES))
+def test_layouts_dryrun_trees_equal_the_yamls(family):
+    """``parallel/layouts_dryrun.py``'s family trees at the flagship's widths
+    are the yamls' ``MODEL`` but NAME and DEVICE, dropout 0."""
+    from openviic_tpu_torch.parallel import layouts_dryrun
+
+    opts = layouts_dryrun.parse(["--d-model", "512", "--heads", "8", "--layers", "3",
+                                 "--d-ff", "2048", "--d-feature", "1024", "--lm-hidden", "768",
+                                 "--lm-vocab", "64001"])
+
+    def plain(node):
+        if isinstance(node, dict):
+            return {k: (0.0 if k == "DROPOUT" else plain(v)) for k, v in node.items()
+                    if k not in ("NAME", "DEVICE")}
+        return node
+    got = layouts_dryrun.family_model(opts, family)
+    assert plain(got) == plain(_model(f"configs/{LAYOUTS_FAMILIES[family]}.yaml").to_dict())

@@ -608,6 +608,9 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path_factory, tiny_dataset_d
         assert cuda_build.build_dir() == cache and cache.is_dir()
     finally:
         cuda_build.set_build_dir(None)
+    # the later trainers build without the cache, which would otherwise stay
+    # set for the tests after this one in the process
+    del cfg["TRAINING"]["COMPILATION_CACHE_DIR"]
 
     from openviic_tpu_torch.training import trainer as trainer_module
 

@@ -443,6 +443,21 @@ def _bf16_ulp(x: np.ndarray) -> np.ndarray:
     return np.ldexp(1.0, exponent - 8)
 
 
+def check_resident_call(args, kwargs):
+    """One ``resident_layer_step`` call, its captured arguments through the
+    port's wrapper (the plain version on CPU tensors) against the JAX
+    kernel on the same inputs: k_new and v_new within 1e-5, y within 2 bf16
+    ulps of max(|y|, 1) (see ``check_resident_kernel``)."""
+    y, k_new, v_new = port_decoders.resident_layer_step(*args, **kwargs)
+    jargs = [jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor) else a for a in args[:9]]
+    weights = {k: jnp.asarray(v.numpy()) for k, v in args[10].items()}
+    wy, wk, wv = jax_resident_step(*jargs, jnp.asarray(args[9]), weights, **kwargs)
+    wy = np.asarray(wy).reshape(y.shape)
+    np.testing.assert_allclose(k_new.numpy(), np.asarray(wk), atol=ENCODER_ATOL, rtol=0)
+    np.testing.assert_allclose(v_new.numpy(), np.asarray(wv), atol=ENCODER_ATOL, rtol=0)
+    assert (np.abs(y.numpy() - wy) <= 2 * _bf16_ulp(wy)).all(), np.abs(y.numpy() - wy).max()
+
+
 def check_resident_kernel(family, monkeypatch):
     """``resident_kernel`` on a family whose decoder the kernel runs: the
     layer calls on their inputs, captured from the port's decode, against
@@ -470,16 +485,29 @@ def check_resident_kernel(family, monkeypatch):
     if FAMILIES[family.name].get("fast_jax"):  # the per-call kernels op by op
         eager_resident_kernel(monkeypatch)
     for args, kwargs in calls["resident_layer_step"][:2]:  # the first two calls
-        y, k_new, v_new = port_decoders.resident_layer_step(*args, **kwargs)
-        jargs = [jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor) else a for a in args[:9]]
-        weights = {k: jnp.asarray(v.numpy()) for k, v in args[10].items()}
-        wy, wk, wv = jax_resident_step(*jargs, jnp.asarray(args[9]), weights, **kwargs)
-        wy = np.asarray(wy).reshape(y.shape)
-        np.testing.assert_allclose(k_new.numpy(), np.asarray(wk), atol=ENCODER_ATOL, rtol=0)
-        np.testing.assert_allclose(v_new.numpy(), np.asarray(wv), atol=ENCODER_ATOL, rtol=0)
-        assert (np.abs(y.numpy() - wy) <= 2 * _bf16_ulp(wy)).all(), np.abs(y.numpy() - wy).max()
+        check_resident_call(args, kwargs)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=RESIDENT_ATOL, rtol=0)
+
+
+def assert_best_beams_match(tokens, lp, want_tokens, want_lp, jax_f32_tokens):
+    """Best beams (images, max_len) decoded under ``resident_kernel``
+    against JAX's under the flag, with ``check_resident_kernel``'s bar: the
+    caption equal, its word log-probs within RESIDENT_ATOL.  Where JAX's
+    kernel path itself leaves the caption of its f32 path
+    (``jax_f32_tokens``), the two tie within the kernel's bf16 roundings:
+    the port's caption is then one of the two, its total log-prob within
+    RESIDENT_ATOL of JAX's."""
+    tokens, lp = np.asarray(tokens), np.asarray(lp)
+    for i in range(tokens.shape[0]):
+        got, want = tokens[i], want_tokens[i]
+        if np.array_equal(want, jax_f32_tokens[i]) or np.array_equal(got, want):
+            np.testing.assert_array_equal(got, want, err_msg=f"image {i}")
+            np.testing.assert_allclose(lp[i], want_lp[i], atol=RESIDENT_ATOL, rtol=0,
+                                       err_msg=f"image {i}")
+        else:
+            np.testing.assert_array_equal(got, jax_f32_tokens[i], err_msg=f"image {i}")
+            assert abs(float(lp[i].sum()) - float(want_lp[i].sum())) <= RESIDENT_ATOL, i
 
 
 def check_fused_step(family, monkeypatch):

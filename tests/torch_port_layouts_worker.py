@@ -3,8 +3,8 @@
 ``tests/test_torch_port_sequence_pipeline_parallel.py``, run as a process
 of its own:
 
-    RANK=r WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=p \\
-        python tests/torch_port_layouts_worker.py <tp_ep|sp_pp> <directory>
+    RANK=r WORLD_SIZE=<4|2> MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/torch_port_layouts_worker.py <tp_ep|sp_pp|tp_families> <directory>
 
 It imports torch, numpy and the port only (no JAX), starts the gloo group
 from those variables through ``parallel.runtime.initialize_distributed``,
@@ -18,9 +18,19 @@ that it is not part of.
 {data 4} (losses, the full parameters after the steps, each sharded
 parameter's local shape); Adam's moments after ``shard_state`` and one
 step at {data 2, model 2}; the beam decode of a tensor-parallel model at
-{model 2} (the default path and the head kernel's plain version) and its
-refusals; the expert-parallel MoE encoder at {expert 4}: forward and the
-gradients of sum(out ** 2).
+{model 2} (the default path and the head kernel's plain version) and
+under ``resident_kernel`` and ``attn_kernel``, with the kernels' calls;
+the expert-parallel MoE encoder at {expert 4}: forward and the gradients
+of sum(out ** 2).
+
+``tp_families`` (two ranks): for each family of
+``tests/test_torch_port_tensor_parallel_families.py`` at {model 2}, two
+XE steps under SGD (losses, the full parameters after, the specs, each
+attention's head layout), its beam decode at f32, and under each of its
+kernel flags (the kernels' plain versions) the decode of the sharded model
+beside one process's, with the calls of the kernels' wrappers, the heads
+each layer-kernel call read and the first resident call's arguments;
+RSTNet's signal table and a decode through it.
 
 ``sp_pp``: ring and Ulysses self-attention at {seq 4} (plain, bias, key
 mask, gradients; the ring given garbage in other ranks' K/V rows) and at
@@ -71,7 +81,15 @@ SGD_LR = 0.05
 SPECIALS = ["<pad>", "<bos>", "<eos>", "<unk>"]
 XE_MESHES = (("dp2xtp2", {"data": 2, "model": 2}, [0, 1, 2, 3]),
              ("tp2", {"model": 2}, [0, 1]),
-             ("dp4", {"data": 4}, [0, 1, 2, 3]))
+             ("dp4", {"data": 4}, [0, 1, 2, 3]),
+             ("tp4", {"model": 4}, [0, 1, 2, 3]))
+# tp_families' flags: name -> (environment variable set, beam_search flags)
+FAMILY_FLAGS = {
+    "resident_kernel": (None, dict(resident_kernel=True)),
+    "attn_kernel": (None, dict(attn_kernel=True, head_kernel=1)),
+    "fused_step": ("OPENVIIC_FUSED_STEP", dict(beam_resident=False)),
+    "geo_fused": ("OPENVIIC_GEO_FUSED", dict()),
+}
 
 
 def _load(directory, name):
@@ -106,7 +124,7 @@ def tp_ep(directory: str) -> dict:
     vocab = _vocab(job)
     flat = _flat(directory, "tp_params.npz")
     batches = _load(directory, "tp_batches.npz")
-    out = {"xe": {}, "refusals": {}}
+    out = {"xe": {}, "flags": {}, "flag_calls": {}}
 
     def fresh():
         model = build_model(ConfigNode(job["model"]), vocab, device="cpu")
@@ -154,7 +172,7 @@ def tp_ep(directory: str) -> dict:
                         model.named_parameters()},
     }
 
-    # the tensor-parallel decode, and its refusals
+    # the tensor-parallel decode, and under the kernel flags
     mesh = mp.make_mesh({"model": 2}, [0, 1])
     if mesh.coords is not None:
         model = fresh()
@@ -168,11 +186,14 @@ def tp_ep(directory: str) -> dict:
         out["decode"] = {"tokens": tokens, "logprobs": logprobs,
                          "kernel_tokens": kernel_tokens, "kernel_logprobs": kernel_logprobs}
         for flag in ("resident_kernel", "attn_kernel"):
+            calls: dict = {}
+            real = _counting(calls)
             try:
-                beam_search(model, feats, beam_size=job["beam"], **{flag: True})
-                out["refusals"][flag] = None
-            except ValueError as exc:
-                out["refusals"][flag] = str(exc)
+                out["flags"][flag] = beam_search(model, feats, beam_size=job["beam"],
+                                                 **{flag: True})
+            finally:
+                _restore(real)
+            out["flag_calls"][flag] = calls
 
     # expert parallel: the MoE encoder at {expert 4}
     ep = _json(directory, "ep.json")
@@ -188,6 +209,123 @@ def tp_ep(directory: str) -> dict:
                                           encoder, mesh), "specs": specs,
                  "local_shapes": {n: tuple(p.shape) for n, p in encoder.named_parameters()},
                  "moved": mesh.moved}
+    return out
+
+
+# ------------------------------------------------------------------ tp_families
+
+
+def _cloned(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+def _counting(calls: dict):
+    """Wrap the kernels' wrappers where the models call them: each call
+    counted under its name, a layer kernel's ``n_heads`` kept, and the
+    arguments of the first ``resident_layer_step`` call under
+    ``first_resident``."""
+    from openviic_tpu_torch.models import attention as attention_module
+    from openviic_tpu_torch.models import decoders as decoders_module
+
+    real = {}
+    for module, name in ((decoders_module, "resident_layer_step"),
+                         (decoders_module, "fused_layer_step"),
+                         (attention_module, "beam_select_attention"),
+                         (attention_module, "geo_fused_attention")):
+        fn = getattr(module, name)
+        real[(module, name)] = fn
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            if _name == "resident_layer_step" and "first_resident" not in calls:
+                calls["first_resident"] = (_cloned(args), dict(kwargs))
+            if "n_heads" in kwargs:
+                calls.setdefault("n_heads", set()).add(kwargs["n_heads"])
+            return _fn(*args, **kwargs)
+        setattr(module, name, wrapper)
+    return real
+
+
+def _restore(real: dict) -> None:
+    for (module, name), fn in real.items():
+        setattr(module, name, fn)
+
+
+def _flagged(env, fn):
+    if env is not None:
+        os.environ[env] = "1"
+    try:
+        return fn()
+    finally:
+        if env is not None:
+            del os.environ[env]
+
+
+def tp_families(directory: str) -> dict:
+    from openviic_tpu_torch.models.attention import _Projections
+
+    job = _json(directory, "tpf.json")
+    mesh = mp.make_mesh({"model": 2})
+    out = {}
+    for name, fam in job["families"].items():
+        vocab = _vocab(fam)
+        flat = _flat(directory, f"tpf_{name}_params.npz")
+        arrays = _load(directory, f"tpf_{name}_batches.npz")
+
+        def fresh():
+            model = build_model(ConfigNode(fam["model"]), vocab, device="cpu")
+            return load_jax_params(model, flat)
+
+        def batch_of(prefix):
+            return {k[len(prefix):]: (v.long() if k.endswith("tokens") else v)
+                    for k, v in arrays.items() if k.startswith(prefix)}
+
+        model = fresh()
+        state = init_xe_state(model, torch.optim.SGD(model.parameters(), lr=SGD_LR), seed=0)
+        mp.shard_state(model, state, mesh)
+        step = mp.make_sharded_xe_step(model, mesh)
+        losses = []
+        for i in range(job["xe_steps"]):
+            state, loss = step(state, batch_of(f"xe{i}_"))
+            losses.append(float(loss))
+        res = {"losses": losses, "params": full_params(model, mesh),
+               "specs": model.parallel_specs,
+               "layouts": {n: ("heads" if m.head_parallel else "gathered" if m.gathered_heads
+                               else "whole", m.h)
+                           for n, m in model.named_modules() if isinstance(m, _Projections)},
+               "local_shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}}
+
+        model, one = fresh().eval(), fresh().eval()
+        shard_model(model, mesh)
+        feats = batch_of("decode_")
+        table = one_table = None
+        if name == "rstnet":
+            table, one_table = model.compute_language_table(), one.compute_language_table()
+            res["table"], res["one_table"] = table, one_table
+        with torch.no_grad():
+            res["decode"] = beam_search(model, feats, beam_size=job["beam"],
+                                        out_size=job["beam"])
+            if table is not None:
+                res["table_decode"] = beam_search(model, feats, beam_size=job["beam"],
+                                                  out_size=job["beam"], language_table=table)
+            res["flags"] = {}
+            for flag in fam["flags"]:
+                env, kwargs = FAMILY_FLAGS[flag]
+                calls: dict = {}
+                real = _counting(calls)
+                try:
+                    got = _flagged(env, lambda: beam_search(
+                        model, feats, beam_size=job["beam"], out_size=job["beam"], **kwargs))
+                finally:
+                    _restore(real)
+                want = _flagged(env, lambda: beam_search(
+                    one, feats, beam_size=job["beam"], out_size=job["beam"], **kwargs))
+                res["flags"][flag] = {"got": got, "one": want, "calls": calls}
+        out[name] = res
     return out
 
 
@@ -327,7 +465,7 @@ def main() -> int:
     torch.set_num_threads(1)
     assert runtime.initialize_distributed("cpu")
     try:
-        result = (tp_ep if job == "tp_ep" else sp_pp)(directory)
+        result = {"tp_ep": tp_ep, "sp_pp": sp_pp, "tp_families": tp_families}[job](directory)
         result["rank"] = runtime.process_index()
     finally:
         runtime.shutdown()
