@@ -103,7 +103,19 @@ On the card it runs these phases, each printing its seconds:
    the patch backbone (dim 1024, grid 7) and ``roi_pool`` on the card
    against the same functions on its host's CPU (thumbnails equal,
    features within 1e-4, roi_pool within 1e-5), the captions, and whether
-   Pillow is present;
+   Pillow is present; then the same arrays through ``hf:<dir>``
+   (``vit_phase``): a seeded random ViT at the published widths of
+   google/vit-large-patch16-224-in21k (hidden 1024, 24 layers of 16 heads,
+   MLP 4096, patch 16 at 224 px; weights N(0, 0.02), LayerNorms 1 and 0;
+   an f32 ``model.safetensors`` of 1 161 MiB) written with json and numpy
+   into a temporary directory, which it removes: the processor's pixel
+   values on the card bit-equal to its host CPU's, the pooled features
+   within VIT_ATOL of the host CPU's, the captions vocab words, head_topk
+   once a decode step and beam_select_attention once a layer and step on
+   the path, both kernels on their inputs captured from that path against
+   their plain versions, timed beside their bounds and PyTorch
+   yardsticks; the load seconds, the file's MiB, the ViT's ms per image
+   and captions/s with the extraction;
 10. trained artifact: the committed trained flagship
    (``saved_models/realistic_d512_bench/``, vocab 7 094, max_len 30, its
    150 test images of up to 40 regions) through ``CaptioningPipeline``
@@ -341,7 +353,7 @@ On the card it runs these phases, each printing its seconds:
 
 The line before the last is a JSON object with one entry per kernel (six:
 its launches on its decode path, error, times and bound, and its launches
-and cases in the families, two-stream, RSTNet, remainder, data-parallel,
+and cases in the ``hf:`` ViT path, the families, two-stream, RSTNet, remainder, data-parallel,
 model-parallel (phases 19 and 21) and backends phases, 0 where a kernel
 does not run); the line before that is the card's name and power limit.  Any failure raises,
 and the script exits non-zero without those lines.  ``--cpu`` runs phases
@@ -2073,11 +2085,13 @@ def captured_steps(kept):
     return out
 
 
-def trained_kernel_cases(device, captured, what="trained decode"):
+def trained_kernel_cases(device, captured, what="trained decode", library=False):
     """Each kernel on its own inputs captured from the artifact decode
     (``what``; the kernels of ``captured``'s keys), against its plain
-    version under its gate, and timed beside its bound (on the card).
-    Returns {kernel: [rows]}."""
+    version under its gate, and timed beside its bound (on the card);
+    with ``library`` head_topk and beam_select_attention are also timed
+    beside their PyTorch yardsticks (matmul + logsumexp + topk, gather +
+    SDPA).  Returns {kernel: [rows]}."""
     from openviic_tpu_torch.ops.beam_select_attention import (
         ancestor_rows, beam_select_attention, beam_select_attention_reference)
     from openviic_tpu_torch.ops.fused_attention import fused_attention, fused_attention_reference
@@ -2116,9 +2130,12 @@ def trained_kernel_cases(device, captured, what="trained decode"):
         with case():
             err, _ = compare(f"head_topk, {what} t={t}", x, w, k, exact=False)
             bound_ms, bound_by, _, _ = head_bound(x.shape[0], x.shape[1], w.shape[0], k)
+            def head_library(x=x, w=w, k=k):  # timed only
+                logits = x @ w.T
+                return torch.logsumexp(logits.float(), dim=1), torch.topk(logits, k, dim=1)
             row("head_topk", f"t={t} N={x.shape[0]} V={w.shape[0]}", err,
                 lambda: head_topk(x, w, k), lambda: head_topk_reference(x, w, k),
-                bound_ms, bound_by)
+                bound_ms, bound_by, library=head_library if library else None)
 
     for t, (args, kwargs) in steps_of("beam_select_attention"):
         with case():
@@ -2134,9 +2151,20 @@ def trained_kernel_cases(device, captured, what="trained decode"):
             nbytes, flops = beam_select_work(N, L, q.shape[2], q.shape[3],
                                              distinct_rows(src * L + pos, live), int(live.sum()))
             bound_ms, bound_by = bound(flops, PEAK_F32_FLOPS, nbytes)
+
+            def select_library(q=q, kc=kc, v=args[2], anc=anc, live=live):  # timed only
+                b_s, beam = anc.shape[:2]
+                h, d = q.shape[2], q.shape[3]
+                idx = anc[..., None].expand(-1, -1, -1, h * d)
+                ks, vs = (torch.gather(c.reshape(b_s, beam, L, h * d), 1, idx).reshape(N, L, h, d)
+                          for c in (kc, v))
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+                    attn_mask=live[:, None, None, :])
             row("beam_select_attention", f"t={t} N={N} L={L}", err,
                 lambda: beam_select_attention(*args, mask_axis=axis),
-                lambda: beam_select_attention_reference(*args, mask_axis=axis), bound_ms, bound_by)
+                lambda: beam_select_attention_reference(*args, mask_axis=axis), bound_ms, bound_by,
+                library=select_library if library else None)
 
     for t, (args, kwargs) in steps_of("resident_layer_step"):
         with case():
@@ -2753,6 +2781,176 @@ def images_phase(device, s, card: str, serving):
         f"(<= {EXTRACT_ATOL}), roi_pool within {worst['roi']:.3g} (<= {ROI_ATOL}); Pillow "
         f"{'present' if pillow else 'absent'} on this machine; sample {captions[0]!r}")
     return dict(seconds=seconds, worst=worst, pillow=pillow)
+
+
+# the hf: backbone's ViT: google/vit-large-patch16-224-in21k's published
+# config.json (its hidden width is the flagship's D_FEATURE, 1024), and the
+# rehearsal's tiny one (the tiny model's D_FEATURE, a 8 x 8 patch map)
+VIT_L16 = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+               intermediate_size=4096, image_size=224, patch_size=16, num_channels=3,
+               hidden_act="gelu", layer_norm_eps=1e-12, qkv_bias=True)
+TINY_VIT = dict(VIT_L16, hidden_size=TINY["d_feature"], num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=2 * TINY["d_feature"], image_size=64,
+                patch_size=8)
+VIT_SEED = 11
+VIT_INIT_STD = 0.02  # transformers' initializer_range
+# the ViT's pooled features on the card against its host's CPU, f32 both:
+# the same products summed in another order through 24 layers; the worst
+# measured on the 8 images was 3.34e-6 (NVIDIA H100 80GB HBM3, 700 W), so
+# the bar leaves 15x for other images, seeds and cuBLAS kernels
+VIT_ATOL = 5e-5
+
+
+def vit_tensors(cfg: dict) -> dict:
+    """{name: shape} of transformers' ``ViTModel`` at ``cfg``: the port's
+    ``data/vit.py`` model, which carries its names, and the pooler."""
+    from openviic_tpu_torch.data.vit import ViTModel
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in ViTModel(cfg).state_dict().items()}
+    d = cfg["hidden_size"]
+    return dict(shapes, **{"pooler.dense.weight": (d, d), "pooler.dense.bias": (d,)})
+
+
+def write_vit_dir(directory: str, cfg: dict, seed: int) -> float:
+    """A ViT directory as transformers' ``save_pretrained`` leaves it, written
+    with json and numpy: ``config.json``, ViTImageProcessor's default
+    ``preprocessor_config.json`` at the config's image size, and an f32
+    ``model.safetensors`` (``format`` pt) of weights drawn N(0, VIT_INIT_STD)
+    from ``seed``, LayerNorms 1 and 0.  Returns the file's MiB."""
+    shapes = vit_tensors(cfg)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(dict(cfg, model_type="vit", architectures=["ViTModel"]), f)
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"image_processor_type": "ViTImageProcessor", "do_resize": True,
+                   "size": {"height": cfg["image_size"], "width": cfg["image_size"]},
+                   "resample": 2, "do_rescale": True, "rescale_factor": 1 / 255,
+                   "do_normalize": True, "image_mean": [0.5] * 3, "image_std": [0.5] * 3}, f)
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape in shapes.items():
+        size = 4 * int(np.prod(shape))
+        header[name] = {"dtype": "F32", "shape": list(shape), "data_offsets": [offset, offset + size]}
+        offset += size
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned, as the format's writer pads it
+    rng = np.random.default_rng(seed)
+    path = os.path.join(directory, "model.safetensors")
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for name, shape in shapes.items():
+            if ".layernorm" in name or name.startswith("layernorm"):
+                value = np.full(shape, 1.0 if name.endswith("weight") else 0.0, np.float32)
+            else:
+                value = rng.standard_normal(shape, dtype=np.float32)
+                value *= VIT_INIT_STD
+            f.write(value.data)
+    return os.path.getsize(path) / 2 ** 20
+
+
+def vit_phase(device, s, card: str, serving):
+    """caption_images through the ``hf:`` backbone: a seeded random ViT at
+    the published widths of google/vit-large-patch16-224-in21k (``VIT_L16``;
+    the rehearsal's ``TINY_VIT``) written by ``write_vit_dir`` into a
+    temporary directory, which the phase removes, read by the serving
+    cell's pipeline as ``hf:<dir>`` at grid 7 on the same N_ARRAYS seeded
+    480 x 640 arrays as ``images_phase``.  The processor's pixel values on
+    the card must equal its host CPU's bit for bit, the pooled features lie
+    within VIT_ATOL of the same backbone's on the host's CPU; the captions
+    must be vocab words, and head_topk must launch once a decode step and
+    beam_select_attention once a layer and step on this path; both kernels
+    are held against their plain versions on their inputs captured from a
+    second run, timed beside their bounds and PyTorch yardsticks.  Prints
+    the load seconds, the file's MiB, the ViT's ms per image (CUDA events)
+    and captions/s with the extraction."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from openviic_tpu_torch.data.extraction import HFViTBackbone
+    from openviic_tpu_torch.models import attention as attention_module
+
+    beam_search_module = importlib.import_module("openviic_tpu_torch.decoding.beam_search")
+    cuda = device.type == "cuda"
+    pipe, vocab = serving["pipe"], serving["vocab"]
+    cfg = VIT_L16 if s is FLAGSHIP else TINY_VIT
+    grid = 7
+    rng = np.random.default_rng(SERVE_SEED)
+    arrays = [rng.integers(0, 256, size=PIXEL_SHAPE, dtype=np.uint8) for _ in range(N_ARRAYS)]
+    tmp = tempfile.mkdtemp(prefix="openviic_vit_")
+    try:
+        t0 = time.perf_counter()
+        mib = write_vit_dir(tmp, cfg, VIT_SEED)
+        t1 = time.perf_counter()
+        spec = f"hf:{tmp}"
+        card_bb = pipe.backbone(spec, grid)
+        sync(device)
+        t2 = time.perf_counter()
+        cpu_bb = HFViTBackbone(tmp, grid, card_bb.dim, device="cpu")
+        t3 = time.perf_counter()
+        if card_bb.dim != cfg["hidden_size"]:
+            raise AssertionError(f"the ViT gives {card_bb.dim}-wide features")
+        worst, cpu_s, vit_ms, vit_graph_ms = 0.0, 0.0, None, None
+        with torch.no_grad():
+            for i, arr in enumerate(arrays):
+                pixels = card_bb.processor(arr)
+                want = cpu_bb.processor(arr)
+                if not torch.equal(pixels.cpu(), want):
+                    raise AssertionError(f"image {i}: the card's pixel values differ from its "
+                                         f"host CPU's by {(pixels.cpu() - want).abs().max()}")
+                got = card_bb.embed(pixels).cpu()
+                t = time.perf_counter()
+                want_features = cpu_bb.embed(want)
+                cpu_s += time.perf_counter() - t
+                worst = max(worst, float((got - want_features).abs().max()))
+            if cuda:  # launched from Python (the path's cost), then the device's alone
+                vit_ms = time_cuda(lambda: card_bb.embed(pixels), 20)
+                vit_graph_ms = time_cuda(lambda: card_bb.embed(pixels), 10, graph=True)
+        if worst > VIT_ATOL:
+            raise AssertionError(f"the ViT's features on the card against its host CPU: "
+                                 f"{worst:.3g} > {VIT_ATOL}")
+
+        counted = counted_wrappers()
+        n_layers = len(pipe.model.decoder.layers)
+        for fn in counted:
+            fn.launches = 0
+        steps0 = pipe.searcher.steps
+        sync(device)
+        t4 = time.perf_counter()
+        captions = pipe.caption_images(arrays, backbone=spec, grid=grid)
+        sync(device)
+        seconds = time.perf_counter() - t4
+        launches = serving_launches("hf: caption_images", counted, pipe.searcher.steps - steps0,
+                                    n_layers, cuda)
+        steps = pipe.searcher.steps - steps0
+        if sorted(captions) != list(range(N_ARRAYS)):
+            raise AssertionError(f"caption_images keys {sorted(captions)}")
+        for caption in captions.values():
+            if any(tok not in vocab.stoi or tok in vocab.specials for tok in caption.split()):
+                raise AssertionError(f"hf: caption_images: not vocab words: {caption!r}")
+        with capture_calls(beam_search_module, "head_topk", 1) as head, \
+                capture_calls(attention_module, "beam_select_attention", n_layers) as attn:
+            again = pipe.caption_images(arrays, backbone=spec, grid=grid)
+        if again != captions:
+            raise AssertionError("a second hf: caption_images gave other captions")
+        cases = trained_kernel_cases(device, dict(head_topk=head, beam_select_attention=attn),
+                                     what="hf: caption_images", library=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        pipe._backbones = {k: v for k, v in pipe._backbones.items() if k[0] != f"hf:{tmp}"}
+    per_image = (f"{vit_ms:.3f} ms per image launched from Python (CUDA events), "
+                 f"{vit_graph_ms:.3f} ms on the device (a CUDA graph)") if cuda else \
+        "not timed on the CPU"
+    log(f"  hf: backbone: a {cfg['num_hidden_layers']}-layer ViT of width {cfg['hidden_size']} "
+        f"({cfg['image_size']} px, patch {cfg['patch_size']}), model.safetensors {mib:.1f} MiB "
+        f"written in {t1 - t0:.3f} s, loaded onto {card} in {t2 - t1:.3f} s (the host CPU's copy "
+        f"{t3 - t2:.3f} s); pixel values equal to the host CPU's on {N_ARRAYS} images, features "
+        f"within {worst:.3g} (<= {VIT_ATOL}) ({cpu_s:.3f} s on the host CPU); the ViT {per_image}")
+    log(f"  hf: caption_images: {N_ARRAYS} arrays of {PIXEL_SHAPE} at grid {grid}: {seconds:.3f} "
+        f"s, {N_ARRAYS / seconds:.1f} captions/s with the extraction on {card}; {steps} decode "
+        f"steps, launches {launches}; sample {captions[0]!r}")
+    return dict(seconds=seconds, captions_per_s=N_ARRAYS / seconds, load_s=t2 - t1,
+                write_s=t1 - t0, file_mib=mib, vit_ms=vit_ms, vit_graph_ms=vit_graph_ms,
+                worst=worst, cpu_s=cpu_s, steps=steps, launches=launches, kernels=cases)
 
 
 REHEARSAL_MAX_LEN = 5  # the rehearsal's trained decodes: 5 steps of the artifact's 30
@@ -6894,6 +7092,8 @@ def all_phases(device, s, card: str, cache_first=None):
                         lambda: http_phase(device, s, card))
         images = timed("serving cell: caption_images on arrays",
                        lambda: images_phase(device, s, card, serving))
+        vit = timed("serving cell: caption_images through the hf: ViT",
+                    lambda: vit_phase(device, s, card, serving))
     from openviic_tpu_torch.artifact import load_trained_artifact
 
     loaded = timed("load the trained artifact", lambda: load_trained_artifact(device="cpu"))
@@ -6945,6 +7145,11 @@ def all_phases(device, s, card: str, cache_first=None):
                                images=images, directory=directory)
     found[1]["serving"] = {run: dict(launches=serving[run]["launches"]["beam_select_attention"])
                            for run in ("http", "batcher")}
+    vit_cases = vit.pop("kernels")
+    for e in found:  # the hf: ViT path's launches (0 where a kernel does not run) and cases
+        e["hf_vit"] = dict(launches=vit["launches"].get(e["name"], 0), steps=vit["steps"])
+        e["hf_vit_cases"] = vit_cases.get(e["name"], [])
+    found[0]["hf_vit_figures"] = vit
     for e in found:
         e["families"] = families["launches"].get(e["name"], {})
         e["families_cases"] = families["kernels"].get(e["name"], [])

@@ -16,7 +16,12 @@ which ``CaptioningPipeline(config, checkpoint_dir=...)``, the
 ``predict`` and ``serve`` CLIs and ``BaseTrainer`` (from a
 ``last_model.ckpt``) read.  The weights' names map through
 ``compat.torch_import``; the original's Adam moments become the port's
-``torch.optim.Adam`` state, the Noam schedule's position carried."""
+``torch.optim.Adam`` state, the Noam schedule's position carried.
+
+The JAX module's ``dummy_batch`` is the fixed-shape batch that Flax's
+``model.init`` traces to build a parameter template; the port's modules
+hold their parameters from construction, so ``build_model`` stands in its
+place."""
 
 from __future__ import annotations
 

@@ -83,3 +83,13 @@ def convert_torch_state_dict(state_dict: Mapping[str, torch.Tensor], model: torc
     unused = [k for k in sd if k not in used]
     return out, missing, unused
 
+
+def load_reference_checkpoint(path: str, model: torch.nn.Module
+                              ) -> Tuple[Dict[str, torch.Tensor], List[str], List[str]]:
+    """``convert_torch_state_dict`` of the original code's ``*.pth`` file
+    (the payload's ``state_dict``, or the payload itself): (the port's
+    ``state_dict``, missing, unused), the JAX function's order.  The file
+    is unpickled in full (``weights_only=False``, as the JAX package reads
+    it): read only a file you trust."""
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    return convert_torch_state_dict(payload.get("state_dict", payload), model)

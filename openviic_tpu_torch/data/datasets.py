@@ -4,13 +4,16 @@
  - ``FeatureDataset``: one sample per annotation, the teacher-forcing
    inputs and targets of ``caption_instance`` with the image's features;
  - ``DictionaryDataset``: one sample per image, its file name and every
-   reference caption with its features (beam-search eval and SCST).
+   reference caption with its features (beam-search eval and SCST);
+ - ``ImageDataset``: a ``DictionaryDataset`` whose samples also carry the
+   raw image, read with OpenCV (``cv2``, imported where an image is read)
+   as BGR uint8 and resized to 512 x 512 with ``INTER_AREA``, for
+   visualisation; it runs on the host only.
 
 Features are one ``<image_id>.npy`` per image under
 ``FEATURE_PATH.FEATURES``: a pickled dict of arrays, f64 and f16 read as
 f32.  ``DATASET.CACHE_FEATURES: N`` keeps the last N images' dicts in an
-LRU shared by every dataset over one directory.  ``ImageDataset`` (a cv2
-visualisation aid) is not ported."""
+LRU shared by every dataset over one directory."""
 
 from __future__ import annotations
 
@@ -147,3 +150,25 @@ class DictionaryDataset:
 
     def __len__(self) -> int:
         return len(self.image_ids)
+
+
+class ImageDataset(DictionaryDataset):
+    """``DictionaryDataset`` whose samples also carry ``image``: the file
+    ``FEATURE_PATH.IMAGE/<file_name>`` read by ``cv2.imread`` (BGR uint8)
+    and resized to 512 x 512 with ``INTER_AREA``."""
+
+    def __init__(self, json_path: str, vocab, config) -> None:
+        super().__init__(json_path, vocab, config)
+        self.image_path = config.FEATURE_PATH.IMAGE
+
+    def __getitem__(self, idx: int) -> Instance:
+        import cv2
+
+        image_id, filename = self.image_ids[idx], self.filenames[idx]
+        image_file = os.path.join(self.image_path, filename)
+        image = cv2.imread(image_file)
+        if image is None:
+            raise FileNotFoundError(f"cv2 cannot read the image {image_file}")
+        image = cv2.resize(image, (512, 512), interpolation=cv2.INTER_AREA)
+        return Instance(image_id=image_id, filename=filename, image=image,
+                        captions=self.captions_with_image[idx], **self.features.load(image_id))

@@ -7,16 +7,19 @@ read (``grid_features``, ``grid_boxes``, and ``region_features`` /
 
   - ``PatchBackbone``: the deterministic offline extractor, 8 x 8 RGB cell
     thumbnails through a fixed random projection; it runs on a device;
+  - ``HFViTBackbone`` (``hf:<name>``): a ViT read from a local HuggingFace
+    directory or the local hub cache (``data/vit.py``: nothing is
+    downloaded), its patch outputs average-pooled to a g x g grid; it runs
+    on a device, at f32;
   - ``roi_pool``: region features pooled from the grid feature map over
     boxes, vectorised over the boxes;
   - ``open_image``: a file or a file-like object decoded with Pillow, which
     is imported there and nowhere else: without Pillow, pass (H, W, 3)
-    uint8 arrays.
-
-The ``hf:<model>`` ViT backbone needs ``transformers`` and downloaded
-weights and raises ``NotImplementedError``."""
+    uint8 arrays."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -89,6 +92,37 @@ def _fixed_point(sums: torch.Tensor) -> torch.Tensor:
     return torch.floor((sums + (1 << (PRECISION_BITS - 1))) / (1 << PRECISION_BITS)).clamp(0, 255)
 
 
+class PilResize:
+    """PIL's ``resize((width, height), BILINEAR)`` of an 8-bit RGB image on
+    ``device``: a horizontal, then a vertical pass of PIL's antialiased
+    triangle filter, each with its weights in fixed point (``pil_weights``,
+    kept per size) and rounded to uint8.  The integer sums are exact in
+    float64 products, so the result is PIL's bit for bit.  A side that
+    already has its size is left alone."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._weight_cache = {}
+
+    def _weights(self, in_size: int, out_size: int) -> torch.Tensor:
+        key = (in_size, out_size)
+        if key not in self._weight_cache:
+            self._weight_cache[key] = torch.from_numpy(
+                pil_weights(in_size, out_size)).to(self.device)
+        return self._weight_cache[key]
+
+    def __call__(self, image, height: int, width: int) -> torch.Tensor:
+        """``image`` (PIL or an (H, W, 3) uint8 array) -> (3, height, width)
+        float64 holding the resized image's integers 0-255."""
+        x = torch.tensor(rgb_array(image), device=self.device)
+        x = x.permute(2, 0, 1).double()  # (3, H, W)
+        if x.shape[2] != width:
+            x = _fixed_point(x @ self._weights(x.shape[2], width).T)
+        if x.shape[1] != height:
+            x = _fixed_point(self._weights(x.shape[1], height) @ x)
+        return x
+
+
 class PatchBackbone:
     """Deterministic offline extractor: 8 x 8 RGB thumbnails of the g x g
     cells through a fixed projection, drawn with numpy as the JAX module
@@ -102,30 +136,13 @@ class PatchBackbone:
         self.proj = rng.normal(size=(CELL * CELL * 3, dim)).astype(np.float32)
         self.proj /= np.sqrt(CELL * CELL * 3)
         self._proj = torch.from_numpy(self.proj).to(self.device)
-        self._weight_cache = {}
+        self._resize = PilResize(self.device)
 
     def resize(self, image) -> torch.Tensor:
         """The image as (8g, 8g, 3) uint8 on the device, as PIL's
-        ``resize((8g, 8g), BILINEAR)`` makes it: a horizontal, then a
-        vertical pass of PIL's antialiased triangle filter, each with its
-        weights in fixed point (``pil_weights``) and rounded to uint8.  The
-        integer sums are exact in float64 products, so the result is PIL's
-        bit for bit.  A side that already has 8g pixels is left alone."""
+        ``resize((8g, 8g), BILINEAR)`` makes it (``PilResize``)."""
         side = CELL * self.grid
-        x = torch.tensor(rgb_array(image), device=self.device)
-        x = x.permute(2, 0, 1).double()  # (3, H, W)
-        if x.shape[2] != side:
-            x = _fixed_point(x @ self._weights(x.shape[2], side).T)
-        if x.shape[1] != side:
-            x = _fixed_point(self._weights(x.shape[1], side) @ x)
-        return x.permute(1, 2, 0).to(torch.uint8)
-
-    def _weights(self, in_size: int, out_size: int) -> torch.Tensor:
-        key = (in_size, out_size)
-        if key not in self._weight_cache:
-            self._weight_cache[key] = torch.from_numpy(
-                pil_weights(in_size, out_size)).to(self.device)
-        return self._weight_cache[key]
+        return self._resize(image, side, side).permute(1, 2, 0).to(torch.uint8)
 
     def embed(self, thumbnail: torch.Tensor) -> torch.Tensor:
         """(8g, 8g, 3) uint8 -> (g * g, dim) f32: each cell's pixels in
@@ -159,15 +176,66 @@ def roi_pool(fmap, gboxes, boxes) -> torch.Tensor:
     return torch.where(overlaps[:, None], weights @ fmap, fmap[nearest])
 
 
-def make_backbone(spec: str, grid: int, dim: int = 512, device="cuda"):
-    """Backbone from a spec string: "patch" (on ``device``, the card unless
-    the caller asks for the CPU) or "hf:<model>"."""
+def pool_matrix(p: int, g: int) -> np.ndarray:
+    """(g * g, p * p) f32: each row averages the patches of one cell of a
+    g x g grid over a p x p patch map, row-major, with the JAX backbone's
+    edges (``linspace(0, p, g + 1)`` rounded; a cell holds at least one
+    patch)."""
+    edges = np.linspace(0, p, g + 1).round().astype(int)
+    out = np.zeros((g, g, p, p), np.float32)
+    for r in range(g):
+        for c in range(g):
+            rows = slice(edges[r], max(edges[r + 1], edges[r] + 1))
+            cols = slice(edges[c], max(edges[c + 1], edges[c] + 1))
+            out[r, c, rows, cols] = 1.0
+    out = out.reshape(g * g, p * p)
+    return out / out.sum(1, keepdims=True)
+
+
+class HFViTBackbone:
+    """A ViT from a local HuggingFace directory (``data/vit.py``): the
+    image processor, then the ViT at f32 on ``device``; CLS dropped; the
+    p x p patch outputs average-pooled to the g x g grid (``pool_matrix``;
+    none when g == p).  Gives (g * g, hidden) f32 on the device.  ``dim``,
+    where given, must be the ViT's ``hidden_size``."""
+
+    def __init__(self, model_name: str, grid: int, dim=None, device="cuda"):
+        from openviic_tpu_torch.data.vit import load_vit
+
+        self.device = torch.device(device)
+        self.processor, self.model = load_vit(model_name, device=self.device)
+        self.dim = self.model.config["hidden_size"]
+        if dim is not None and dim != self.dim:
+            raise ValueError(f"HF backbone {model_name!r} gives {self.dim}-wide features; the "
+                             f"model reads {dim}-wide ones")
+        self.grid = grid
+        self._pools = {}
+
+    @torch.no_grad()
+    def embed(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(1, 3, H, W) pixel values -> the (g * g, hidden) pooled features."""
+        hidden = self.model(pixel_values)[0, 1:]  # drop CLS
+        # the position table holds a square map's patches, (image / patch)^2
+        p, g = math.isqrt(hidden.shape[0]), self.grid
+        if g == p:
+            return hidden
+        if (p, g) not in self._pools:
+            self._pools[(p, g)] = torch.from_numpy(pool_matrix(p, g)).to(self.device)
+        return self._pools[(p, g)] @ hidden
+
+    def __call__(self, image) -> torch.Tensor:
+        return self.embed(self.processor(image))
+
+
+def make_backbone(spec: str, grid: int, dim=None, device="cuda"):
+    """Backbone from a spec string, on ``device`` (the card unless the
+    caller asks for the CPU): "patch" (``dim`` wide, 512 by default) or
+    "hf:<model>" (a directory or a hub name in the local cache; ``dim``,
+    where given, must be its width)."""
     if spec == "patch":
-        return PatchBackbone(grid, dim, device=device)
+        return PatchBackbone(grid, 512 if dim is None else dim, device=device)
     if spec.startswith("hf:"):
-        raise NotImplementedError(
-            f"backbone {spec!r}: the HuggingFace ViT backbone needs transformers and "
-            "downloaded weights, and is not ported; use 'patch'")
+        return HFViTBackbone(spec[3:], grid, dim, device=device)
     raise ValueError(f"unknown backbone {spec!r}")
 
 

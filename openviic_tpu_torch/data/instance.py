@@ -1,9 +1,10 @@
 """Batch containers: the port's copy of ``openviic_tpu/data/instance.py``.
 
 ``Instance`` is one sample's fields with attribute access; ``InstanceList``
-collates samples, zero-padding array fields along dim 0 to fixed per-key
-lengths (``pad_sizes``).  Padded feature rows are all-zero, which the
-padding-mask convention flags (models/masks.py)."""
+(and ``collate_fn``, its one-call form) collates samples, zero-padding
+array fields along dim 0 to fixed per-key lengths (``pad_sizes``).  Padded
+feature rows are all-zero, which the padding-mask convention flags
+(models/masks.py)."""
 
 from __future__ import annotations
 
@@ -97,3 +98,9 @@ class InstanceList(dict):
             for k, v in self.items()
             if isinstance(v, np.ndarray) and v.dtype.kind in "biufc"
         }
+
+
+def collate_fn(samples: List[Instance], pad_sizes: Optional[Dict[str, int]] = None
+               ) -> InstanceList:
+    """``InstanceList(samples, pad_sizes)``: a loader's collate function."""
+    return InstanceList(samples, pad_sizes=pad_sizes)

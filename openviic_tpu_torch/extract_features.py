@@ -2,7 +2,7 @@
 (the counterpart of the JAX package's ``scripts/extract_features.py``):
 
     python -m openviic_tpu_torch.extract_features --image-dir DIR --out DIR
-        [--annotations ann.json] [--backbone patch] [--grid 7] [--dim 512]
+        [--annotations ann.json] [--backbone patch|hf:<vit>] [--grid 7] [--dim 512]
         [--region-boxes boxes.json] [--pixel-boxes] [--grid-as-regions] [--cpu]
 
 It walks an image directory (or a COCO-style annotations JSON's
@@ -47,9 +47,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--image-dir", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--annotations", help="COCO-style JSON with images[]")
-    ap.add_argument("--backbone", default="patch", help="'patch'")
+    ap.add_argument("--backbone", default="patch",
+                    help="'patch' or 'hf:<ViT directory or hub name in the local cache>'")
     ap.add_argument("--grid", type=int, default=7)
-    ap.add_argument("--dim", type=int, default=512, help="feature dim for the patch backbone")
+    ap.add_argument("--dim", type=int, default=None,
+                    help="feature dim: the patch backbone's (default 512); for hf:, the width "
+                         "the ViT must have (default: its own)")
     ap.add_argument("--region-boxes", help="JSON {image_id: [[x1,y1,x2,y2], ...]}")
     ap.add_argument("--pixel-boxes", action="store_true",
                     help="region boxes are in pixels (default: normalized)")
@@ -66,7 +69,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     try:
         backbone = make_backbone(args.backbone, args.grid, args.dim,
                                  device="cpu" if args.cpu else "cuda")
-    except (ValueError, NotImplementedError) as e:
+    except (ValueError, RuntimeError, FileNotFoundError, KeyError) as e:
         ap.error(str(e))
 
     region_boxes = {}

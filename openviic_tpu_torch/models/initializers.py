@@ -22,7 +22,13 @@ rescaled to variance 1 / fan_in; ``LecunLinear``) with zero biases, and
 ``torch_embedding_init``'s N(0, 1) embeddings.  ``LSTMTextEmbedding``'s
 cell keeps Flax's ``OptimizedLSTMCell`` schemes: lecun-normal input
 kernels, orthogonal recurrent kernels (``OrthogonalLinear``), zero
-biases."""
+biases.
+
+The JAX module's functions (``torch_linear_kernel``, ``torch_linear_bias``,
+``normal_stddev``, ``torch_embedding_init``) return Flax initialisers that
+``model.init`` calls with a PRNG key; here the same draws are the layers'
+``reset_with`` and ``normal_init``, which ``initialize`` runs (``build_model``
+calls it)."""
 
 from __future__ import annotations
 

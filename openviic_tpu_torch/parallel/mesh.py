@@ -36,7 +36,12 @@ the collectives are written out (``parallel/collectives.py``).
 ``make_mesh()`` with no arguments is the data axis over every rank of the
 group (one rank without one).  Without a process group every axis has size
 1 and every collective is skipped: the steps are then the single-process
-run of the same arithmetic."""
+run of the same arithmetic.
+
+The JAX module's ``batch_sharding`` and ``replicate_sharding`` build
+``NamedSharding`` specs, which exist only for JAX's global arrays; here
+``batch_shard`` takes a rank's slice of the batch and ``shard_state``
+replicates what the data axis does not shard."""
 
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ counterpart of the JAX package's ``serve.py``):
 
     python -m openviic_tpu_torch.serve --config-file <yaml>
         [--checkpoint-dir DIR] [--host 127.0.0.1] [--port 8080] [--beam N]
-        [--batch 32] [--max-wait-ms 10] [--backbone patch] [--grid 7] [--cpu]
+        [--batch 32] [--max-wait-ms 10] [--backbone patch|hf:<vit>] [--grid 7] [--cpu]
         [KEY VALUE ...]
 
 Endpoints (``openviic_tpu_torch/server.py``): ``POST /caption`` (an image
@@ -32,7 +32,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--beam", type=int, default=None)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
-    ap.add_argument("--backbone", default="patch", help="image feature backbone: 'patch'")
+    ap.add_argument("--backbone", default="patch",
+                    help="image feature backbone: 'patch' or 'hf:<ViT directory or hub name "
+                         "in the local cache>'")
     ap.add_argument("--grid", type=int, default=7)
     ap.add_argument("--cpu", action="store_true", help="serve on the CPU, not the card")
     ap.add_argument("opts", nargs="*", help="dotted config overrides")

@@ -23,11 +23,15 @@ from openviic_tpu.compat import convert_torch_state_dict as jax_convert
 from openviic_tpu.compat.migrate import convert_torch_adam_state as jax_adam_state
 from openviic_tpu.compat.migrate import load_reference_vocab as jax_load_reference_vocab
 from openviic_tpu.compat.torch_import import _ref_key
+from openviic_tpu.compat.torch_import import load_reference_checkpoint as jax_load_checkpoint
 from openviic_tpu.config import ConfigNode as JaxConfigNode
 from openviic_tpu_torch.builders import build_model as build_port_model
 from openviic_tpu_torch.compat import migrate
 from openviic_tpu_torch.compat.from_jax import state_dict_from_jax, torch_name
-from openviic_tpu_torch.compat.torch_import import convert_torch_state_dict
+from openviic_tpu_torch.compat.torch_import import (
+    convert_torch_state_dict,
+    load_reference_checkpoint,
+)
 from openviic_tpu_torch.config import ConfigNode
 from openviic_tpu_torch.data.vocab import Vocab
 from openviic_tpu_torch.serving import CaptioningPipeline
@@ -105,6 +109,34 @@ def test_flagship_reference_state_dict_imports_as_in_jax():
              "caption_tokens": make_captions(vocab, 3, seed=1)}
     params, jax_model, port = _both_imports(model_config().to_dict(), vocab, sd, batch)
     _assert_forwards_equal(jax_model, params, port, batch, vocab)
+
+
+@pytest.mark.parametrize("wrapped", [True, False], ids=["state_dict", "bare"])
+def test_load_reference_checkpoint_equals_jax(tmp_path, wrapped):
+    """A ``.pth`` from ``torch.save`` (the state_dict under ``state_dict``
+    beside the trainer's keys, or alone) read by both packages'
+    ``load_reference_checkpoint``: (weights, missing, unused) in JAX's
+    order, the port's weights JAX's carried through ``from_jax`` bit for
+    bit."""
+    vocab = make_vocab()
+    sd = reference_named_state_dict(vocab)
+    sd["decoder.stray.weight"] = torch.zeros(2)
+    path = tmp_path / "best_model.pth"
+    torch.save({"state_dict": sd, "epoch": 3, "use_rl": False} if wrapped else sd, path)
+    batch = {"region_features": make_features(2, seed=1),
+             "caption_tokens": make_captions(vocab, 2, seed=1)}
+    jax_model = build_jax_model(JaxConfigNode(model_config().to_dict()), vocab)
+    params, jax_missing, jax_unused = jax_load_checkpoint(str(path),
+                                                          _template(jax_model, batch))
+    port = build_port_model(ConfigNode(model_config().to_dict()), vocab, device="cpu",
+                            init=False)
+    weights, missing, unused = load_reference_checkpoint(str(path), port)
+    assert missing == jax_missing == []
+    assert unused == jax_unused == ["decoder.stray.weight"]
+    want = state_dict_from_jax(_flat(params), port)
+    assert weights.keys() == want.keys()
+    for name in want:
+        torch.testing.assert_close(weights[name], want[name], rtol=0, atol=0, msg=name)
 
 
 @pytest.mark.parametrize("family", ["meshed_memory", "ort", "dlct"])

@@ -16,10 +16,11 @@ from openviic_tpu.config import ConfigNode as JaxConfigNode
 from openviic_tpu.data import datasets as jax_datasets
 from openviic_tpu.data import loader as jax_loader
 from openviic_tpu.data.instance import Instance as JaxInstance
+from openviic_tpu.data.instance import collate_fn as jax_collate_fn
 from openviic_tpu.data.vocab import Vocab as JaxVocab
 from openviic_tpu_torch.config import ConfigNode
 from openviic_tpu_torch.data import datasets, loader
-from openviic_tpu_torch.data.instance import Instance, InstanceList
+from openviic_tpu_torch.data.instance import Instance, InstanceList, collate_fn
 from openviic_tpu_torch.data.vocab import Vocab, load_vocab
 from tests.conftest import make_dataset_config
 
@@ -228,6 +229,50 @@ def test_loader_max_regions_like_the_trainer(both):
     for g, w in zip(gb, wb):
         assert_items_equal(g, w)
         assert g["region_features"].shape[1] == 16 and g["grid_features"].shape[1] == 16
+
+
+def test_image_dataset_items_equal_jax(tiny_dataset_dir, tmp_path):
+    """``ImageDataset`` over a corpus of PNGs of odd sizes (shrunk and
+    grown to 512 x 512 by cv2's INTER_AREA): every item's image bit-equal
+    to JAX's, its features and captions equal; a missing file is named."""
+    import cv2
+
+    rng = np.random.default_rng(3)
+    with open(tiny_dataset_dir / "test.json") as f:
+        data = json.load(f)
+    for image, shape in zip(data["images"], [(700, 613, 3), (97, 130, 3)]):
+        image["file_name"] = f"photo_{image['id']}.png"
+        cv2.imwrite(str(tmp_path / image["file_name"]),
+                    rng.integers(0, 256, size=shape, dtype=np.uint8))
+    (tmp_path / "images.json").write_text(json.dumps(data))
+    raw = make_dataset_config(tiny_dataset_dir).to_dict()
+    raw["FEATURE_PATH"]["IMAGE"] = str(tmp_path)
+    jax_cfg, cfg = JaxConfigNode(raw), ConfigNode(raw)
+    path = str(tmp_path / "images.json")
+    want = jax_datasets.ImageDataset(path, JaxVocab(jax_cfg), jax_cfg)
+    got = datasets.ImageDataset(path, Vocab.from_config(cfg), cfg)
+    assert len(got) == len(want) == 2
+    for i in range(len(want)):
+        assert_items_equal(got[i], want[i])
+        assert got[i]["image"].shape == (512, 512, 3) and got[i]["image"].dtype == np.uint8
+    (tmp_path / "photo_7.png").unlink()
+    with pytest.raises(FileNotFoundError, match="photo_7.png"):
+        got[1]
+
+
+@pytest.mark.parametrize("pad_sizes", [None, {"region_features": 8}])
+def test_collate_fn_equals_instance_list_and_jax(pad_sizes):
+    rng = np.random.default_rng(5)
+    samples = [dict(region_features=rng.normal(size=(n, 4)).astype(np.float32),
+                    caption_tokens=rng.integers(0, 9, size=6).astype(np.int32), image_id=i)
+               for i, n in enumerate((3, 5, 2))]
+    got = collate_fn([Instance(**x) for x in samples], pad_sizes=pad_sizes)
+    direct = InstanceList([Instance(**x) for x in samples], pad_sizes=pad_sizes)
+    want = jax_collate_fn([JaxInstance(**x) for x in samples], pad_sizes=pad_sizes)
+    assert isinstance(got, InstanceList)
+    for other in (direct, want):
+        assert_items_equal(got.arrays(), other.arrays())
+        assert list(got.image_id) == list(other.image_id)
 
 
 def test_instance_list_access():

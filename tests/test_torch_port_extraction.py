@@ -132,10 +132,14 @@ def test_extract_feature_dict_matches_jax(with_boxes):
         np.testing.assert_allclose(got[key], want[key], atol=FEATURE_ATOL, rtol=0)
 
 
-def test_backbone_specs():
+def test_backbone_specs(monkeypatch, tmp_path):
+    """"patch" builds the patch backbone; "hf:" with a name that is neither a
+    directory nor in the local hub cache raises the JAX package's
+    RuntimeError (nothing is downloaded); any other spec is unknown."""
     assert isinstance(extraction.make_backbone("patch", 3, 11, device="cpu"),
                       extraction.PatchBackbone)
-    with pytest.raises(NotImplementedError, match="transformers"):
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    with pytest.raises(RuntimeError, match="is not in the local cache.*'patch' backbone"):
         extraction.make_backbone("hf:google/vit-base-patch16-224-in21k", 7)
     with pytest.raises(ValueError, match="unknown backbone"):
         extraction.make_backbone("resnet", 7)

@@ -17,9 +17,17 @@ import torch
 
 from openviic_tpu.models.geometry import get_combine_masks as jax_combine_masks
 from openviic_tpu.models.geometry import get_grids_position as jax_grids_position
+from openviic_tpu.models.positional import PositionalEmbedding as JaxPositionalEmbedding
+from openviic_tpu.models.positional import (
+    learned_positional_embedding_init as jax_learned_positional_embedding_init,
+)
 from openviic_tpu.models.positional import sinusoid_positional_embedding as jax_positions
 from openviic_tpu_torch.models.geometry import get_combine_masks, get_grids_position
-from openviic_tpu_torch.models.positional import sinusoid_positional_embedding
+from openviic_tpu_torch.models.positional import (
+    PositionalEmbedding,
+    learned_positional_embedding_init,
+    sinusoid_positional_embedding,
+)
 from tests.torch_port_families import (
     ENCODER_ATOL,
     FAMILIES,
@@ -88,6 +96,40 @@ def test_normalized_positions_match_jax():
                 torch.from_numpy(x), 16, mask=None if m is None else torch.from_numpy(m),
                 **kwargs)
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=POS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fixed_positional_embedding_matches_jax(dtype):
+    """``PositionalEmbedding``: the table bit-equal to JAX's, ``x + pe[:seq]``
+    within 1e-6, promoted to f32 from bf16 as in JAX; no state_dict entry."""
+    import jax
+
+    x = np.random.default_rng(4).normal(size=(2, 11, 16)).astype(np.float32)
+    jax_layer = JaxPositionalEmbedding(16, max_len=40)
+    layer = PositionalEmbedding(16, max_len=40)
+    np.testing.assert_array_equal(layer.pe.numpy(), jax_layer.pe)
+    assert dict(layer.state_dict()) == {}
+    xj = jnp.asarray(x, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    want = jax_layer(xj)
+    got = layer(torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(dtype))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=POS_ATOL, rtol=0)
+
+
+def test_learned_positional_embedding_init_draws_a_standard_normal():
+    """The learned table's draw: the JAX init's shape, and N(0, 1) by its
+    mean and std on both sides (the two random streams differ); a seeded
+    generator repeats it."""
+    import jax
+
+    want = np.asarray(jax_learned_positional_embedding_init(200, 64)(jax.random.PRNGKey(0)))
+    init = learned_positional_embedding_init(200, 64)
+    got = init(torch.Generator().manual_seed(0))
+    assert got.shape == want.shape == (1, 200, 64) and got.dtype == torch.float32
+    for table in (got.numpy(), want):  # 12 800 draws: the mean within 4.5 / sqrt(n)
+        assert abs(table.mean()) < 0.04 and abs(table.std() - 1.0) < 0.03
+    torch.testing.assert_close(init(torch.Generator().manual_seed(0)), got, rtol=0, atol=0)
+    assert init(torch.Generator().manual_seed(0), dtype=torch.float64).dtype == torch.float64
 
 
 @pytest.mark.parametrize("grid_rows", [49, 56], ids=["grid_49", "padded_56"])

@@ -1,6 +1,8 @@
 """The port stands alone: neither ``openviic_tpu_torch`` nor ``chip_smoke.py``
-imports JAX, Flax, Optax, the JAX package, PyYAML, Pillow or Grain at
-import time (the machine with the card has none of them).
+imports JAX, Flax, Optax, the JAX package, PyYAML, Pillow, Grain, OpenCV or
+the HuggingFace packages (transformers, safetensors, huggingface_hub) at
+import time (the machine with the card has none of them; the ``hf:`` ViT
+reads its directory without them).
 
 ``chip_smoke.py --cpu`` runs in a subprocess whose imports of those
 packages raise; a static scan checks every import statement of the port."""
@@ -12,11 +14,14 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml", "PIL", "grain")
+BLOCKED = ("jax", "flax", "optax", "openviic_tpu", "yaml", "PIL", "grain", "cv2",
+           "transformers", "safetensors", "huggingface_hub")
 # PyYAML is imported inside the one function that parses a config file,
-# Pillow inside the one that decodes an image file
+# Pillow inside the one that decodes an image file, OpenCV inside
+# ImageDataset's item read
 LAZY_ALLOWED = {("openviic_tpu_torch/config/loader.py", "yaml"),
-                ("openviic_tpu_torch/data/extraction.py", "PIL")}
+                ("openviic_tpu_torch/data/extraction.py", "PIL"),
+                ("openviic_tpu_torch/data/datasets.py", "cv2")}
 
 _RUNNER = """
 import runpy, sys
@@ -87,7 +92,7 @@ def test_port_modules_never_import_the_jax_stack():
 # the trained-artifact decode, the scorers, XE training, the native
 # scorers' binding, SCST, the data side, the trainer lifecycle, serving, the
 # parallel layouts, the checkpoint backend, the build cache, the word
-# vectors and the host-local launcher
+# vectors, the host-local launcher and the hf: backbone's ViT
 NEW_MODULES = (
     "artifact", "data/preprocess", "data/datasets", "data/vocab", "evaluation/__init__",
     "evaluation/bleu", "evaluation/cider", "evaluation/meteor", "evaluation/meteor15",
@@ -100,6 +105,7 @@ NEW_MODULES = (
     "parallel/collectives", "parallel/tensor_parallel", "parallel/ring_attention",
     "parallel/ulysses", "parallel/pipeline", "parallel/layouts_dryrun", "parallel/gloo_probe",
     "training/orbax_backend", "utils/compile_cache", "data/word_embedding", "parallel/launch",
+    "data/vit",
 )
 
 _IMPORT_ALL = """

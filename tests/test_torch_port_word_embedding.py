@@ -333,6 +333,36 @@ def test_flagship_with_vectors_decodes_as_jax(tmp_path, monkeypatch):
                                rtol=0)
 
 
+def test_bf16_decode_with_vectors_fails_in_jax_and_runs_in_the_port(tmp_path, monkeypatch):
+    """At bf16 JAX's beam search over pretrained ``UsualEmbedding`` vectors
+    raises a TypeError on the default, ``head_kernel`` and
+    ``resident_kernel`` paths: the vectors are an f32 constant
+    (``openviic_tpu/models/text_embedding.py:55-60``), so ``proj``'s output
+    is f32 and meets the bf16 cache in ``dynamic_update_slice``.  The
+    port's ``model.to(dtype)`` casts its ``vectors`` buffer, so its bf16
+    decode runs, with the plain path's tokens on the head, attention and
+    resident kernels' CPU versions too."""
+    import jax.numpy as jnp
+
+    for flag in ("OPENVIIC_PALLAS", "OPENVIIC_FUSED_STEP"):
+        monkeypatch.delenv(flag, raising=False)
+    vocab = vectors_vocab(tmp_path)
+    _, jax_model, params, port = flagship(tmp_path, vocab)
+    feats = {"region_features": make_features(3, seed=4)}
+    for flags in ({}, {"head_kernel": True}, {"resident_kernel": True}):
+        with pytest.raises(TypeError, match="dynamic_update_slice.*bfloat16, float32"):
+            jax.jit(lambda p, b: jax_beam_search(
+                jax_model, p, b, beam_size=BEAM, out_size=BEAM, compute_dtype=jnp.bfloat16,
+                **flags))(params, _jax(feats))
+    plain = beam_search(port, _torch(feats), beam_size=BEAM, out_size=BEAM,
+                        compute_dtype=torch.bfloat16)
+    assert np.isfinite(plain[1].float().numpy()).all()
+    for flags in ({"head_kernel": True, "attn_kernel": True}, {"resident_kernel": True}):
+        got = beam_search(port, _torch(feats), beam_size=BEAM, out_size=BEAM,
+                          compute_dtype=torch.bfloat16, **flags)
+        np.testing.assert_array_equal(got[0].numpy(), plain[0].numpy())
+
+
 def test_raw_file_fallback_takes_rows_by_token_id_on_both_sides(tmp_path):
     """With ``TEXT_EMBEDDING.WORD_EMBEDDING`` set and no vectors in the
     vocab, JAX's ``UsualEmbedding`` gathers rows of the raw vector file by
